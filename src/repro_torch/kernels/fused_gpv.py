@@ -1,0 +1,160 @@
+"""The fused device-resident GPV data plane.
+
+A device-backed switch segment (core/inc_map.py:DeviceSegment) keeps its
+registers as an int32 tensor and runs its fp32 verbs as one kernel each:
+
+  - ``fused_addto``: quantize an fp32 update stream and saturating-add it
+    into the contiguous slot range [start, start+n) (the dense GPV
+    transmit);
+  - ``fused_scatter``: the same quantize, then an ordered saturating
+    scatter-add, so duplicate slots saturate exactly like the sequential
+    oracle (runs that are not contiguous, e.g. after LRU re-grants);
+  - ``fused_read``: gather [start, start+n) and dequantize by the fp32
+    reciprocal, with the overflow-sentinel mask (the device Get reply).
+
+On the card these are the hand-written kernels of ``csrc/fused_gpv.cu``,
+replacing ``repro/kernels/fused_gpv.py``'s ``fused_addto_pallas``,
+``fused_scatter_pallas`` and ``fused_read_pallas``. A CPU tensor takes the
+plain version beside each wrapper. ``fused_addto`` and ``fused_scatter``
+update ``regs`` IN PLACE and return it.
+"""
+from __future__ import annotations
+
+import ctypes
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.sparse_addto import (check_scatter_args,
+                                              scatter_scratch)
+from repro_torch.obs import hooks as _obs
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+SIGNATURES = {
+    "repro_fused_addto": (_P, _I, _P, _I, _F, _P),
+    "repro_fused_read": (_P, _I, _I, _F, _P, _P, _P),
+    "repro_fused_scatter": (_P, _I, _P, _P, _I, _F, _P, _P, _P),
+}
+
+
+def _f32(scale) -> float:
+    """The fp32 value of ``scale``, as the kernels see it."""
+    return float(np.float32(scale))
+
+
+def _launch(fn: str, *args) -> None:
+    lib = build.load("fused_gpv", SIGNATURES)
+    err = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
+
+
+def _check_range(regs: torch.Tensor, start: int, n: int) -> None:
+    if regs.dtype != torch.int32 or regs.dim() != 1:
+        raise TypeError("regs must be a 1-D int32 tensor")
+    if not regs.is_contiguous():
+        raise ValueError("regs must be contiguous")
+    if regs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for {regs.device.type} tensors")
+    if start < 0 or start + n > regs.numel():
+        raise ValueError(f"slot range [{start}, {start + n}) outside the "
+                         f"{regs.numel()}-slot segment")
+
+
+# -- plain versions -----------------------------------------------------------
+
+def fused_addto_plain(regs, start: int, fvals, scale):
+    n = fvals.numel()
+    q = ref.quantize(fvals, scale)
+    regs[start:start + n] = ref.sat_add(regs[start:start + n], q)
+    return regs
+
+
+def fused_scatter_plain(regs, idx, fvals, scale):
+    return ref.sparse_addto(regs, idx, ref.quantize(fvals, scale))
+
+
+def fused_read_plain(regs, start: int, n: int, scale):
+    return ref.dequantize(regs[start:start + n], scale)
+
+
+# -- kernel wrappers ----------------------------------------------------------
+
+def fused_addto(regs: torch.Tensor, start: int, fvals: torch.Tensor,
+                scale) -> torch.Tensor:
+    """regs: int32 (n_slots,); fvals: fp32 (n,). Saturating-adds
+    ``quantize(fvals, scale)`` over slots [start, start+n) IN PLACE and
+    returns ``regs``."""
+    n = fvals.numel()
+    _check_range(regs, start, n)
+    if fvals.dtype != torch.float32 or not fvals.is_contiguous() \
+            or fvals.device != regs.device:
+        raise TypeError("fvals must be contiguous fp32 on regs' device")
+    if regs.device.type == "cpu":
+        fused_addto.plain_calls += 1
+        return fused_addto_plain(regs, start, fvals, scale)
+    if n == 0:
+        return regs
+    t0 = time.perf_counter() if _obs.METRICS else 0.0
+    with torch.cuda.device(regs.device):
+        _launch("repro_fused_addto", regs.data_ptr(), start,
+                fvals.data_ptr(), n, _f32(scale))
+    fused_addto.launches += 1
+    if _obs.METRICS:
+        _obs.kernel_launch("fused_addto", n, t0)
+    return regs
+
+
+def fused_scatter(regs: torch.Tensor, idx: torch.Tensor,
+                  fvals: torch.Tensor, scale) -> torch.Tensor:
+    """regs: int32 (n_slots,); idx: int32 (k,) in [0, n_slots); fvals:
+    fp32 (k,). Quantizes the stream, then applies the saturating
+    scatter-add in stream order, IN PLACE; returns ``regs``."""
+    check_scatter_args(regs, idx, fvals, torch.float32)
+    if regs.device.type == "cpu":
+        fused_scatter.plain_calls += 1
+        return fused_scatter_plain(regs, idx, fvals, scale)
+    k = idx.numel()
+    if k == 0:
+        return regs
+    t0 = time.perf_counter() if _obs.METRICS else 0.0
+    words, unsafe = scatter_scratch(regs, k)
+    with torch.cuda.device(regs.device):
+        _launch("repro_fused_scatter", regs.data_ptr(), regs.numel(),
+                idx.data_ptr(), fvals.data_ptr(), k, _f32(scale),
+                words.data_ptr(), unsafe.data_ptr())
+    fused_scatter.launches += 1
+    if _obs.METRICS:
+        _obs.kernel_launch("fused_scatter", k, t0)
+    return regs
+
+
+def fused_read(regs: torch.Tensor, start: int, n: int, scale
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """regs: int32 (n_slots,) -> (fp32 values (n,), bool sentinel mask
+    (n,)) of slots [start, start+n), on regs' device. Values are
+    ``q.f32 * (1 / float32(scale))``, bit for bit the host fallback's."""
+    _check_range(regs, start, n)
+    if regs.device.type == "cpu":
+        fused_read.plain_calls += 1
+        return fused_read_plain(regs, start, n, scale)
+    out = torch.empty(n, dtype=torch.float32, device=regs.device)
+    mask = torch.empty(n, dtype=torch.bool, device=regs.device)
+    if n == 0:
+        return out, mask
+    inv = float(np.float32(1.0) / np.float32(scale))
+    t0 = time.perf_counter() if _obs.METRICS else 0.0
+    with torch.cuda.device(regs.device):
+        _launch("repro_fused_read", regs.data_ptr(), start, n, inv,
+                out.data_ptr(), mask.data_ptr())
+    fused_read.launches += 1
+    if _obs.METRICS:
+        _obs.kernel_launch("fused_read", n, t0)
+    return out, mask
+
+
+for _fn in (fused_addto, fused_scatter, fused_read):
+    _fn.launches = 0        # kernel launches on the card
+    _fn.plain_calls = 0     # CPU tensors sent to the plain version

@@ -1,0 +1,248 @@
+"""Dispatching wrappers around the INC kernel family.
+
+The switch memory (core/inc_map.py) calls these. A register segment is
+either a numpy array (a host segment of a CPU switch, updated by the
+exact numpy host kernels below) or an int32 tensor (every segment of a
+CUDA switch, and device-resident segments everywhere), updated by the
+kernel wrappers of ``fused_gpv`` and ``sparse_addto``: the hand-written
+kernel for a CUDA tensor, the plain version for a CPU tensor.
+
+Tensor wrappers update the segment in place and return it, so callers
+keep assigning the result back (``seg.regs = ops.sparse_addto(...)``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import fused_gpv
+from repro_torch.kernels import sparse_addto as _sparse
+from repro_torch.kernels.constants import SAT_MAX
+from repro_torch.kernels.ref import _sat_add_scalar
+
+# every kernel wrapper of the slice, for launch accounting
+KERNELS = {"fused_addto": fused_gpv.fused_addto,
+           "fused_scatter": fused_gpv.fused_scatter,
+           "fused_read": fused_gpv.fused_read,
+           "sparse_addto": _sparse.sparse_addto}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches on the card per wrapper since the last reset."""
+    return {k: fn.launches for k, fn in KERNELS.items()}
+
+
+def plain_counts() -> dict[str, int]:
+    """Calls each wrapper sent to its plain version (CPU tensors)."""
+    return {k: fn.plain_calls for k, fn in KERNELS.items()}
+
+
+def reset_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+        fn.plain_calls = 0
+
+
+# -- numpy host kernels (the CPU switch's host segments) ----------------------
+
+def fold_stream_host(logical: np.ndarray, vals: np.ndarray | None = None
+                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray | None]:
+    """Fold a duplicate-keyed update stream into per-key aggregates.
+
+    Returns ``(keys, counts, sums)`` where ``keys`` holds each distinct
+    address in FIRST-OCCURRENCE order (the order ``Counter.update(stream)``
+    would insert them — the INC-map LRU breaks most_common ties by that
+    insertion order, so the fold must preserve it), ``counts`` the number
+    of occurrences, and ``sums`` the per-key value totals (``None`` when
+    ``vals`` is ``None``).
+
+    Already-strictly-increasing streams (the dense tensor-index case) skip
+    the sort entirely.
+    """
+    logical = np.asarray(logical)
+    n = len(logical)
+    if n == 0:
+        empty = np.zeros(0, logical.dtype if logical.dtype.kind in "iu"
+                         else np.int64)
+        return empty, np.zeros(0, np.int64), \
+            (np.zeros(0, np.int64) if vals is not None else None)
+    if vals is not None:
+        vals = np.asarray(vals, np.int64)
+    if n == 1 or bool((np.diff(logical.astype(np.int64)) > 0).all()):
+        return logical, np.ones(n, np.int64), vals
+    uniq, first, inv, cnt = np.unique(logical, return_index=True,
+                                      return_inverse=True,
+                                      return_counts=True)
+    order = np.argsort(first, kind="stable")
+    sums = None
+    if vals is not None:
+        sums = np.zeros(len(uniq), np.int64)
+        np.add.at(sums, inv, vals)
+        sums = sums[order]
+    return uniq[order], cnt[order].astype(np.int64), sums
+
+
+def fold_rounds(qrounds: list[np.ndarray]) -> np.ndarray:
+    """Fold N quantized addTo rounds into one switch-bound update: one
+    exact int64 reduction over the stacked rounds (client-side local
+    aggregation, ``Agg[...](local_accum=N)``)."""
+    if len(qrounds) == 1:
+        return np.asarray(qrounds[0], np.int64)
+    return np.add.reduce(np.stack([np.asarray(q, np.int64)
+                                   for q in qrounds]), axis=0)
+
+
+def device_fold_rounds(frounds: list, scale):
+    """The ``device=True`` lane of ``local_accum`` (the fused fold kernel)
+    is not ported yet."""
+    raise NotImplementedError("fused_fold: later slice")
+
+
+def dense_addto_host(regs: np.ndarray, start: int,
+                     val: np.ndarray) -> np.ndarray:
+    """Saturating add of a contiguous update run — result-identical to
+    ``sparse_addto_host(regs, arange(start, start+len(val)), val)`` but
+    slice arithmetic instead of fancy gather/scatter. MUTATES ``regs`` in
+    place and returns it."""
+    n = len(val)
+    if n == 0:
+        return regs
+    cur = regs[start:start + n].astype(np.int64)
+    val = np.asarray(val, np.int64)
+    safe = np.abs(cur) + np.abs(val) <= SAT_MAX
+    new = cur + np.where(safe, val, 0)
+    for i in np.nonzero(~safe)[0]:
+        new[i] = _sat_add_scalar(int(cur[i]), int(val[i]))
+    regs[start:start + n] = new.astype(np.int32)
+    return regs
+
+
+def sparse_addto_host(regs: np.ndarray, idx: np.ndarray,
+                      val: np.ndarray) -> np.ndarray:
+    """Numpy sparse_addto, result-identical to the sequential oracle;
+    MUTATES ``regs`` in place and returns it.
+
+    A slot for which |reg| + sum|val| stays within the SAT range can never
+    produce (or have started from) a sentinel at any prefix of the update
+    stream, so its updates collapse to one segment-sum; only updates to
+    the remaining slots run the exact scalar loop.
+    """
+    idx = np.asarray(idx, np.int64)
+    val = np.asarray(val, np.int64)
+    if len(idx) == 0:
+        return regs
+    if len(idx) == 1 or bool((np.diff(idx) > 0).all()):
+        # strictly increasing => every slot gets exactly ONE update, so the
+        # sequential order is vacuous: a masked saturating add
+        cur = regs[idx].astype(np.int64)
+        safe = np.abs(cur) + np.abs(val) <= SAT_MAX
+        new = cur + np.where(safe, val, 0)
+        for i in np.nonzero(~safe)[0]:
+            new[i] = _sat_add_scalar(int(cur[i]), int(val[i]))
+        regs[idx] = new.astype(np.int32)
+        return regs
+    touched = np.unique(idx)
+    pos = np.searchsorted(touched, idx)     # update -> touched-slot index
+    cur = regs[touched].astype(np.int64)
+    abs_sum = np.zeros(len(touched), np.int64)
+    np.add.at(abs_sum, pos, np.abs(val))
+    safe = np.abs(cur) + abs_sum <= SAT_MAX         # -SAT_MIN == SAT_MAX
+    safe_upd = safe[pos]
+    sums = np.zeros(len(touched), np.int64)
+    np.add.at(sums, pos[safe_upd], val[safe_upd])
+    new = cur + sums
+    for i in np.nonzero(~safe_upd)[0]:      # exact order where it matters
+        t = pos[i]
+        new[t] = _sat_add_scalar(int(new[t]), int(val[i]))
+    regs[touched] = new.astype(np.int32)
+    return regs
+
+
+# -- dispatchers --------------------------------------------------------------
+
+def zeros_regs(n_slots: int, device: torch.device, resident: bool = False):
+    """A fresh register segment: an int32 tensor on a CUDA switch or when
+    the segment is device-resident, numpy on a CPU switch's host lane."""
+    if resident or device.type != "cpu":
+        return torch.zeros(n_slots, dtype=torch.int32, device=device)
+    return np.zeros(n_slots, np.int32)
+
+
+def _on(regs: torch.Tensor, x, dtype) -> torch.Tensor:
+    """``x`` (numpy or tensor) as a contiguous tensor on regs' device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=regs.device, dtype=dtype).contiguous()
+    return torch.from_numpy(np.ascontiguousarray(x)).to(
+        device=regs.device, dtype=dtype)
+
+
+def _check_slots(idx, n_slots: int) -> None:
+    idx = np.asarray(idx)
+    if len(idx) and (int(idx.min()) < 0 or int(idx.max()) >= n_slots):
+        raise IndexError(f"slot index outside the {n_slots}-slot segment")
+
+
+def sparse_addto(regs, idx, val):
+    """Sequential saturating scatter-add of (idx, val) pairs into regs.
+
+    numpy ``regs``: the exact host kernel, in place when writable. Tensor
+    ``regs``: the sparse_addto kernel wrapper, in place. Callers treat the
+    return value as the new register file either way.
+    """
+    if isinstance(regs, np.ndarray):
+        if not regs.flags.writeable:
+            regs = np.array(regs, np.int32)
+        return sparse_addto_host(regs, np.asarray(idx), np.asarray(val))
+    _check_slots(idx, regs.numel())
+    return _sparse.sparse_addto(regs, _on(regs, idx, torch.int32),
+                                _on(regs, val, torch.int32))
+
+
+def sparse_addto_bucketed(regs, idx, val):
+    """sparse_addto that skips an empty stream. (The reference pads the
+    device stream to power-of-two buckets to bound its jit cache; eager
+    kernels need no padding.)"""
+    if len(idx) == 0:
+        return regs
+    return sparse_addto(regs, idx, val)
+
+
+# -- device-resident GPV lane -------------------------------------------------
+#
+# These serve core/inc_map.py:DeviceSegment, whose regs are always a
+# tensor: the kernel on the card, the plain version on the CPU.
+
+def device_addto_dense(regs: torch.Tensor, start: int, fvals,
+                       scale) -> torch.Tensor:
+    """Fused quantize + saturating add of an fp32 stream over the
+    contiguous slot range [start, start+len)."""
+    if len(fvals) == 0:
+        return regs
+    return fused_gpv.fused_addto(regs, start,
+                                 _on(regs, fvals, torch.float32), scale)
+
+
+def device_addto_scatter(regs: torch.Tensor, idx, fvals,
+                         scale) -> torch.Tensor:
+    """Fused quantize + ordered saturating scatter-add of an fp32 stream;
+    duplicate addresses accumulate in stream order, exactly like the host
+    sequential oracle."""
+    if len(idx) == 0:
+        return regs
+    _check_slots(idx, regs.numel())
+    return fused_gpv.fused_scatter(regs, _on(regs, idx, torch.int32),
+                                   _on(regs, fvals, torch.float32), scale)
+
+
+def device_addto_int(regs: torch.Tensor, idx, vals) -> torch.Tensor:
+    """Saturating scatter-add of an already-quantized int32 stream into a
+    device register file — the int lane of a DeviceSegment (spill
+    restores, clear write-backs, host-quantized fallbacks)."""
+    return sparse_addto_bucketed(regs, idx, vals)
+
+
+def device_read_dense(regs: torch.Tensor, start: int, n: int, scale
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused gather + dequantize of slots [start, start+n) -> (fp32
+    values, bool overflow-sentinel mask), both on regs' device."""
+    return fused_gpv.fused_read(regs, start, n, scale)

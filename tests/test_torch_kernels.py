@@ -1,0 +1,232 @@
+"""The port's four register-file kernels against the JAX package.
+
+CPU lane: seeded numpy inputs go through the Pallas kernel (interpret
+mode) and through the port's wrapper on CPU tensors, which runs the plain
+PyTorch version. Ints and masks must be equal, fp32 reads bitwise equal.
+
+CUDA lane (marker ``cuda``, skipped without a card): the hand-written
+kernel against its plain version on the same tensors on the card. The
+card's machine has no JAX, so the JAX package is imported only inside
+the CPU-lane tests; ``pytest -m cuda`` there never imports it.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import fused_gpv, ops, ref
+from repro_torch.kernels import sparse_addto as tsparse
+from repro_torch.kernels.constants import (INT32_MAX, INT32_MIN, SAT_MAX,
+                                           SAT_MIN)
+
+N_SLOTS = 256
+K = 512
+EDGES = np.array([2147483520, 2.0 ** 31, -2.0 ** 31, 2147483904,
+                  -2147483904], np.float32)
+HALVES = np.array([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 1e-9, -1e-9],
+                  np.float32)
+REG_EDGES = np.array([INT32_MAX, INT32_MIN, SAT_MAX, SAT_MIN, -2 ** 31, 0],
+                     np.int64)
+
+
+def _regs(rng, n=N_SLOTS, sentinels=True):
+    regs = rng.randint(-10 ** 6, 10 ** 6, n).astype(np.int64)
+    if sentinels:
+        pos = rng.choice(n, len(REG_EDGES), replace=False)
+        regs[pos] = REG_EDGES
+    return regs.astype(np.int32)
+
+
+def _fvals(rng, n, scale):
+    """fp32 stream mixing ordinary values, halfway cases and values that
+    quantize onto and past the sentinel edges at ``scale``."""
+    f = (rng.randn(n) * 50).astype(np.float32)
+    pos = rng.choice(n, min(n, 16), replace=False)
+    extra = np.concatenate([HALVES / np.float32(scale),
+                            EDGES / np.float32(scale)])
+    f[pos[:len(extra)]] = extra[:len(pos)]
+    return f
+
+
+def _jax():
+    """(jnp, the four Pallas kernels) of the JAX package."""
+    import jax.numpy as jnp
+    from repro.kernels.fused_gpv import (fused_addto_pallas,
+                                         fused_read_pallas,
+                                         fused_scatter_pallas)
+    from repro.kernels.sparse_addto import sparse_addto_pallas
+    return (jnp, fused_addto_pallas, fused_scatter_pallas, fused_read_pallas,
+            sparse_addto_pallas)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("scale", [1, 10 ** 4])
+def test_fused_addto_matches_pallas(seed, scale):
+    jnp, fused_addto_pallas, *_ = _jax()
+    rng = np.random.RandomState(seed)
+    regs = _regs(rng)
+    start, n = 17, 160
+    f = _fvals(rng, n, scale)
+    want = np.asarray(fused_addto_pallas(jnp.asarray(regs), start,
+                                         jnp.asarray(f), scale,
+                                         interpret=True))
+    got = fused_gpv.fused_addto(_t(regs), start, _t(f), scale)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_quantize_sentinel_edges_scale_one():
+    """The fp32 threshold trap: 2**31 saturates to the +sentinel, -2**31
+    stores -2147483648 (no sentinel), beyond either edge the sentinels."""
+    jnp, fused_addto_pallas, *_ = _jax()
+    got = ref.quantize(_t(EDGES), 1).tolist()
+    assert got == [2147483520, 2147483647, -2147483648, 2147483647,
+                   -2147483647]
+    want = np.asarray(fused_addto_pallas(
+        jnp.zeros(len(EDGES), jnp.int32), 0, jnp.asarray(EDGES), 1,
+        interpret=True)).tolist()
+    assert got == want
+    assert ref.quantize(_t(np.array([np.nan, np.inf, -np.inf], np.float32)),
+                        1).tolist() == [0, INT32_MAX, INT32_MIN]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_fused_scatter_matches_pallas(seed):
+    jnp, _, fused_scatter_pallas, *_ = _jax()
+    rng = np.random.RandomState(seed)
+    regs = _regs(rng)
+    scale = 100
+    idx = rng.randint(0, 24, K).astype(np.int32)     # heavy duplicates
+    f = _fvals(rng, K, scale)
+    f[rng.choice(K, 40, replace=False)] = np.float32(1.5e7)   # saturates
+    idx[-32:], f[-32:] = 0, 0.0                      # (idx 0, 0.0) padding
+    want = np.asarray(fused_scatter_pallas(
+        jnp.asarray(regs), jnp.asarray(idx), jnp.asarray(f), scale,
+        interpret=True))
+    got = fused_gpv.fused_scatter(_t(regs), _t(idx), _t(f), scale)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("scale", [1, 10 ** 8])
+def test_fused_read_matches_pallas(seed, scale):
+    jnp, _, _, fused_read_pallas, _ = _jax()
+    rng = np.random.RandomState(seed)
+    regs = _regs(rng)
+    start, n = 40, 200
+    wv, wm = fused_read_pallas(jnp.asarray(regs), start, n, scale,
+                               interpret=True)
+    gv, gm = fused_gpv.fused_read(_t(regs), start, n, scale)
+    assert gv.dtype == torch.float32 and gm.dtype == torch.bool
+    np.testing.assert_array_equal(_bits(gv.numpy()), _bits(wv))
+    np.testing.assert_array_equal(gm.numpy(), np.asarray(wm))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_sparse_addto_matches_pallas(seed):
+    jnp, *_, sparse_addto_pallas = _jax()
+    rng = np.random.RandomState(seed)
+    regs = _regs(rng, 16)
+    idx = rng.randint(0, 16, K).astype(np.int32)
+    val = rng.choice([-3, -1, 0, 1, 3, SAT_MAX // 2, SAT_MIN // 2,
+                      INT32_MAX, INT32_MIN, 10 ** 6], K).astype(np.int32)
+    idx[-16:], val[-16:] = 0, 0                      # (idx 0, 0) padding
+    want = np.asarray(sparse_addto_pallas(
+        jnp.asarray(regs), jnp.asarray(idx), jnp.asarray(val),
+        interpret=True))
+    got = tsparse.sparse_addto(_t(regs), _t(idx), _t(val))
+    np.testing.assert_array_equal(got.numpy(), want)
+    host = ops.sparse_addto_host(regs.copy(), idx, val)
+    np.testing.assert_array_equal(host, want)
+
+
+def test_sparse_addto_int32_min_sum_edge():
+    """A sum landing exactly on -2**31 stays raw and unflagged, in the
+    reference kernel and the port alike."""
+    jnp, *_, sparse_addto_pallas = _jax()
+    regs, idx, val = (np.array([SAT_MIN], np.int32),
+                      np.array([0], np.int32), np.array([-2], np.int32))
+    want = np.asarray(sparse_addto_pallas(
+        jnp.asarray(regs), jnp.asarray(idx), jnp.asarray(val),
+        interpret=True))
+    got = tsparse.sparse_addto(_t(regs), _t(idx), _t(val))
+    assert int(got[0]) == int(want[0]) == -2 ** 31
+
+
+def test_wrappers_reject_bad_arguments_and_count_plain_calls():
+    ops.reset_counts()
+    regs = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        fused_gpv.fused_addto(regs, 0, torch.zeros(2, dtype=torch.float64),
+                              1)
+    with pytest.raises(ValueError):
+        fused_gpv.fused_addto(regs, 7, torch.zeros(2), 1)
+    with pytest.raises(TypeError):
+        tsparse.sparse_addto(regs, torch.zeros(2, dtype=torch.int64),
+                             torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(IndexError):
+        ops.sparse_addto(regs, np.array([8], np.int32),
+                         np.array([1], np.int32))
+    fused_gpv.fused_read(regs, 0, 4, 10)
+    assert ops.plain_counts()["fused_read"] == 1
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+
+
+# -- CUDA lane ----------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(3))
+def test_cuda_fused_addto_and_read_match_plain(cuda, seed):
+    rng = np.random.RandomState(seed)
+    regs = _regs(rng, 40_000)
+    f = _fvals(rng, 40_000, 10 ** 8)
+    for scale in (1, 10 ** 8):
+        got = fused_gpv.fused_addto(_t(regs).to(cuda), 0, _t(f).to(cuda),
+                                    scale)
+        want = fused_gpv.fused_addto_plain(_t(regs).to(cuda), 0,
+                                           _t(f).to(cuda), scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        gv, gm = fused_gpv.fused_read(got, 3, 39_000, scale)
+        wv, wm = fused_gpv.fused_read_plain(got, 3, 39_000, scale)
+        assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+        assert torch.equal(gm, wm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(3))
+def test_cuda_scatters_match_plain(cuda, seed):
+    rng = np.random.RandomState(seed)
+    regs = _regs(rng, 40_000)
+    k = 65_536
+    idx = rng.randint(0, 40_000, k).astype(np.int32)
+    idx[:4096] = rng.randint(0, 64, 4096)            # hot duplicates
+    val = rng.randint(-10 ** 5, 10 ** 5, k).astype(np.int32)
+    val[rng.choice(k, 600, replace=False)] = SAT_MAX // 3   # saturates
+    f = _fvals(rng, k, 100)
+    got = tsparse.sparse_addto(_t(regs).to(cuda), _t(idx).to(cuda),
+                               _t(val).to(cuda))
+    want = tsparse.sparse_addto_plain(_t(regs).to(cuda), _t(idx).to(cuda),
+                                      _t(val).to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    got = fused_gpv.fused_scatter(_t(regs).to(cuda), _t(idx).to(cuda),
+                                  _t(f).to(cuda), 100)
+    want = fused_gpv.fused_scatter_plain(_t(regs).to(cuda),
+                                         _t(idx).to(cuda), _t(f).to(cuda),
+                                         100)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
