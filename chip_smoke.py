@@ -7,14 +7,29 @@
    (one nvcc per source, in parallel); prints the card and the build time.
 2. Kernels: each kernel against its plain PyTorch version on the card, at
    the path's shapes (a 40 000-slot segment, dense n=40 000, scatter
-   k=65 536 with duplicates and saturating values); exact for ints and
-   masks, bitwise for fp32. Times each one and its bound.
-3. Path: the typed INC RPC round trip through ``IncRuntime()`` on the
-   default device, at the paper's switch geometry (32 x 40 000 int32), two
-   workers over four rounds of five services; replies checked against a
-   numpy fixed-point oracle, and replies and register state held bitwise
-   against the same run with ``device="cpu"``. Launch counts are reset
-   just before the card run and read just after it.
+   k=65 536 with duplicates and saturating values; the fused fold at
+   R=8 x n=262 144; sat_add, quantize and dequantize over a 25 MiB fp32
+   gradient bucket, n=6 553 600; sat_add_batch at B=16 x n=40 000), with
+   sentinels and saturating lanes; exact for ints and masks, bitwise for
+   fp32. Times each one and its bound.
+3. Path, phases a-e: the typed INC RPC round trip through ``IncRuntime()``
+   on the default device, at the paper's switch geometry (32 x 40 000
+   int32), two workers over four rounds of five services; replies checked
+   against a numpy fixed-point oracle, and replies and register state
+   held bitwise against the same run with ``device="cpu"``.
+4. Path, phase f: ``Agg[FPArray](device=True, local_accum=8)`` on a
+   262 144-slot partition, two workers of 16 calls each, through the fused
+   fold; replies and register state bitwise equal to the CPU run.
+5. Path, phase g: the SyncAgtr aggregation (``core/inc_agg.py``) of the
+   25 MiB bucket, 1% of its lanes overflowing at precision 8, in all four
+   modes with 1 and 4 streams, on an NCCL mesh of one rank; bitwise equal
+   to the same calls on a gloo group on the CPU.
+6. Path, phase h: the three clear policies at n=40 000, 16 ``addto`` calls
+   and one ``addto_batch`` of 16 with saturating lanes; bitwise equal to
+   the CPU.
+
+Launch counts are set to 0 just before each path run on the card and read
+just after it; every kernel must have launched in the path.
 
 Prints the card's name and power limit, one JSON line of kernel results,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -43,17 +58,31 @@ PHASES = (("a_dense_one_segment", 40_000, 40_000, True, "grad"),
           ("c_quickstart_cntfwd", 65_536, 65_536, True, "quickstart"),
           ("d_host_lane", 262_144, 262_144, False, "grad"),
           ("e_spill_regrant", 131_072, 262_144, True, "grad"))
+LOCAL_ACCUM, LA_SLOTS, LA_CALLS = 8, 262_144, 16     # phase f
+BUCKET = 6_553_600     # 25 MiB fp32: PyTorch DDP's default bucket_cap_mb
+FOLD_ROUNDS, BATCH_ROWS = 8, 16
+MODES = ("xla-psum", "fp32-ring", "netrpc", "netrpc-opt")
 REPLACES = {
     "fused_addto": "src/repro/kernels/fused_gpv.py:67",
     "fused_scatter": "src/repro/kernels/fused_gpv.py:113",
     "fused_read": "src/repro/kernels/fused_gpv.py:189",
     "sparse_addto": "src/repro/kernels/sparse_addto.py:38",
+    "fused_fold": "src/repro/kernels/fused_gpv.py:153",
+    "sat_add": "src/repro/kernels/inc_agg.py:45",
+    "sat_add_batch": "src/repro/kernels/ops.py:125",
+    "quantize": "src/repro/kernels/quantize.py:34",
+    "dequantize": "src/repro/kernels/dequantize.py:30",
 }
 SOURCE = {
     "fused_addto": "src/repro_torch/kernels/csrc/fused_gpv.cu",
     "fused_scatter": "src/repro_torch/kernels/csrc/fused_gpv.cu",
     "fused_read": "src/repro_torch/kernels/csrc/fused_gpv.cu",
     "sparse_addto": "src/repro_torch/kernels/csrc/sparse_addto.cu",
+    "fused_fold": "src/repro_torch/kernels/csrc/fused_gpv.cu",
+    "sat_add": "src/repro_torch/kernels/csrc/inc_agg.cu",
+    "sat_add_batch": "src/repro_torch/kernels/csrc/inc_agg.cu",
+    "quantize": "src/repro_torch/kernels/csrc/quantize.cu",
+    "dequantize": "src/repro_torch/kernels/csrc/dequantize.cu",
 }
 
 
@@ -130,6 +159,61 @@ def kernel_inputs(rng):
     return regs, dense, idx, ivals, fvals
 
 
+def int_stream(rng, shape):
+    """int32 values of gradient size, with both sentinels, the SAT edges,
+    -2**31 and half-range values that overflow when two meet."""
+    q = rng.randint(-10 ** 7, 10 ** 7, shape).astype(np.int64)
+    flat = q.reshape(-1)
+    edges = [2 ** 31 - 1, -(2 ** 31 - 1), 2 ** 31 - 2, -(2 ** 31 - 2),
+             -2 ** 31, 2 ** 30 + 1, -(2 ** 30 + 1)]
+    pos = rng.choice(flat.size, 1024, replace=False)
+    flat[pos] = rng.choice(edges, len(pos))
+    return q.astype(np.int32)
+
+
+def bucket(rng, n=BUCKET) -> np.ndarray:
+    """A gradient bucket: N(0, 0.05^2) fp32 with 1% of its lanes at +-30.0
+    (3e9 at precision 8, past the int32 range), and a few halfway cases."""
+    g = (rng.randn(n) * 0.05).astype(np.float32)
+    lanes = rng.choice(n, n // 100, replace=False)
+    g[lanes] = rng.choice(np.float32([-30.0, 30.0]), len(lanes))
+    g[:4] = np.float32([0.5e-8, 1.5e-8, -2.5e-8, 2.0 ** 31 / 1e8])
+    return g
+
+
+def stream_cases(torch, dev, rng) -> dict:
+    """Kernels 5-8 and sat_add_batch at the path's shapes: (kernel, plain,
+    bytes moved)."""
+    from repro_torch.kernels import dequantize, fused_gpv, inc_agg, quantize
+    scale = 10 ** PRECISION
+    n_fold = LA_SLOTS
+    fstack = (rng.randn(FOLD_ROUNDS, n_fold) * 0.05).astype(np.float32)
+    fstack[:, :256] = 15.0                        # 1.5e9 a round: saturates
+    fstack[3, 256:264] = 2.0 ** 31 / 1e8          # a sentinel mid-fold
+    fstack = torch.from_numpy(fstack).to(dev)
+    x = torch.from_numpy(bucket(rng)).to(dev)
+    a = torch.from_numpy(int_stream(rng, BUCKET)).to(dev)
+    b = torch.from_numpy(int_stream(rng, BUCKET)).to(dev)
+    q = torch.from_numpy(int_stream(rng, BUCKET)).to(dev)
+    acc = torch.from_numpy(int_stream(rng, SEG)).to(dev)
+    qs = torch.from_numpy(int_stream(rng, (BATCH_ROWS, SEG))).to(dev)
+    return {
+        "fused_fold": (lambda: fused_gpv.fused_fold(fstack, scale),
+                       lambda: fused_gpv.fused_fold_plain(fstack, scale),
+                       (4 * FOLD_ROUNDS + 4) * n_fold),
+        "sat_add": (lambda: inc_agg.sat_add(a, b),
+                    lambda: inc_agg.sat_add_plain(a, b), 12 * BUCKET),
+        "sat_add_batch": (lambda: inc_agg.sat_add_batch(acc, qs),
+                          lambda: inc_agg.sat_add_batch_plain(acc, qs),
+                          (4 * BATCH_ROWS + 8) * SEG),
+        "quantize": (lambda: quantize.quantize(x, scale),
+                     lambda: quantize.quantize_plain(x, scale), 8 * BUCKET),
+        "dequantize": (lambda: dequantize.dequantize(q, scale),
+                       lambda: dequantize.dequantize_plain(q, scale),
+                       9 * BUCKET),
+    }
+
+
 def check_kernels(torch) -> list[dict]:
     from repro_torch.kernels import fused_gpv, sparse_addto
     dev = torch.device("cuda")
@@ -171,15 +255,18 @@ def check_kernels(torch) -> list[dict]:
     }
     touched = len(np.unique(idx_np))
     scatter_bytes = SCATTER_K * 8 + touched * 8
+    cases = {k: (*v, reset) for k, v in cases.items()}
+    cases.update({k: (*v, lambda: None)
+                  for k, v in stream_cases(torch, dev, rng).items()})
     out = []
-    for name, (kernel, plain, nbytes) in cases.items():
-        reset()
+    for name, (kernel, plain, nbytes, reset_fn) in cases.items():
+        reset_fn()
         got = kernel()
         got = tuple(t.clone() for t in got) if isinstance(got, tuple) \
             else got.clone()
-        reset()
+        reset_fn()
         want = plain()
-        if name == "fused_read":
+        if isinstance(got, tuple):        # (fp32 values, bool mask)
             same_int(name, got[0].view(torch.int32),
                      want[0].view(torch.int32))
             same_int(name + " mask", got[1], want[1])
@@ -187,8 +274,8 @@ def check_kernels(torch) -> list[dict]:
         else:
             same_int(name, got, want)
             err = float((got.long() - want.long()).abs().max())
-        ms, timer = device_ms(torch, kernel, reset, 50)
-        plain_ms = event_ms(torch, plain, reset, 5)
+        ms, timer = device_ms(torch, kernel, reset_fn, 50)
+        plain_ms = event_ms(torch, plain, reset_fn, 5)
         nbytes = nbytes if nbytes is not None else scatter_bytes
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         print(f"kernel {name}: ok vs plain, ms={ms:.6f} ({timer}) "
@@ -265,18 +352,25 @@ def same(a, b) -> bool:
             and bool(np.isfinite(a).all()) and a.tobytes() == b.tobytes())
 
 
+def runtime(inc, device, seg_slots):
+    """``IncRuntime`` on ``device`` at the paper's geometry, or with
+    smaller segments for a CPU rehearsal."""
+    from repro_torch.core.channel import Controller
+    from repro_torch.core.inc_map import SwitchMemory
+    if seg_slots == SEG:
+        return inc.IncRuntime(device=device)
+    return inc.IncRuntime(controller=Controller(
+        switch=SwitchMemory(32, seg_slots, device=device)))
+
+
 def drive_path(device, *, seg_slots=SEG, scale_down=1):
-    """Every phase through the port's public entry points on ``device``;
+    """Phases a-e through the port's public entry points on ``device``;
     returns (replies, switch state_dict, launches, seconds), the last
     three per phase."""
     import repro_torch.api as inc
-    from repro_torch.core.channel import Controller
-    from repro_torch.core.inc_map import SwitchMemory
     from repro_torch.kernels import ops
     svcs = services(inc)
-    rt = inc.IncRuntime(device=device) if seg_slots == SEG else \
-        inc.IncRuntime(controller=Controller(
-            switch=SwitchMemory(32, seg_slots, device=device)))
+    rt = runtime(inc, device, seg_slots)
     replies, launches, seconds = {}, {}, {}
     try:
         for label, slots, n, dev_lane, kind in PHASES:
@@ -309,14 +403,35 @@ def drive_path(device, *, seg_slots=SEG, scale_down=1):
     return replies, state, launches, seconds
 
 
-def check_path(torch) -> dict:
+def same_state(torch, state, ref_state, what: str) -> None:
+    if state["partitions"] != ref_state["partitions"]:
+        fail(f"{what}: partition tables differ between card and CPU")
+    for s, (a, b) in enumerate(zip(state["regs"], ref_state["regs"])):
+        if not torch.equal(a, b):
+            fail(f"{what}: segment {s} registers differ between card and "
+                 f"CPU")
+
+
+def counted(torch, run, what: str, needs: tuple) -> tuple:
+    """``run()`` on the card with every launch count set to 0 just before
+    and read just after; fails unless each kernel of ``needs`` launched."""
     from repro_torch.kernels import ops
     ops.reset_counts()
     t0 = time.perf_counter()
-    replies, state, per_phase, secs = drive_path(None)
+    result = run()
     torch.cuda.synchronize()
-    card_s = time.perf_counter() - t0
+    secs = time.perf_counter() - t0
     counts = ops.launch_counts()
+    for name in needs:
+        if counts[name] == 0:
+            fail(f"{what} never launched {name}")
+    return result, counts, secs
+
+
+def check_path(torch) -> dict:
+    (replies, state, per_phase, secs), counts, card_s = counted(
+        torch, lambda: drive_path(None), "the path (phases a-e)",
+        ("fused_addto", "fused_read", "sparse_addto", "fused_scatter"))
     for label, c in per_phase.items():
         print(f"path {label}: {secs[label]:.3f} s for {ROUNDS} rounds of "
               f"{WORKERS} calls, launches {c}", flush=True)
@@ -329,17 +444,261 @@ def check_path(torch) -> dict:
         for i, (a, b) in enumerate(zip(replies[label], ref_replies[label])):
             if not same(a, b):
                 fail(f"{label}: reply {i} differs between card and CPU")
-    if state["partitions"] != ref_state["partitions"]:
-        fail("partition tables differ between card and CPU")
-    for s, (a, b) in enumerate(zip(state["regs"], ref_state["regs"])):
-        if not torch.equal(a, b):
-            fail(f"segment {s}: registers differ between card and CPU")
+    same_state(torch, state, ref_state, "phases a-e")
     print("path: replies and registers bitwise equal to the CPU run",
           flush=True)
-    for name in ("fused_addto", "fused_read", "sparse_addto", "fused_scatter"):
-        if counts[name] == 0:
-            fail(f"the path never launched {name}")
     return counts
+
+
+# -- phase f: local_accum on the card -----------------------------------------
+
+def drive_local_accum(device, *, seg_slots=SEG, scale_down=1):
+    """Two workers, LA_CALLS calls each, of a gradient service that folds
+    LOCAL_ACCUM calls into one switch update; returns (the gradients,
+    (LA_CALLS, WORKERS, n) in issue order, the replies per call in issue
+    order, the switch state_dict)."""
+    import repro_torch.api as inc
+
+    @inc.service(app="grad-local-accum", drain=inc.DrainPolicy(
+        max_batch=WORKERS, max_delay=60.0, eager_window=False))
+    class Grad:
+        @inc.rpc(request_msg="NewGrad", reply_msg="AgtrGrad")
+        def Update(self, tensor: inc.Agg[inc.FPArray](
+                precision=PRECISION, clear="copy", device=True,
+                local_accum=LOCAL_ACCUM)
+                ) -> {"tensor": inc.Get[inc.FPArray]}: ...
+
+    n = LA_SLOTS // scale_down
+    rng = np.random.RandomState(6)
+    g = (rng.randn(LA_CALLS, WORKERS, n) * 0.05).astype(np.float32)
+    rt = runtime(inc, device, seg_slots)
+    try:
+        stubs = [rt.make_stub(Grad, n_slots=n) for _ in range(WORKERS)]
+        # issue every call before reading any reply: a read would flush a
+        # partial fold
+        futs = [s.Update(tensor=g[c, w]) for c in range(LA_CALLS)
+                for w, s in enumerate(stubs)]
+        replies = []
+        for f in futs:
+            t = f.result(timeout=600)["tensor"]
+            replies.append(t.cpu().numpy() if hasattr(t, "cpu")
+                           else np.asarray(t))
+        state = rt.controller.switch.state_dict()
+    finally:
+        rt.close()
+    return g, replies, state
+
+
+def local_accum_oracle(g, replies) -> None:
+    """The channel folds every LOCAL_ACCUM consecutive calls, whichever
+    worker made them, and with clear="copy" each call of a cohort gets
+    the cohort's sum, within the fixed-point step of each round."""
+    issued = g.reshape(-1, g.shape[-1]).astype(np.float64)   # issue order
+    for i, rep in enumerate(replies):
+        lo = i - i % LOCAL_ACCUM
+        want = issued[lo:lo + LOCAL_ACCUM].sum(0)
+        if rep.shape != want.shape or not np.all(np.isfinite(rep)) \
+                or not np.all(np.abs(rep - want)
+                              <= LOCAL_ACCUM * 0.5e-8 + 1e-7):
+            fail(f"f_local_accum: reply {i} is not its cohort's sum")
+
+
+def check_local_accum(torch) -> dict:
+    (g, replies, state), counts, secs = counted(
+        torch, lambda: drive_local_accum(None),
+        "phase f (local_accum)", ("fused_fold",))
+    print(f"path f_local_accum: {secs:.3f} s for {LA_CALLS} calls from each "
+          f"of {WORKERS} workers, launches {counts}", flush=True)
+    t0 = time.perf_counter()
+    _, ref_replies, ref_state = drive_local_accum("cpu")
+    print(f"path f_local_accum on the CPU (reference): "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    for i, (a, b) in enumerate(zip(replies, ref_replies)):
+        if not same(a, b):
+            fail(f"f_local_accum: reply {i} differs between card and CPU")
+    same_state(torch, state, ref_state, "phase f")
+    local_accum_oracle(g, replies)
+    print("path f_local_accum: replies and registers bitwise equal to the "
+          "CPU run; each reply is its cohort's sum", flush=True)
+    return counts
+
+
+# -- phase g: the SyncAgtr aggregation ----------------------------------------
+
+def drive_syncagtr(torch, axes, device, g_np) -> tuple[dict, dict]:
+    """all_reduce, and reduce_scatter then all_gather, in every mode with
+    1 and 4 streams; returns (results as numpy, host seconds per mode and
+    stream count, the device's work included, the copies out excluded)."""
+    from repro_torch.core import inc_agg
+    g = torch.from_numpy(g_np).to(device)
+    out, secs = {}, {}
+    for mode in MODES:
+        for ns in (1, 4):
+            cfg = inc_agg.IncAggConfig(mode=mode, precision=PRECISION,
+                                       n_streams=ns)
+            t0 = time.perf_counter()
+            ar, mask = inc_agg.all_reduce(g, axes, cfg)
+            chunk = inc_agg.reduce_scatter(g, axes, cfg)
+            ag = inc_agg.all_gather(chunk, axes, cfg)
+            if g.is_cuda:
+                torch.cuda.synchronize()
+            secs[f"{mode}|{ns}"] = time.perf_counter() - t0
+            for what, t in (("ar", ar), ("mask", mask), ("rs", chunk),
+                            ("ag", ag)):
+                if t is not None:
+                    out[f"{mode}|{ns}|{what}"] = t.cpu().numpy()
+    return out, secs
+
+
+def syncagtr_oracle(g, got) -> int:
+    """One rank: every mode returns the bucket (netrpc-opt within its
+    int8 grid); netrpc flags exactly the lanes whose fp32 product rounds
+    past the int32 range and repairs them to the input. Returns the
+    number of overflowed lanes."""
+    y = np.rint(g * np.float32(10 ** PRECISION))
+    ovf = (y >= 2.0 ** 31) | (y < -2.0 ** 31)
+    for ns in (1, 4):
+        for mode in ("xla-psum", "fp32-ring"):
+            for what in ("ar", "ag"):
+                if got[f"{mode}|{ns}|{what}"].tobytes() != g.tobytes():
+                    fail(f"g_syncagtr: {mode} {what} of one rank is not "
+                         f"its input")
+        mask = got[f"netrpc|{ns}|mask"]
+        ar = got[f"netrpc|{ns}|ar"]
+        if not np.array_equal(mask, ovf) or not np.array_equal(
+                ar[mask], g[mask]) or not np.all(
+                np.abs(ar - g) <= 0.5e-8 + 1e-7 * np.abs(g)):
+            fail("g_syncagtr: netrpc all_reduce of one rank is wrong")
+        amax = np.abs(g).reshape(-1, 128).max(1).repeat(128)
+        if not np.all(np.abs(got[f"netrpc-opt|{ns}|ar"] - g)
+                      <= amax / 127 * 0.5001):
+            fail("g_syncagtr: netrpc-opt is off its int8 grid")
+    return int(ovf.sum())
+
+
+def check_syncagtr(torch) -> dict:
+    import torch.distributed as dist
+
+    from repro_torch import compat
+    store = ROOT / "build" / "chip_smoke" / "store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        card = compat.make_mesh((1,), ("data",)).axes_of(("data",))
+        cpu = compat.make_mesh((1,), ("data",),
+                               device="cpu").axes_of(("data",))
+        g = bucket(np.random.RandomState(7))
+        (got, per_mode), counts, secs = counted(
+            torch, lambda: drive_syncagtr(torch, card, "cuda", g),
+            "phase g (SyncAgtr)", ("quantize", "sat_add", "dequantize"))
+        print(f"path g_syncagtr: {secs:.3f} s for {len(MODES)} modes x "
+              f"(1, 4) streams x (all_reduce, reduce_scatter + all_gather) "
+              f"of {BUCKET} fp32, launches {counts}", flush=True)
+        t0 = time.perf_counter()
+        want, ref_per_mode = drive_syncagtr(torch, cpu, "cpu", g)
+        print(f"path g_syncagtr on the CPU (gloo, reference): "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        print("path g_syncagtr seconds per mode|streams, card (CPU): "
+              + ", ".join(f"{k} {v:.4f} ({ref_per_mode[k]:.4f})"
+                          for k, v in per_mode.items()), flush=True)
+    finally:
+        dist.destroy_process_group()
+    if got.keys() != want.keys():
+        fail("g_syncagtr: the card and the CPU returned different results")
+    for k in got:
+        if got[k].tobytes() != want[k].tobytes():
+            fail(f"g_syncagtr: {k} differs between card and CPU")
+    n_ovf = syncagtr_oracle(g, got)
+    print(f"path g_syncagtr: bitwise equal to the CPU run; {n_ovf} "
+          f"overflowed lanes flagged and repaired", flush=True)
+    print("path g_syncagtr: one card, one rank: the ring runs no hop (its "
+          "sat_add is add(zeros, own)); the multi-rank hops are held on the "
+          "CPU (gloo, world sizes 2 and 4) against the JAX ring in "
+          "tests/test_torch_syncagtr.py; NCCL across ranks needs more than "
+          "one card and is not run here", flush=True)
+    return counts
+
+
+# -- phase h: the clear policies ----------------------------------------------
+
+def drive_clear_policies(torch, device, n=SEG) -> dict:
+    """Each policy: 16 addto calls, a read, one addto_batch of the same 16,
+    a read; int32 updates with saturating lanes and sentinels."""
+    from repro_torch.core.clear_policy import POLICIES, make_clear_policy
+    rng = np.random.RandomState(8)
+    qs = rng.randint(-10 ** 6, 10 ** 6, (BATCH_ROWS, n)).astype(np.int32)
+    qs[:, :64] = 2 ** 29                          # saturates at the 4th add
+    qs[5, 64:72] = [2 ** 31 - 1, -(2 ** 31 - 1)] * 4
+    qs_dev = [torch.from_numpy(q).to(device) for q in qs]
+    out = {}
+    for policy in POLICIES:
+        pol = make_clear_policy(policy, n, device=device)
+        for q in qs_dev:
+            pol.addto(q)
+        out[f"{policy}|addto"] = pol.read_and_clear().cpu().numpy()
+        pol.addto_batch(qs_dev)
+        out[f"{policy}|batch"] = pol.read_and_clear().cpu().numpy()
+        state = pol.state_dict()
+        for k, v in state.items():
+            out[f"{policy}|state|{k}"] = np.asarray(
+                v if k != "stats" else list(v.values()))
+    return out
+
+
+def clear_policy_oracle(got) -> None:
+    """copy and shadow start both reads from a cleared accumulator, so
+    one addto_batch of the 16 updates reads like the 16 addto calls."""
+    for policy in ("copy", "shadow"):
+        if got[f"{policy}|addto"].tobytes() != \
+                got[f"{policy}|batch"].tobytes():
+            fail(f"h_clear_policies: {policy} addto_batch != 16 addto")
+
+
+def check_clear_policies(torch) -> dict:
+    got, counts, secs = counted(
+        torch, lambda: drive_clear_policies(torch, "cuda"),
+        "phase h (clear policies)", ("sat_add", "sat_add_batch"))
+    print(f"path h_clear_policies: {secs:.3f} s, launches {counts}",
+          flush=True)
+    want = drive_clear_policies(torch, "cpu")
+    for k in want:
+        if got[k].tobytes() != want[k].tobytes():
+            fail(f"h_clear_policies: {k} differs between card and CPU")
+    clear_policy_oracle(got)
+    print("path h_clear_policies: bitwise equal to the CPU run", flush=True)
+    return counts
+
+
+def rehearse(scale_down: int = 64) -> None:
+    """Every path phase on the CPU at 1/scale_down of its size, with the
+    plain versions: a rehearsal of the script's control flow and its
+    oracles without the card (it times nothing and compares no card
+    run)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import compat
+    seg = SEG // scale_down
+    drive_path("cpu", seg_slots=seg, scale_down=scale_down)
+    g, replies, _ = drive_local_accum("cpu", seg_slots=seg,
+                                      scale_down=scale_down)
+    local_accum_oracle(g, replies)
+    store = ROOT / "build" / "chip_smoke" / "rehearsal-store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        axes = compat.make_mesh((1,), ("data",),
+                                device="cpu").axes_of(("data",))
+        g = bucket(np.random.RandomState(7), BUCKET // scale_down)
+        syncagtr_oracle(g, drive_syncagtr(torch, axes, "cpu", g)[0])
+    finally:
+        dist.destroy_process_group()
+    clear_policy_oracle(drive_clear_policies(torch, "cpu", seg))
+    print("rehearsal: phases a-h ran on the CPU and met their oracles")
 
 
 def main() -> int:
@@ -359,7 +718,11 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s ({each or 'cached'})",
           flush=True)
     kernels = check_kernels(torch)
-    counts = check_path(torch)
+    counts = {}
+    for check in (check_path, check_local_accum, check_syncagtr,
+                  check_clear_policies):
+        for name, c in check(torch).items():
+            counts[name] = counts.get(name, 0) + c
     for k in kernels:
         k["launches"] = counts[k["name"]]
         print(f"kernel {k['name']}: ms={k['ms']:.6f} "

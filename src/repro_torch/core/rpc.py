@@ -924,12 +924,13 @@ class _FoldBuffer:
     Each accepted call is processed exactly as phase 1 would have —
     quantize to the fixed-point integer domain (``rint(x*scale)``), apply
     the configured Stream.modify per round — and the rounds accumulate
-    client-side where saturation cannot occur (exact int64 on the host
-    lane, the fused fold kernel on the device lane), so the ONE saturating
-    switch addTo at flush is element-exact vs N separate calls wherever no
-    intermediate switch sum would have saturated (the same fixed-point
-    contract the device lane documents). Pre-quantization folding would
-    change rounding; that is why the fold runs post-quantize.
+    client-side (exact int64 on the host lane; the fused fold kernel on
+    the device lane, which saturates as the switch would), so the ONE
+    saturating switch addTo at flush is element-exact vs N separate calls
+    wherever no intermediate switch sum would have saturated (the same
+    fixed-point contract the device lane documents). Pre-quantization
+    folding would change rounding; that is why the fold runs
+    post-quantize.
 
     Three lanes, chosen by the first round and sealed on mismatch:
 
@@ -937,7 +938,8 @@ class _FoldBuffer:
               streams, summed in one fused ``kernels.ops.fold_rounds``.
       dev     fp32 segments on a device channel with no modify: raw fp32
               rounds, quantized+folded in ONE fused fold kernel launch
-              (``ops.device_fold_rounds``, not ported yet: it raises).
+              on the switch's device (``ops.device_fold_rounds``); the
+              fold saturates like N switch addTo hops would.
       dict    sparse maps: keys interned to first-occurrence indices, the
               concatenated (index, qval) rounds merged through the
               existing ``fold_stream_host`` machinery at flush.
@@ -1030,8 +1032,9 @@ class _FoldBuffer:
         nf = self.md.netfilter
         scale = 10 ** nf.precision
         if self.mode == "dev" and self.frounds:
-            qsum = np.asarray(device_fold_rounds(self.frounds, scale),
-                              np.int64)
+            device = self.stub.runtime.controller.switch.device
+            folded = device_fold_rounds(self.frounds, scale, device)
+            qsum = folded.cpu().numpy().astype(np.int64)
             items = TensorSegment(data=np.zeros(len(qsum), np.float32),
                                   shape=self.shape, qvals=qsum)
         elif self.mode == "tensor" and self.qrounds:

@@ -19,9 +19,12 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("fused_gpv", "sparse_addto")
+SOURCES = ("fused_gpv", "sparse_addto", "inc_agg", "quantize",
+           "dequantize")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -93,3 +96,13 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
+
+
+def launch(name: str, signatures: dict, fn: str, *args) -> None:
+    """Call the C function ``fn`` of library ``name`` with ``args`` and
+    PyTorch's current stream; raises on the ``cudaError_t`` it returns
+    (a refused launch never runs, and no synchronize would report it)."""
+    lib = load(name, signatures)
+    err = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")

@@ -10,13 +10,15 @@ registers as an int32 tensor and runs its fp32 verbs as one kernel each:
     scatter-add, so duplicate slots saturate exactly like the sequential
     oracle (runs that are not contiguous, e.g. after LRU re-grants);
   - ``fused_read``: gather [start, start+n) and dequantize by the fp32
-    reciprocal, with the overflow-sentinel mask (the device Get reply).
+    reciprocal, with the overflow-sentinel mask (the device Get reply);
+  - ``fused_fold``: quantize R fp32 rounds and fold them in round order
+    with the saturating add (the device lane of ``local_accum``).
 
 On the card these are the hand-written kernels of ``csrc/fused_gpv.cu``,
 replacing ``repro/kernels/fused_gpv.py``'s ``fused_addto_pallas``,
-``fused_scatter_pallas`` and ``fused_read_pallas``. A CPU tensor takes the
-plain version beside each wrapper. ``fused_addto`` and ``fused_scatter``
-update ``regs`` IN PLACE and return it.
+``fused_scatter_pallas``, ``fused_read_pallas`` and ``fused_fold_pallas``.
+A CPU tensor takes the plain version beside each wrapper. ``fused_addto``
+and ``fused_scatter`` update ``regs`` IN PLACE and return it.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ SIGNATURES = {
     "repro_fused_addto": (_P, _I, _P, _I, _F, _P),
     "repro_fused_read": (_P, _I, _I, _F, _P, _P, _P),
     "repro_fused_scatter": (_P, _I, _P, _P, _I, _F, _P, _P, _P),
+    "repro_fused_fold": (_P, _I, _I, _F, _P),
 }
 
 
@@ -45,10 +48,7 @@ def _f32(scale) -> float:
 
 
 def _launch(fn: str, *args) -> None:
-    lib = build.load("fused_gpv", SIGNATURES)
-    err = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
+    build.launch("fused_gpv", SIGNATURES, fn, *args)
 
 
 def _check_range(regs: torch.Tensor, start: int, n: int) -> None:
@@ -78,6 +78,13 @@ def fused_scatter_plain(regs, idx, fvals, scale):
 
 def fused_read_plain(regs, start: int, n: int, scale):
     return ref.dequantize(regs[start:start + n], scale)
+
+
+def fused_fold_plain(fstack, scale):
+    acc = ref.quantize(fstack[0], scale)
+    for r in range(1, fstack.shape[0]):
+        acc = ref.sat_add(acc, ref.quantize(fstack[r], scale))
+    return acc
 
 
 # -- kernel wrappers ----------------------------------------------------------
@@ -155,6 +162,33 @@ def fused_read(regs: torch.Tensor, start: int, n: int, scale
     return out, mask
 
 
-for _fn in (fused_addto, fused_scatter, fused_read):
+def fused_fold(fstack: torch.Tensor, scale) -> torch.Tensor:
+    """fstack: fp32 (R, n), R >= 1 -> int32 (n,): every round quantized,
+    then folded with the switch's saturating add in round order, so a
+    fold that saturates ends on the sticky sentinel."""
+    if fstack.dtype != torch.float32 or fstack.dim() != 2 \
+            or not fstack.is_contiguous() or fstack.shape[0] < 1:
+        raise TypeError("fstack must be a contiguous fp32 (rounds, n) "
+                        "tensor with at least one round")
+    if fstack.device.type == "cpu":
+        fused_fold.plain_calls += 1
+        return fused_fold_plain(fstack, scale)
+    if fstack.device.type != "cuda":
+        raise ValueError(f"no kernel for {fstack.device.type} tensors")
+    r, n = fstack.shape
+    out = torch.empty(n, dtype=torch.int32, device=fstack.device)
+    if n == 0:
+        return out
+    t0 = time.perf_counter() if _obs.METRICS else 0.0
+    with torch.cuda.device(fstack.device):
+        _launch("repro_fused_fold", fstack.data_ptr(), r, n, _f32(scale),
+                out.data_ptr())
+    fused_fold.launches += 1
+    if _obs.METRICS:
+        _obs.kernel_launch("fused_fold", r * n, t0)
+    return out
+
+
+for _fn in (fused_addto, fused_scatter, fused_read, fused_fold):
     _fn.launches = 0        # kernel launches on the card
     _fn.plain_calls = 0     # CPU tensors sent to the plain version

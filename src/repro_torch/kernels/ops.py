@@ -5,26 +5,38 @@ either a numpy array (a host segment of a CPU switch, updated by the
 exact numpy host kernels below) or an int32 tensor (every segment of a
 CUDA switch, and device-resident segments everywhere), updated by the
 kernel wrappers of ``fused_gpv`` and ``sparse_addto``: the hand-written
-kernel for a CUDA tensor, the plain version for a CPU tensor.
+kernel for a CUDA tensor, the plain version for a CPU tensor. The SyncAgtr
+path (core/quantize.py, core/ring.py) and the clear policies call the
+stream verbs ``quantize``, ``dequantize``, ``sat_add`` and
+``sat_add_batch`` the same way.
 
-Tensor wrappers update the segment in place and return it, so callers
-keep assigning the result back (``seg.regs = ops.sparse_addto(...)``).
+Tensor wrappers of the register file update the segment in place and
+return it, so callers keep assigning the result back
+(``seg.regs = ops.sparse_addto(...)``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import dequantize as _dequantize
 from repro_torch.kernels import fused_gpv
+from repro_torch.kernels import inc_agg
+from repro_torch.kernels import quantize as _quantize
 from repro_torch.kernels import sparse_addto as _sparse
 from repro_torch.kernels.constants import SAT_MAX
 from repro_torch.kernels.ref import _sat_add_scalar
 
-# every kernel wrapper of the slice, for launch accounting
+# every kernel wrapper of the port, for launch accounting
 KERNELS = {"fused_addto": fused_gpv.fused_addto,
            "fused_scatter": fused_gpv.fused_scatter,
            "fused_read": fused_gpv.fused_read,
-           "sparse_addto": _sparse.sparse_addto}
+           "sparse_addto": _sparse.sparse_addto,
+           "fused_fold": fused_gpv.fused_fold,
+           "sat_add": inc_agg.sat_add,
+           "sat_add_batch": inc_agg.sat_add_batch,
+           "quantize": _quantize.quantize,
+           "dequantize": _dequantize.dequantize}
 
 
 def launch_counts() -> dict[str, int]:
@@ -92,10 +104,16 @@ def fold_rounds(qrounds: list[np.ndarray]) -> np.ndarray:
                                    for q in qrounds]), axis=0)
 
 
-def device_fold_rounds(frounds: list, scale):
-    """The ``device=True`` lane of ``local_accum`` (the fused fold kernel)
-    is not ported yet."""
-    raise NotImplementedError("fused_fold: later slice")
+def device_fold_rounds(frounds: list, scale,
+                       device: torch.device) -> torch.Tensor:
+    """Quantize N fp32 addTo rounds and fold them with the switch's
+    saturating add in ONE fused kernel launch on ``device`` (the caller's
+    switch) — the ``device=True`` lane of ``local_accum``. Returns the
+    folded int32 stream on ``device``; a round that saturates leaves the
+    sentinel, where the host lane's ``fold_rounds`` keeps the exact sum."""
+    fstack = np.stack([np.asarray(f, np.float32).reshape(-1)
+                       for f in frounds])
+    return fused_gpv.fused_fold(torch.from_numpy(fstack).to(device), scale)
 
 
 def dense_addto_host(regs: np.ndarray, start: int,
@@ -246,3 +264,31 @@ def device_read_dense(regs: torch.Tensor, start: int, n: int, scale
     """Fused gather + dequantize of slots [start, start+n) -> (fp32
     values, bool overflow-sentinel mask), both on regs' device."""
     return fused_gpv.fused_read(regs, start, n, scale)
+
+
+# -- stream verbs of the SyncAgtr path and the clear policies -----------------
+
+def quantize(x: torch.Tensor, scale) -> torch.Tensor:
+    """fp32 -> int32 fixed point with sentinel saturation (any shape)."""
+    return _quantize.quantize(x.contiguous(), scale)
+
+
+def dequantize(q: torch.Tensor, scale) -> tuple[torch.Tensor, torch.Tensor]:
+    """int32 -> (fp32, bool overflow mask) (any shape)."""
+    return _dequantize.dequantize(q.contiguous(), scale)
+
+
+def sat_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int32 saturating add with sticky sentinels (a Map.addTo hop)."""
+    return inc_agg.sat_add(a.contiguous(), b.contiguous())
+
+
+def sat_add_batch(acc: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
+    """Fold a stacked batch of updates into ``acc`` in one launch,
+    result-identical to ``for q in qs: acc = sat_add(acc, q)``. ``qs``
+    has one extra leading dim over ``acc``, or none (a single update)."""
+    if qs.dim() == acc.dim():
+        return sat_add(acc, qs)
+    if qs.shape[0] == 1:
+        return sat_add(acc, qs[0])
+    return inc_agg.sat_add_batch(acc.contiguous(), qs.contiguous())

@@ -65,16 +65,11 @@ def sparse_addto(regs: torch.Tensor, idx: torch.Tensor,
     k = idx.numel()
     if k == 0:
         return regs
-    lib = build.load("sparse_addto", SIGNATURES)
     words, unsafe = scatter_scratch(regs, k)
     with torch.cuda.device(regs.device):
-        err = lib.repro_sparse_addto(
-            regs.data_ptr(), regs.numel(), idx.data_ptr(), val.data_ptr(),
-            k, words.data_ptr(), unsafe.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"sparse_addto kernel launch failed: CUDA error "
-                           f"{err}")
+        build.launch("sparse_addto", SIGNATURES, "repro_sparse_addto",
+                     regs.data_ptr(), regs.numel(), idx.data_ptr(),
+                     val.data_ptr(), k, words.data_ptr(), unsafe.data_ptr())
     sparse_addto.launches += 1
     return regs
 

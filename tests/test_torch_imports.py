@@ -24,7 +24,10 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     names = _modules()
     assert {"repro_torch.kernels.fused_gpv", "repro_torch.core.runtime",
-            "repro_torch.api", "repro_torch.quickstart"} <= set(names)
+            "repro_torch.api", "repro_torch.quickstart",
+            "repro_torch.compat", "repro_torch.core.inc_agg",
+            "repro_torch.core.ring", "repro_torch.kernels.quantize"} \
+        <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
@@ -63,3 +66,16 @@ def test_entry_points_default_to_the_card(entry):
     assert getattr(sw, "switch", sw).device.type == "cpu"
     if hasattr(obj, "close"):
         obj.close()
+
+
+def test_make_mesh_defaults_to_the_card():
+    """compat.make_mesh means NCCL on the card unless given device='cpu'
+    (gloo); without a card the default raises before any group exists."""
+    from repro_torch import compat
+    # with a card the default passes the device check and stops at the
+    # missing process group, like device='cpu' does
+    with pytest.raises(RuntimeError, match="init_process_group"
+                       if torch.cuda.is_available() else "device='cpu'"):
+        compat.make_mesh((1,), ("data",))
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        compat.make_mesh((1,), ("data",), device="cpu")

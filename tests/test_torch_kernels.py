@@ -1,4 +1,6 @@
-"""The port's four register-file kernels against the JAX package.
+"""The port's kernels against the JAX package: the four register-file
+kernels, the fused fold of ``local_accum`` and the SyncAgtr stream
+kernels (``sat_add``, ``sat_add_batch``, ``quantize``, ``dequantize``).
 
 CPU lane: seeded numpy inputs go through the Pallas kernel (interpret
 mode) and through the port's wrapper on CPU tensors, which runs the plain
@@ -13,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import fused_gpv, ops, ref
+from repro_torch.kernels import dequantize as tdequantize
+from repro_torch.kernels import fused_gpv, inc_agg, ops, ref
+from repro_torch.kernels import quantize as tquantize
 from repro_torch.kernels import sparse_addto as tsparse
 from repro_torch.kernels.constants import (INT32_MAX, INT32_MIN, SAT_MAX,
                                            SAT_MIN)
@@ -178,6 +182,134 @@ def test_wrappers_reject_bad_arguments_and_count_plain_calls():
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 
+# -- kernels 5-8: the fused fold and the SyncAgtr stream kernels -------------
+
+TILE = 1024                     # (8, 128): Pallas tiles with block_rows=8
+
+
+def _fold_stack(rng, rounds, n, scale):
+    """(rounds, n) fp32: ordinary values and halfway cases, a lane that
+    saturates mid-fold, a sentinel followed by values of the other sign
+    (sticky), and -2**31 (stored raw) followed by a negative round."""
+    f = np.stack([_fvals(rng, n, scale) for _ in range(rounds)])
+    s = np.float32(scale)
+    f[:, 0] = np.float32(1.5e9) / s                 # saturates at round 2
+    f[:, 1] = np.float32(-1.5e9) / s
+    f[:, 2] = -np.float32(5.0) / s
+    f[min(2, rounds - 1), 2] = np.float32(2.0 ** 31) / s  # sentinel, sticky
+    f[:, 3] = -np.float32(1.0) / s
+    f[0, 3] = np.float32(-2.0 ** 31) / s            # -2**31, not a sentinel
+    return f
+
+
+@pytest.mark.parametrize("rounds,n,scale", [(1, 64, 1), (2, 512, 10 ** 4),
+                                            (8, 4096, 10 ** 8),
+                                            (5, 1000, 100)])
+def test_fused_fold_matches_pallas(rounds, n, scale):
+    import jax.numpy as jnp
+    from repro.kernels.fused_gpv import fused_fold_pallas
+    f = _fold_stack(np.random.RandomState(rounds), rounds, n, scale)
+    want = np.asarray(fused_fold_pallas(jnp.asarray(f), scale,
+                                        interpret=True))
+    got = fused_gpv.fused_fold(_t(f), scale)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    if rounds >= 2:
+        assert got[0] == INT32_MAX and got[1] == INT32_MIN
+
+
+def _int_stream(rng, n):
+    """int32 stream: ordinary values, both sentinels, the SAT edges,
+    -2**31 and half-range values that overflow when added."""
+    q = rng.randint(-10 ** 6, 10 ** 6, n).astype(np.int64)
+    edges = [INT32_MAX, INT32_MIN, SAT_MAX, SAT_MIN, -2 ** 31, 0,
+             SAT_MAX // 2 + 1, -(SAT_MAX // 2 + 1)]
+    q[rng.choice(n, 64, replace=False)] = rng.choice(edges, 64)
+    return q.astype(np.int32)
+
+
+def _pallas_sat_add(a, b):
+    import jax.numpy as jnp
+    from repro.kernels.inc_agg import sat_add_pallas
+    return np.asarray(sat_add_pallas(
+        jnp.asarray(a.reshape(-1, 128)), jnp.asarray(b.reshape(-1, 128)),
+        block_rows=8, interpret=True)).reshape(-1)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_sat_add_matches_pallas(seed):
+    rng = np.random.RandomState(seed)
+    a, b = _int_stream(rng, TILE), _int_stream(rng, TILE)
+    a[:4], b[:4] = [INT32_MAX, 5, INT32_MIN, -2 ** 31], \
+        [INT32_MIN, INT32_MAX, 3, -1]     # a's sentinel wins; -2**31 - 1
+    want = _pallas_sat_add(a, b)
+    got = inc_agg.sat_add(_t(a), _t(b))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[:4].tolist() == [INT32_MAX, INT32_MAX, INT32_MIN, INT32_MIN]
+    # any shape: the same values as a (8, 128) tensor
+    got2 = ops.sat_add(_t(a).reshape(8, 128), _t(b).reshape(8, 128))
+    np.testing.assert_array_equal(got2.numpy().reshape(-1), want)
+
+
+@pytest.mark.parametrize("rows", [2, 6])
+def test_sat_add_batch_matches_sequential_pallas_fold(rows):
+    """The batched fold against the sequential fold of the Pallas
+    sat_add, row by row (not against the JAX ops.sat_add_batch)."""
+    rng = np.random.RandomState(rows)
+    acc = _int_stream(rng, TILE)
+    qs = np.stack([_int_stream(rng, TILE) for _ in range(rows)])
+    qs[:, :8] = SAT_MAX // 3                  # saturates at the third row
+    want = acc
+    for q in qs:
+        want = _pallas_sat_add(want, q)
+    got = inc_agg.sat_add_batch(_t(acc), _t(qs))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(ops.sat_add_batch(_t(acc), _t(qs)).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("scale", [1, 10 ** 4, 10 ** 8])
+def test_quantize_and_dequantize_match_pallas(scale):
+    import jax.numpy as jnp
+    from repro.kernels.dequantize import dequantize_pallas
+    from repro.kernels.quantize import quantize_pallas
+    rng = np.random.RandomState(scale % 97)
+    x = _fvals(rng, TILE, scale) / np.float32(50)
+    x[:len(EDGES)] = EDGES / np.float32(scale)
+    x[len(EDGES):len(EDGES) + len(HALVES)] = HALVES / np.float32(scale)
+    s = jnp.float32(scale)
+    want_q = np.asarray(quantize_pallas(jnp.asarray(x.reshape(-1, 128)), s,
+                                        block_rows=8, interpret=True))
+    got_q = tquantize.quantize(_t(x), scale)
+    np.testing.assert_array_equal(got_q.numpy(), want_q.reshape(-1))
+    if scale == 1:
+        assert got_q[:len(EDGES)].tolist() == [
+            2147483520, INT32_MAX, -2 ** 31, INT32_MAX, INT32_MIN]
+    q = _int_stream(rng, TILE)
+    wv, wm = dequantize_pallas(jnp.asarray(q.reshape(-1, 128)), s,
+                               block_rows=8, interpret=True)
+    gv, gm = tdequantize.dequantize(_t(q), scale)
+    np.testing.assert_array_equal(_bits(gv.numpy()),
+                                  _bits(np.asarray(wv).reshape(-1)))
+    np.testing.assert_array_equal(gm.numpy(), np.asarray(wm).reshape(-1))
+    assert gm.any()
+
+
+def test_stream_wrappers_reject_bad_arguments():
+    with pytest.raises(TypeError):
+        tquantize.quantize(torch.zeros(4, dtype=torch.float64), 1)
+    with pytest.raises(TypeError):
+        tdequantize.dequantize(torch.zeros(4, dtype=torch.int64), 1)
+    with pytest.raises(ValueError):
+        inc_agg.sat_add(torch.zeros(4, dtype=torch.int32),
+                        torch.zeros(5, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        inc_agg.sat_add_batch(torch.zeros(4, dtype=torch.int32),
+                              torch.zeros(2, 5, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        fused_gpv.fused_fold(torch.zeros(0, 4), 1)
+
+
 # -- CUDA lane ----------------------------------------------------------------
 
 @pytest.fixture
@@ -230,3 +362,37 @@ def test_cuda_scatters_match_plain(cuda, seed):
                                          100)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(2))
+def test_cuda_fused_fold_matches_plain(cuda, seed):
+    rng = np.random.RandomState(seed)
+    for rounds, scale in ((1, 1), (8, 10 ** 8), (3, 100)):
+        f = _t(_fold_stack(rng, rounds, 262_144, scale)).to(cuda)
+        got = fused_gpv.fused_fold(f, scale)
+        want = fused_gpv.fused_fold_plain(f, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(2))
+def test_cuda_stream_kernels_match_plain(cuda, seed):
+    rng = np.random.RandomState(seed)
+    n = 1 << 20
+    a = _t(_int_stream(rng, n)).to(cuda)
+    qs = _t(np.stack([_int_stream(rng, n) for _ in range(16)])).to(cuda)
+    assert torch.equal(inc_agg.sat_add(a, qs[0]),
+                       inc_agg.sat_add_plain(a, qs[0]))
+    assert torch.equal(inc_agg.sat_add_batch(a, qs),
+                       inc_agg.sat_add_batch_plain(a, qs))
+    for scale in (1, 10 ** 8):
+        x = _t(_fvals(rng, n, scale)).to(cuda)
+        q = tquantize.quantize(x, scale)
+        assert torch.equal(q, tquantize.quantize_plain(x, scale))
+        gv, gm = tdequantize.dequantize(q, scale)
+        wv, wm = tdequantize.dequantize_plain(q, scale)
+        assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+        assert torch.equal(gm, wm)
+    torch.cuda.synchronize()
