@@ -27,6 +27,21 @@
 6. Path, phase h: the three clear policies at n=40 000, 16 ``addto`` calls
    and one ``addto_batch`` of 16 with saturating lanes; bitwise equal to
    the CPU.
+7. Path, phase i: serving qwen2.5-3b at full width and depth (36 layers,
+   random weights from a seed): ``serve`` prefills 4 prompts of 2 048
+   tokens through the flash kernel and decodes 32 tokens, with its
+   telemetry on the card's ``IncRuntime``. Checks: 36 flash launches per
+   prefill and telemetry pushes through sparse_addto; 4 x 32 decode tokens
+   counted by the telemetry; the same run with the plain attention
+   (``flash=False``, the same weights, the tokens fed) within 6e-2 of its
+   logits (max|d| / max|ref|; the two lanes drift 3.0e-2 apart at 36
+   reduced layers on the CPU); a 2-layer full-width run (S=256, B=2) on
+   the card within 2e-2 of the same run on the CPU. Flash attention joins
+   the kernel check at the prefill's shape (B=4, H=16, KV=2, S=2 048,
+   D=128), gemma3's window of 1 024 and a ragged S, within atol 2e-2,
+   rtol 5e-2 of its plain version (bf16: the kernel rounds p to bf16
+   before p.V, the plain version keeps fp32), and is timed beside
+   ``scaled_dot_product_attention`` on the same tensors.
 
 Launch counts are set to 0 just before each path run on the card and read
 just after it; every kernel must have launched in the path.
@@ -35,6 +50,7 @@ Prints the card's name and power limit, one JSON line of kernel results,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, at the first failure or when no CUDA device is present.
 """
+import copy
 import json
 import statistics
 import subprocess
@@ -48,6 +64,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 SEG = 40_000                   # slots per register segment (paper §6.1)
 SCATTER_K = 65_536
 PRECISION = 8
@@ -62,6 +79,15 @@ LOCAL_ACCUM, LA_SLOTS, LA_CALLS = 8, 262_144, 16     # phase f
 BUCKET = 6_553_600     # 25 MiB fp32: PyTorch DDP's default bucket_cap_mb
 FOLD_ROUNDS, BATCH_ROWS = 8, 16
 MODES = ("xla-psum", "fp32-ring", "netrpc", "netrpc-opt")
+ARCH, PROMPT, DECODE, SERVE_BATCH = "qwen2.5-3b", 2048, 32, 4     # phase i
+SMALL_LAYERS, SMALL_PROMPT, SMALL_BATCH, SMALL_DECODE = 2, 256, 2, 8
+SEED = 0
+LANES_TOL = 6e-2       # flash vs plain lane, 36 layers (max|d| / max|ref|)
+CPU_TOL = 2e-2         # card vs CPU, 2 layers
+FLASH_ATOL, FLASH_RTOL = 2e-2, 5e-2
+# (B, H, KV, S, D, window): the prefill's shape, gemma3's window, ragged S
+FLASH_CHECKS = ((4, 16, 2, 2048, 128, None), (4, 16, 2, 2048, 128, 1024),
+                (2, 16, 2, 1000, 128, None))
 REPLACES = {
     "fused_addto": "src/repro/kernels/fused_gpv.py:67",
     "fused_scatter": "src/repro/kernels/fused_gpv.py:113",
@@ -72,6 +98,7 @@ REPLACES = {
     "sat_add_batch": "src/repro/kernels/ops.py:125",
     "quantize": "src/repro/kernels/quantize.py:34",
     "dequantize": "src/repro/kernels/dequantize.py:30",
+    "flash_attention": "src/repro/kernels/flash_attn.py:95",
 }
 SOURCE = {
     "fused_addto": "src/repro_torch/kernels/csrc/fused_gpv.cu",
@@ -83,6 +110,7 @@ SOURCE = {
     "sat_add_batch": "src/repro_torch/kernels/csrc/inc_agg.cu",
     "quantize": "src/repro_torch/kernels/csrc/quantize.cu",
     "dequantize": "src/repro_torch/kernels/csrc/dequantize.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attn.cu",
 }
 
 
@@ -92,10 +120,12 @@ def fail(msg: str) -> None:
 
 # -- timing -------------------------------------------------------------------
 
-def device_ms(torch, fn, reset, iters: int) -> tuple[float, str]:
-    """Mean device time of ``fn`` per call: the CUDA time of this
-    package's kernels (``inc_k_*``) under the profiler, or, if the
-    profiler records no device time, CUDA events around each call."""
+def device_ms(torch, fn, reset, iters: int,
+              match: str = "inc_k_") -> tuple[float, str]:
+    """Mean device time of ``fn`` per call: the CUDA time of the kernels
+    whose names hold ``match`` (this package's INC kernels by default;
+    "" takes every kernel) under the profiler, or, if the profiler records
+    no device time, CUDA events around each call."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         reset()
@@ -109,7 +139,7 @@ def device_ms(torch, fn, reset, iters: int) -> tuple[float, str]:
                 fn()
             torch.cuda.synchronize()
         for ev in prof.key_averages():
-            if "inc_k_" in ev.key:
+            if match in ev.key:
                 us += getattr(ev, "device_time_total",
                               getattr(ev, "cuda_time_total", 0.0))
     except RuntimeError as e:         # no CUPTI in this sandbox: use events
@@ -118,6 +148,20 @@ def device_ms(torch, fn, reset, iters: int) -> tuple[float, str]:
     if us > 0:
         return us / iters / 1e3, "cupti"
     return event_ms(torch, fn, reset, iters), "events"
+
+
+def loop_ms(torch, fn, iters: int) -> float:
+    """CUDA events around ``iters`` back-to-back calls, per call."""
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(iters):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / iters
 
 
 def event_ms(torch, fn, reset, iters: int) -> float:
@@ -286,6 +330,77 @@ def check_kernels(torch) -> list[dict]:
                     "bound_ms": bound_ms, "bound_by": "bytes",
                     "library_ms": None, "timer": timer})
     return out
+
+
+# -- phase 2, kernel 11: flash attention --------------------------------------
+
+def flash_inputs(torch, b, h, kv, s, d, seed):
+    """bf16 q (B,S,H,D), k and v (B,S,KV,D) on the card, N(0, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(b, s, n, d, device="cuda", generator=g)
+                 .bfloat16() for n in (h, kv, kv))
+
+
+def check_flash(torch) -> dict:
+    """Kernel 11 against its plain version at FLASH_CHECKS; timed at the
+    prefill's shape beside its plain version and PyTorch's
+    scaled_dot_product_attention (the yardstick; the port never calls
+    it)."""
+    from repro_torch.kernels import flash_attn
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    errs = []
+    for i, (b, h, kv, s, d, window) in enumerate(FLASH_CHECKS):
+        q, k, v = flash_inputs(torch, b, h, kv, s, d, i)
+        got = flash_attn.flash_attention(q, k, v, causal=True, window=window)
+        want = flash_attn.flash_attention_plain(q, k, v, causal=True,
+                                                window=window)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.isfinite(got.float()).all() \
+                or not torch.allclose(got.float(), want.float(),
+                                      atol=FLASH_ATOL, rtol=FLASH_RTOL):
+            fail(f"flash_attention (B,H,KV,S,D,window)="
+                 f"{(b, h, kv, s, d, window)} disagrees with its plain "
+                 f"version")
+        errs.append(float((got.float() - want.float()).abs().max()))
+        print(f"kernel flash_attention (B,H,KV,S,D,window)="
+              f"{(b, h, kv, s, d, window)}: ok vs plain (atol {FLASH_ATOL}, "
+              f"rtol {FLASH_RTOL}), max_abs_err={errs[-1]:.6f}", flush=True)
+    b, h, kv, s, d, _ = FLASH_CHECKS[0]
+    q, k, v = flash_inputs(torch, b, h, kv, s, d, 0)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def kernel():
+        return flash_attn.flash_attention(q, k, v, causal=True)
+
+    def plain():
+        return flash_attn.flash_attention_plain(q, k, v, causal=True)
+
+    def library():
+        return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    if not torch.allclose(library().transpose(1, 2).float(), plain().float(),
+                          atol=FLASH_ATOL, rtol=FLASH_RTOL):
+        fail("scaled_dot_product_attention disagrees with the plain version")
+    ms, timer = device_ms(torch, kernel, lambda: None, 20, match="flash_k_")
+    plain_ms = event_ms(torch, plain, lambda: None, 5)
+    library_ms, _ = device_ms(torch, library, lambda: None, 20, match="")
+    flops = 4 * d * b * h * (s * (s + 1) // 2)   # causal: kpos <= qpos
+    nbytes = 2 * b * s * (2 * h + 2 * kv) * d    # q, k, v read, out written
+    bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    bound_by = "operations" if flops / BF16_FLOPS > nbytes / HBM_BYTES_PER_S \
+        else "bytes"
+    print(f"kernel flash_attention: ms={ms:.6f} ({timer}) plain_ms="
+          f"{plain_ms:.6f} library_ms={library_ms:.6f} bound_ms="
+          f"{bound_ms:.6f} ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB); back-to-back events: kernel "
+          f"{loop_ms(torch, kernel, 20):.6f} ms, library "
+          f"{loop_ms(torch, library, 20):.6f} ms", flush=True)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": SOURCE["flash_attention"],
+            "replaces": REPLACES["flash_attention"], "launches": 0,
+            "max_abs_err": errs[0], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "timer": timer}
 
 
 # -- phase 3: the main path ---------------------------------------------------
@@ -671,6 +786,151 @@ def check_clear_policies(torch) -> dict:
     return counts
 
 
+# -- phase i: serving qwen2.5-3b ----------------------------------------------
+
+def serve_run(device, params, flash, shape: dict, feed=None) -> dict:
+    """``serve`` of ARCH on ``device`` with ``params``; ``shape`` holds
+    prompt_len, decode_n, batch and the depth cut (reduced, layers)."""
+    from repro_torch.launch.serve import serve
+    return serve(arch=ARCH, device=device, params=params, flash=flash,
+                 feed=feed, **shape)
+
+
+def lanes_err(a: dict, b: dict, vocab: int) -> float:
+    """max over the steps of max|a - b| / max|b|, on the logits of the
+    real vocab (the padded columns are -1e30 in both)."""
+    la = a["logits"][..., :vocab].float().cpu()
+    lb = b["logits"][..., :vocab].float().cpu()
+    return max(float((la[t] - lb[t]).abs().max() / lb[t].abs().max())
+               for t in range(lb.shape[0]))
+
+
+def serve_oracle(run: dict, shape: dict, vocab: int, what: str) -> None:
+    """Finite logits of every step, tokens of the real vocab (never a
+    padded column), and the telemetry counted every decoded token."""
+    b, n = shape["batch"], shape["decode_n"]
+    if tuple(run["tokens"].shape) != (b, n + 1) \
+            or not bool(run["logits"].float().isfinite().all()):
+        fail(f"{what}: tokens or logits of the wrong shape, or not finite")
+    if int(run["tokens"].max()) >= vocab:
+        fail(f"{what}: argmax landed on a padded vocab column")
+    got = run["inc_telemetry"]["metrics"].get("decode_tokens")
+    if got != b * n:
+        fail(f"{what}: the telemetry counted {got} decode tokens, not "
+             f"{b * n}")
+
+
+def busy_share(torch, fn, steps: int = 1) -> tuple[float, float, list]:
+    """One ``fn()`` under the profiler: (wall seconds per step, the share
+    of the wall time the card ran kernels, the five kernels with the most
+    device time as (name, ms)). One stream, so kernel times do not
+    overlap."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = [(ev.key, getattr(ev, "device_time_total",
+                            getattr(ev, "cuda_time_total", 0.0)))
+           for ev in prof.key_averages()]
+    busy_us = sum(us for _, us in evs)
+    top = sorted(evs, key=lambda e: -e[1])[:5]
+    return wall / steps, busy_us / 1e6 / wall, \
+        [(k[:60], round(us / 1e3, 3)) for k, us in top]
+
+
+def profile_serve(torch, params, cfg) -> None:
+    """Where the time of phase i goes: one flash prefill and four decode
+    steps of the same shapes, each under the profiler, on warm weights."""
+    from repro_torch.launch.serve import grow_cache
+    from repro_torch.data import pipeline
+    from repro_torch.models import api
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, batch=SERVE_BATCH,
+                               seq_len=PROMPT - 1, kind="uniform")
+    tokens = pipeline.make_batch(dcfg, 0)["tokens"].cuda()
+    state = {}
+
+    def prefill():
+        state["logits"], cache = api.prefill(params, cfg,
+                                             {"tokens": tokens}, flash=True)
+        state["cache"] = grow_cache(cache, PROMPT + DECODE)
+
+    def decode():
+        tok = state["logits"].argmax(-1)
+        for i in range(4):
+            logits, _ = api.decode_step(params, cfg, tok, PROMPT + i,
+                                        state["cache"])
+            tok = logits.argmax(-1)
+
+    for name, fn, steps in (("prefill", prefill, 1), ("decode", decode, 4)):
+        wall, share, top = busy_share(torch, fn, steps)
+        print(f"path i_serve profile, {name}: {wall * 1e3:.3f} ms a step "
+              f"(wall, profiler on), card busy {share:.4f} of it; top "
+              f"kernels (ms): {top}", flush=True)
+
+
+def check_serve(torch, smi: str) -> dict:
+    """Phase i on the card, with its three comparisons."""
+    from repro_torch.launch.serve import model_config
+    from repro_torch.models import api
+    cfg = model_config(ARCH)
+    shape = dict(prompt_len=PROMPT, decode_n=DECODE, batch=SERVE_BATCH)
+    t0 = time.perf_counter()
+    params = api.init_params(SEED, cfg, device="cuda")
+    torch.cuda.synchronize()
+    print(f"path i_serve: {ARCH}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {api.count_params(cfg) / 1e9:.3f} B parameters "
+          f"drawn on the card in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    run, counts, secs = counted(
+        torch, lambda: serve_run(None, params, True, shape),
+        "phase i (serve)", ("flash_attention", "sparse_addto"))
+    peak = torch.cuda.max_memory_allocated()
+    if counts["flash_attention"] != cfg.n_layers:
+        fail(f"phase i: {counts['flash_attention']} flash launches in one "
+             f"prefill of {cfg.n_layers} layers")
+    serve_oracle(run, shape, cfg.vocab, "phase i")
+    print(f"path i_serve: {secs:.3f} s; prefill {PROMPT} tokens x"
+          f"{SERVE_BATCH}: {run['prefill_s']:.6f} s; decode {DECODE} steps: "
+          f"{run['decode_s']:.6f} s, "
+          f"{SERVE_BATCH * DECODE / run['decode_s']:.3f} tokens/s; peak "
+          f"device memory {peak / 2 ** 30:.3f} GiB; launches {counts}",
+          flush=True)
+    print(f"path i_serve card: {smi}", flush=True)
+    profile_serve(torch, params, cfg)
+    plain = serve_run(None, params, False, shape,
+                      feed=run["tokens"][:, :-1])
+    err = lanes_err(run, plain, cfg.vocab)
+    if err > LANES_TOL:
+        fail(f"phase i: the flash and plain lanes differ by {err:.6f} > "
+             f"{LANES_TOL} (max|d| / max|ref| of the logits)")
+    print(f"path i_serve: flash vs plain attention on the card, teacher "
+          f"forced: max|d|/max|ref| {err:.6f} (tolerance {LANES_TOL})",
+          flush=True)
+    del params, run, plain
+    small_cfg = model_config(ARCH, layers=SMALL_LAYERS)
+    small = dict(prompt_len=SMALL_PROMPT, decode_n=SMALL_DECODE,
+                 batch=SMALL_BATCH, layers=SMALL_LAYERS)
+    p_cpu = api.init_params(SEED, small_cfg, device="cpu")
+    p_card = copy.deepcopy(p_cpu).to("cuda")
+    card = serve_run(None, p_card, True, small)
+    t0 = time.perf_counter()
+    cpu = serve_run("cpu", p_cpu, True, small, feed=card["tokens"][:, :-1])
+    serve_oracle(card, small, small_cfg.vocab, "phase i (2 layers)")
+    err = lanes_err(card, cpu, small_cfg.vocab)
+    if err > CPU_TOL:
+        fail(f"phase i: {SMALL_LAYERS} layers on the card differ from the "
+             f"CPU by {err:.6f} > {CPU_TOL}")
+    print(f"path i_serve: {SMALL_LAYERS} layers at full width, S="
+          f"{SMALL_PROMPT}, B={SMALL_BATCH}: card vs CPU ("
+          f"{time.perf_counter() - t0:.3f} s) max|d|/max|ref| {err:.6f} "
+          f"(tolerance {CPU_TOL})", flush=True)
+    return counts
+
+
 def rehearse(scale_down: int = 64) -> None:
     """Every path phase on the CPU at 1/scale_down of its size, with the
     plain versions: a rehearsal of the script's control flow and its
@@ -698,7 +958,21 @@ def rehearse(scale_down: int = 64) -> None:
     finally:
         dist.destroy_process_group()
     clear_policy_oracle(drive_clear_policies(torch, "cpu", seg))
-    print("rehearsal: phases a-h ran on the CPU and met their oracles")
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import model_config
+    from repro_torch.models import api
+    cfg = model_config(ARCH, reduced=True, layers=2)
+    shape = dict(prompt_len=64, decode_n=4, batch=2, reduced=True, layers=2)
+    params = api.init_params(SEED, cfg, device="cpu")
+    ops.reset_counts()
+    run = serve_run("cpu", params, True, shape)
+    if ops.plain_counts()["flash_attention"] != cfg.n_layers:
+        fail("rehearsal: the flash lane did not run once a layer")
+    serve_oracle(run, shape, cfg.vocab, "rehearsal of phase i")
+    plain = serve_run("cpu", params, False, shape, feed=run["tokens"][:, :-1])
+    if lanes_err(run, plain, cfg.vocab) > LANES_TOL:
+        fail("rehearsal: the flash and plain lanes disagree")
+    print("rehearsal: phases a-i ran on the CPU and met their oracles")
 
 
 def main() -> int:
@@ -717,17 +991,26 @@ def main() -> int:
     each = ", ".join(f"{k} {v:.1f} s" for k, v in built.items())
     print(f"build: {time.perf_counter() - t0:.1f} s ({each or 'cached'})",
           flush=True)
-    kernels = check_kernels(torch)
+    phase_s = {"build": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    kernels = check_kernels(torch) + [check_flash(torch)]
+    phase_s["kernels"] = time.perf_counter() - t0
     counts = {}
-    for check in (check_path, check_local_accum, check_syncagtr,
-                  check_clear_policies):
+    for label, check in (("a-e", check_path), ("f", check_local_accum),
+                         ("g", check_syncagtr), ("h", check_clear_policies),
+                         ("i", lambda t: check_serve(t, smi))):
+        t0 = time.perf_counter()
         for name, c in check(torch).items():
             counts[name] = counts.get(name, 0) + c
+        phase_s[label] = time.perf_counter() - t0
     for k in kernels:
         k["launches"] = counts[k["name"]]
         print(f"kernel {k['name']}: ms={k['ms']:.6f} "
               f"plain_ms={k['plain_ms']:.6f} bound_ms={k['bound_ms']:.6f} "
               f"launches={k['launches']}", flush=True)
+    print("phase seconds: " + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in phase_s.items()),
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("fused_gpv", "sparse_addto", "inc_agg", "quantize",
-           "dequantize")
+           "dequantize", "flash_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -103,6 +103,9 @@ def launch(name: str, signatures: dict, fn: str, *args) -> None:
     PyTorch's current stream; raises on the ``cudaError_t`` it returns
     (a refused launch never runs, and no synchronize would report it)."""
     lib = load(name, signatures)
-    err = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
+    # a pointer even where ``signatures`` leaves the stream out: ctypes
+    # would pass a bare int as a 32-bit C int
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    err = getattr(lib, fn)(*args, stream)
     if err:
         raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")

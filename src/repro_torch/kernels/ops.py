@@ -1,18 +1,23 @@
-"""Dispatching wrappers around the INC kernel family.
+"""Dispatching wrappers around the port's kernels.
 
-The switch memory (core/inc_map.py) calls these. A register segment is
-either a numpy array (a host segment of a CPU switch, updated by the
-exact numpy host kernels below) or an int32 tensor (every segment of a
-CUDA switch, and device-resident segments everywhere), updated by the
-kernel wrappers of ``fused_gpv`` and ``sparse_addto``: the hand-written
-kernel for a CUDA tensor, the plain version for a CPU tensor. The SyncAgtr
-path (core/quantize.py, core/ring.py) and the clear policies call the
-stream verbs ``quantize``, ``dequantize``, ``sat_add`` and
-``sat_add_batch`` the same way.
+Two families go through here:
 
-Tensor wrappers of the register file update the segment in place and
-return it, so callers keep assigning the result back
-(``seg.regs = ops.sparse_addto(...)``).
+- the INC kernels. The switch memory (core/inc_map.py) calls these. A
+  register segment is either a numpy array (a host segment of a CPU
+  switch, updated by the exact numpy host kernels below) or an int32
+  tensor (every segment of a CUDA switch, and device-resident segments
+  everywhere), updated by the kernel wrappers of ``fused_gpv`` and
+  ``sparse_addto``. The SyncAgtr path (core/quantize.py, core/ring.py) and
+  the clear policies call the stream verbs ``quantize``, ``dequantize``,
+  ``sat_add`` and ``sat_add_batch`` the same way. Tensor wrappers of the
+  register file update the segment in place and return it, so callers
+  keep assigning the result back (``seg.regs = ops.sparse_addto(...)``).
+- attention: the model's prefill (models/attention.py) calls
+  ``flash_attention`` on (B, S, H, D) activations.
+
+Every wrapper runs the hand-written kernel for a CUDA tensor and the
+plain version for a CPU tensor, and counts both (``launch_counts``,
+``plain_counts``).
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import dequantize as _dequantize
+from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import fused_gpv
 from repro_torch.kernels import inc_agg
 from repro_torch.kernels import quantize as _quantize
@@ -27,7 +33,8 @@ from repro_torch.kernels import sparse_addto as _sparse
 from repro_torch.kernels.constants import SAT_MAX
 from repro_torch.kernels.ref import _sat_add_scalar
 
-# every kernel wrapper of the port, for launch accounting
+# every kernel wrapper of the port, for launch accounting: the INC family
+# (register file, fold, SyncAgtr stream verbs) and the attention kernel
 KERNELS = {"fused_addto": fused_gpv.fused_addto,
            "fused_scatter": fused_gpv.fused_scatter,
            "fused_read": fused_gpv.fused_read,
@@ -36,7 +43,8 @@ KERNELS = {"fused_addto": fused_gpv.fused_addto,
            "sat_add": inc_agg.sat_add,
            "sat_add_batch": inc_agg.sat_add_batch,
            "quantize": _quantize.quantize,
-           "dequantize": _dequantize.dequantize}
+           "dequantize": _dequantize.dequantize,
+           "flash_attention": _flash.flash_attention}
 
 
 def launch_counts() -> dict[str, int]:
@@ -292,3 +300,14 @@ def sat_add_batch(acc: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     if qs.shape[0] == 1:
         return sat_add(acc, qs[0])
     return inc_agg.sat_add_batch(acc.contiguous(), qs.contiguous())
+
+
+# -- attention ----------------------------------------------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """(B,S,H,D) x (B,S,KV,D) -> (B,S,H,D) flash attention. The kernel
+    reads this layout through its strides, where the reference swaps axes
+    to (B,H,S,D) for the Pallas kernel."""
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)

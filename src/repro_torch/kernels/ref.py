@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the INC kernel family.
+"""Plain PyTorch versions of the port's kernels: the INC kernel family
+and flash attention.
 
 These are the semantic ground truth of the port: each hand-written CUDA
 kernel in this package is held against the function here on the card,
@@ -175,3 +176,30 @@ def stream_modify(v: torch.Tensor, op: str, para: int = 0) -> torch.Tensor:
     if op == "bxor":
         return v ^ p
     raise ValueError(f"unknown Stream.modify op: {op!r}")
+
+
+# ---------------------------------------------------------------------------
+# flash attention oracle (kernels/flash_attn.py)
+# ---------------------------------------------------------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """q: (B,H,S,D); k/v: (B,KV,S,D) -> (B,H,S,D). fp32 scores times
+    ``D**-0.5``, the causal/window mask to -1e30, an fp32 softmax, the
+    output cast to q's dtype."""
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    qg = q.reshape(b, kv, h // kv, s, d).float()
+    scores = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * (d ** -0.5)
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        mask = pos[:, None] >= pos[None, :]
+        if window is not None:
+            mask = mask & (pos[:, None] - pos[None, :] < window)
+        scores = torch.where(mask, scores,
+                             torch.tensor(-1e30, dtype=torch.float32,
+                                          device=q.device))
+    w = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", w, v.float())
+    return o.reshape(b, h, s, d).to(q.dtype)

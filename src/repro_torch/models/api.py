@@ -1,0 +1,226 @@
+"""Uniform model API: the port of ``repro/models/api.py`` for stacks of
+``global`` blocks.
+
+  init_params(seed, cfg, device)           -> Tree (bf16 leaves)
+  prefill(params, cfg, batch, flash=...)   -> (last_logits, cache)
+  decode_step(params, cfg, token, pos, cache) -> (logits, cache)
+  cache_specs(cfg, batch, seq_len)         -> cache of meta tensors
+  count_params(cfg)                        -> int
+  params_from_jax / cache_from_jax / cache_to_numpy: the JAX package's
+  trees (as numpy) across, for the tests
+
+Parameters keep the reference's stacked layout, ``groups[gi]["s{i}"]``
+with the layer dim first, held in an ``nn.Module`` whose ``state_dict``
+keys spell the reference's tree path (``groups.0.s0.attn.wq``). A Python
+loop over the layers replaces ``lax.scan``. The cache is a tuple per
+pattern group of ``{"s{i}": {"k", "v"}}`` stacked over the layers, and
+``decode_step`` updates it in place.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import blocks
+from repro_torch.models.blocks import Ctx
+from repro_torch.models.common import (COMPUTE_DTYPE, dense_init, rms_norm,
+                                       rms_norm_init)
+
+
+class Tree(nn.Module):
+    """A nested dict (and tuple) of tensors as an ``nn.Module``: tensor
+    leaves are frozen parameters, dicts are submodules and tuples module
+    lists, so ``state_dict`` keys spell the tree path. ``tree[key]`` and
+    ``key in tree`` read it like the dict it came from."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(key, Tree(val))
+            elif isinstance(val, (tuple, list)):
+                self.add_module(key, nn.ModuleList(Tree(v) for v in val))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(val, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+def _layer(tree, i: int) -> dict:
+    """Layer ``i`` of a stacked subtree, as a dict of views."""
+    items = tree.items() if isinstance(tree, dict) else \
+        list(tree._parameters.items()) + list(tree._modules.items())
+    return {k: v[i] if isinstance(v, torch.Tensor) else _layer(v, i)
+            for k, v in items}
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_tree(gen, cfg: ArchConfig, device) -> dict:
+    p: dict = {"embed": dense_init(gen, (cfg.vocab_padded, cfg.d_model),
+                                   fan_in=cfg.d_model, device=device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, (cfg.vocab_padded, cfg.d_model),
+                                  fan_in=cfg.d_model, device=device)
+    p["final_norm"] = rms_norm_init(cfg.d_model, device=device)
+    p["groups"] = tuple(
+        {f"s{si}": blocks.init_block(gen, bt, cfg, lead=(n,), device=device)
+         for si, bt in enumerate(pat)}
+        for pat, n in cfg.pattern_groups)
+    return p
+
+
+def init_params(seed: int, cfg: ArchConfig, device=None) -> Tree:
+    """Random parameters from ``seed``, drawn on ``device`` (the card by
+    default). The std is d**-0.5, as in the reference: the sqrt(d)-scaled
+    input embeddings and the tied-unembed logits start at unit variance."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return Tree(_init_tree(gen, cfg, dev))
+
+
+def count_params(cfg: ArchConfig) -> int:
+    """Parameter count from the port's own shapes, built on the meta
+    device."""
+    shapes = Tree(_init_tree(None, cfg, torch.device("meta")))
+    return sum(t.numel() for t in shapes.parameters())
+
+
+# ---------------------------------------------------------------------------
+# embeddings / logits
+# ---------------------------------------------------------------------------
+
+def _embed(params: Tree, cfg: ArchConfig,
+           tokens: torch.Tensor) -> torch.Tensor:
+    """Embeddings times sqrt(d) rounded to bf16, as the reference's
+    bf16 x bf16 product (a Python scalar, so no copy to the card)."""
+    x = params["embed"][tokens].to(COMPUTE_DTYPE)
+    return x * float(torch.tensor(cfg.d_model ** 0.5, dtype=COMPUTE_DTYPE))
+
+
+def _decode_embed(params: Tree, cfg: ArchConfig,
+                  token: torch.Tensor) -> torch.Tensor:
+    return _embed(params, cfg, token[:, None])
+
+
+def logits_of(params: Tree, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Logits over the PADDED vocab; padded columns are -1e30, so
+    softmax and argmax ignore them."""
+    w = params["lm_head"] if "lm_head" in params else params["embed"]
+    logits = torch.einsum("bsd,vd->bsv", x, w)
+    logits[..., cfg.vocab:] = -1e30
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+def prefill(params: Tree, cfg: ArchConfig, batch: dict, *,
+            flash: bool = False) -> tuple[torch.Tensor, tuple]:
+    """batch["tokens"]: (B, S) -> (last-position logits (B, V), cache).
+    ``flash`` runs the attention through the flash kernel (kernel 11)."""
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    ctx = Ctx(cfg=cfg, positions=positions, flash=flash)
+    x = _embed(params, cfg, tokens)
+    cache = []
+    for gi, (pat, n) in enumerate(cfg.pattern_groups):
+        gp = params["groups"][gi]
+        entries = {f"s{i}": [] for i in range(len(pat))}
+        for layer in range(n):
+            for i, bt in enumerate(pat):
+                x, c = blocks.block_prefill(_layer(gp[f"s{i}"], layer), bt,
+                                            x, ctx)
+                entries[f"s{i}"].append(c)
+        cache.append({s: {k: torch.stack([c[k] for c in cs])
+                          for k in cs[0]} for s, cs in entries.items()})
+    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    return logits_of(params, cfg, x)[:, 0], tuple(cache)
+
+
+def decode_step(params: Tree, cfg: ArchConfig, token: torch.Tensor,
+                pos: int, cache: tuple) -> tuple[torch.Tensor, tuple]:
+    """token: (B,) int, pos: int -> (logits (B, V), cache). The cache is
+    updated in place and returned."""
+    ctx = Ctx(cfg=cfg)
+    x1 = _decode_embed(params, cfg, token)
+    for gi, (pat, n) in enumerate(cfg.pattern_groups):
+        gp, gc = params["groups"][gi], cache[gi]
+        for layer in range(n):
+            for i, bt in enumerate(pat):
+                x1, _ = blocks.block_decode(_layer(gp[f"s{i}"], layer), bt,
+                                            x1, _layer(gc[f"s{i}"], layer),
+                                            pos, ctx)
+    x1 = rms_norm(x1, params["final_norm"], cfg.norm_eps)
+    return logits_of(params, cfg, x1)[:, 0], cache
+
+
+def cache_specs(cfg: ArchConfig, batch: int, seq_len: int) -> tuple:
+    """The cache's shapes and dtypes, as meta tensors stacked per pattern
+    group."""
+    out = []
+    for pat, n in cfg.pattern_groups:
+        g = {}
+        for i, bt in enumerate(pat):
+            entry = blocks.cache_entry_shape(bt, cfg, batch, seq_len)
+            g[f"s{i}"] = {k: torch.empty((n,) + tuple(t.shape),
+                                         dtype=t.dtype, device="meta")
+                          for k, t in entry.items()}
+        out.append(g)
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's trees, as numpy, across
+# ---------------------------------------------------------------------------
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """numpy -> tensor, bit for bit. A JAX bf16 array arrives as an
+    ``ml_dtypes`` bfloat16 array, which ``torch.from_numpy`` refuses: its
+    bits are viewed as int16 and then as bf16."""
+    a = np.require(np.asarray(a), requirements=("C", "W"))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _from_numpy(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_from_numpy(v, device) for v in tree)
+    return _tensor(tree, device)
+
+
+def params_from_jax(np_tree: dict, device=None) -> Tree:
+    """The reference's parameter tree (numpy leaves, e.g.
+    ``jax.tree.map(np.asarray, params)``) as the port's parameters."""
+    return Tree(_from_numpy(np_tree, resolve_device(device)))
+
+
+def cache_from_jax(np_cache: tuple, device=None) -> tuple:
+    """The reference's decode cache (numpy leaves) as the port's."""
+    return _from_numpy(np_cache, resolve_device(device))
+
+
+def cache_to_numpy(cache: tuple) -> tuple:
+    """The port's cache as numpy, bf16 widened to fp32 (exact), for a
+    comparison with the reference's."""
+    if isinstance(cache, dict):
+        return {k: cache_to_numpy(v) for k, v in cache.items()}
+    if isinstance(cache, (tuple, list)):
+        return tuple(cache_to_numpy(v) for v in cache)
+    t = cache.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

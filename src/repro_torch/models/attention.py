@@ -1,0 +1,220 @@
+"""GQA attention: train/prefill over a full sequence and decode against a
+KV cache, for the ``global`` (causal full-attention) block.
+
+The port of ``repro/models/attention.py``. Einsums run in bf16 and return
+bf16, as the reference's do; scores and softmax are fp32. Prefill has two
+lanes, chosen by the caller's ``flash`` flag (the reference's
+``REPRO_FLASH_ATTN`` switch, carried explicitly on ``blocks.Ctx``):
+
+  - ``flash=True``: ``ops.flash_attention``, the hand-written Hopper kernel
+    on the card (kernel 11), its plain version on the CPU;
+  - ``flash=False``: dense masked attention (``attn_full``), or query
+    chunks above ``CHUNKED_THRESHOLD`` (``attn_causal_chunked``).
+
+Decode has no kernel in the reference and stays einsums. One card holds
+the whole cache, so the reference's sequence-sharded decode (its
+pmax/psum partial-softmax combine) has no counterpart here. The ``local``,
+``bidir`` and ``cross`` kinds come with the other block types, in a later
+slice of the port (ROADMAP).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import COMPUTE_DTYPE, apply_rope, dense_init
+
+NEG_INF = -1e30
+# above this seq len, causal attention loops over query chunks (peak
+# transient (B,H,Cq,S) instead of (B,H,S,S))
+CHUNKED_THRESHOLD = 2_048
+Q_CHUNK = 1_024
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported yet: only the 'global' block runs in "
+        f"repro_torch (ROADMAP: the other block types come in a later slice)")
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def init_attn(gen, d_model: int, n_heads: int, n_kv: int, head_dim: int,
+              qkv_bias: bool = False, *, lead: tuple = (),
+              device="cpu") -> dict:
+    """Projection weights, with ``lead`` (the layer dim) in front."""
+    p = {
+        "wq": dense_init(gen, lead + (d_model, n_heads, head_dim),
+                         fan_in=d_model, device=device),
+        "wk": dense_init(gen, lead + (d_model, n_kv, head_dim),
+                         fan_in=d_model, device=device),
+        "wv": dense_init(gen, lead + (d_model, n_kv, head_dim),
+                         fan_in=d_model, device=device),
+        "wo": dense_init(gen, lead + (n_heads, head_dim, d_model),
+                         fan_in=n_heads * head_dim, device=device),
+    }
+    if qkv_bias:
+        for name, heads in (("bq", n_heads), ("bk", n_kv), ("bv", n_kv)):
+            p[name] = torch.zeros(lead + (heads, head_dim),
+                                  dtype=COMPUTE_DTYPE, device=device)
+    return p
+
+
+def qkv(p: dict, x: torch.Tensor):
+    """x: (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return q, k, v
+
+
+def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# core attention math (grouped heads)
+# ---------------------------------------------------------------------------
+
+def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """(B,S,H,hd) -> (B,S,KV,G,hd)."""
+    b, s, h, hd = q.shape
+    return q.reshape(b, s, n_kv, h // n_kv, hd)
+
+
+def _attend(q, k, v, mask) -> torch.Tensor:
+    """q: (B,Sq,KV,G,hd), k/v: (B,Sk,KV,hd), mask: boolean broadcastable
+    to (B,KV,G,Sq,Sk) (True = attend). Returns (B,Sq,KV,G,hd)."""
+    hd = q.shape[-1]
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).float() * (hd ** -0.5)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
+    # fp32 softmax, guarding fully-masked rows
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m.clamp(min=NEG_INF / 2))
+    if mask is not None:
+        e = e.masked_fill(~mask, 0.0)
+    den = e.sum(dim=-1, keepdim=True)
+    w = (e / den.clamp(min=1e-30)).to(v.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", w, v)
+
+
+def _merge(o: torch.Tensor) -> torch.Tensor:
+    b, s, kv, g, hd = o.shape
+    return o.reshape(b, s, kv * g, hd)
+
+
+# ---------------------------------------------------------------------------
+# train / prefill attention
+# ---------------------------------------------------------------------------
+
+def attn_full(q, k, v, n_kv: int, causal: bool) -> torch.Tensor:
+    """Single-shot attention; used when S is small enough."""
+    sq, sk = q.shape[1], k.shape[1]
+    mask = None
+    if causal:
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril()
+    return _merge(_attend(_group(q, n_kv), k, v, mask))
+
+
+def attn_causal_chunked(q, k, v, n_kv: int, q_chunk: int = Q_CHUNK
+                        ) -> torch.Tensor:
+    """Memory-bounded causal attention: a loop over query chunks, each
+    attending to the full (masked) KV. Peak transient is (B,H,Cq,S)."""
+    s = q.shape[1]
+    if s % q_chunk:
+        raise ValueError(f"sequence {s} is not a multiple of {q_chunk}")
+    qg = _group(q, n_kv)
+    kpos = torch.arange(s, device=q.device)
+    outs = []
+    for i in range(s // q_chunk):
+        qpos = i * q_chunk + torch.arange(q_chunk, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        outs.append(_attend(qg[:, i * q_chunk:(i + 1) * q_chunk], k, v,
+                            mask))
+    return _merge(torch.cat(outs, dim=1))
+
+
+def attn_train(p: dict, x: torch.Tensor, *, n_kv: int, kind: str,
+               theta: float, positions: torch.Tensor,
+               flash: bool = False) -> torch.Tensor:
+    """One attention sub-layer over a full sequence (``kind="global"``).
+    ``flash`` routes it through ``ops.flash_attention`` (kernel 11)."""
+    return attn_prefill(p, x, n_kv=n_kv, kind=kind, theta=theta,
+                        positions=positions, flash=flash)[0]
+
+
+def attn_prefill(p: dict, x: torch.Tensor, *, n_kv: int, kind: str,
+                 theta: float, positions: torch.Tensor,
+                 flash: bool = False):
+    """``attn_train`` that also returns the roped K and V it attended to:
+    the decode cache entry, which the reference projects a second time
+    (``blocks._roped_kv``) from the same normed input."""
+    if kind != "global":
+        raise _not_ported(f"attention kind {kind!r}")
+    q, k, v = qkv(p, x)
+    q = apply_rope(q, positions, theta)
+    k = apply_rope(k, positions, theta)
+    if flash:
+        o = ops.flash_attention(q, k, v, causal=True)
+    elif x.shape[1] > CHUNKED_THRESHOLD:
+        o = attn_causal_chunked(q, k, v, n_kv)
+    else:
+        o = attn_full(q, k, v, n_kv, causal=True)
+    return out_proj(p, o), k, v
+
+
+# ---------------------------------------------------------------------------
+# decode attention (one new token against a KV cache)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class KVLayout:
+    """How the decode KV cache is laid out: the whole cache, of
+    ``length`` positions, on one card (the reference's ``seq_axes=None``;
+    its sequence-sharded cache needs more than one card)."""
+    length: int
+
+
+def decode_attn(p: dict, x1: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, pos: int, *, n_kv: int, theta: float,
+                layout: KVLayout):
+    """x1: (B,1,d); caches (B,L,KV,hd). Returns (out (B,1,d), k_cache,
+    v_cache). The new token's roped K/V are written into slot ``pos`` of
+    the caches IN PLACE (the reference returns updated copies), when
+    ``0 <= pos < L``. (The reference's ring-buffer cache of a window and
+    its rope-free lane come with the local and selfcross blocks.)"""
+    pos = int(pos)
+    q, k, v = qkv(p, x1)
+    posb = torch.full((x1.shape[0], 1), pos, device=x1.device)
+    q = apply_rope(q, posb, theta)
+    k = apply_rope(k, posb, theta)
+    if 0 <= pos < layout.length:
+        k_cache[:, pos] = k[:, 0]
+        v_cache[:, pos] = v[:, 0]
+    valid = torch.arange(layout.length, device=x1.device) <= pos
+    out = _decode_attend(q, k_cache, v_cache, valid, n_kv)
+    return out_proj(p, out), k_cache, v_cache
+
+
+def _decode_attend(q, k_cache, v_cache, valid, n_kv: int) -> torch.Tensor:
+    """q: (B,1,H,hd); cache: (B,L,KV,hd); valid: (L,) bool."""
+    b, _, h, hd = q.shape
+    qg = _group(q, n_kv)[:, 0]                        # (B,KV,G,hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache).float() * (hd ** -0.5)
+    s = s.masked_fill(~valid, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)                  # (B,KV,G,1)
+    e = torch.exp(s - m.clamp(min=NEG_INF / 2))
+    e = e.masked_fill(~valid, 0.0)
+    den = e.sum(dim=-1)                               # (B,KV,G)
+    o = torch.einsum("bkgs,bskh->bkgh", e.to(v_cache.dtype), v_cache)
+    o = o.float() / den[..., None].clamp(min=1e-30)
+    return o.reshape(b, 1, h, hd).to(v_cache.dtype)

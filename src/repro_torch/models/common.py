@@ -1,0 +1,69 @@
+"""Shared model components: norms, RoPE, initializers, dtype policy.
+
+The port of ``repro/models/common.py``, with its conventions:
+  - parameters are bf16 (fp32 for norm scales);
+  - activations are bf16; softmax and norm statistics are fp32;
+  - every stacked-over-layers leaf has the layer dim first.
+
+Random init takes an explicit ``torch.Generator``. It cannot reproduce
+``jax.random``'s values, so the tests carry the reference's weights across
+(``models/api.py:params_from_jax``) instead of drawing them twice.
+"""
+from __future__ import annotations
+
+import torch
+
+PARAM_DTYPE = torch.bfloat16
+COMPUTE_DTYPE = torch.bfloat16
+
+
+def dense_init(gen: torch.Generator | None, shape, fan_in: int | None = None,
+               dtype=PARAM_DTYPE, device="cpu") -> torch.Tensor:
+    """N(0, fan_in**-1) drawn in fp32 from ``gen`` on ``device``, then cast.
+    On the meta device (shapes only) ``gen`` is not used."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    fan = fan_in if fan_in is not None else shape[0]
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * fan ** -0.5).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm with fp32 statistics; the scale is stored as (scale - 1),
+    so a zero scale is the identity."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def rms_norm_init(d: int, *, lead: tuple = (), device="cpu") -> torch.Tensor:
+    """fp32 zeros (the identity), with ``lead`` (the layer dim) in
+    front."""
+    return torch.zeros(lead + (d,), dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: broadcastable to
+    (..., seq). Computed in fp32 on the two halves of head_dim (not
+    interleaved)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                   # (d/2,)
+    ang = positions[..., None].float() * freqs               # (..., seq, d/2)
+    cos = torch.cos(ang)[..., None, :]                       # (..., seq, 1, d/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

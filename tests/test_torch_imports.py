@@ -26,7 +26,9 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.kernels.fused_gpv", "repro_torch.core.runtime",
             "repro_torch.api", "repro_torch.quickstart",
             "repro_torch.compat", "repro_torch.core.inc_agg",
-            "repro_torch.core.ring", "repro_torch.kernels.quantize"} \
+            "repro_torch.core.ring", "repro_torch.kernels.quantize",
+            "repro_torch.models.api", "repro_torch.launch.serve",
+            "repro_torch.kernels.flash_attn"} \
         <= set(names)
     code = (
         "import importlib, json, sys\n"

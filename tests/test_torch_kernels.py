@@ -1,10 +1,12 @@
 """The port's kernels against the JAX package: the four register-file
-kernels, the fused fold of ``local_accum`` and the SyncAgtr stream
-kernels (``sat_add``, ``sat_add_batch``, ``quantize``, ``dequantize``).
+kernels, the fused fold of ``local_accum``, the SyncAgtr stream kernels
+(``sat_add``, ``sat_add_batch``, ``quantize``, ``dequantize``) and flash
+attention.
 
 CPU lane: seeded numpy inputs go through the Pallas kernel (interpret
 mode) and through the port's wrapper on CPU tensors, which runs the plain
-PyTorch version. Ints and masks must be equal, fp32 reads bitwise equal.
+PyTorch version. Ints and masks must be equal, fp32 reads bitwise equal;
+attention, an fp32 softmax summed in another order, within 2e-5.
 
 CUDA lane (marker ``cuda``, skipped without a card): the hand-written
 kernel against its plain version on the same tensors on the card. The
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import dequantize as tdequantize
+from repro_torch.kernels import flash_attn as tflash
 from repro_torch.kernels import fused_gpv, inc_agg, ops, ref
 from repro_torch.kernels import quantize as tquantize
 from repro_torch.kernels import sparse_addto as tsparse
@@ -310,6 +313,86 @@ def test_stream_wrappers_reject_bad_arguments():
         fused_gpv.fused_fold(torch.zeros(0, 4), 1)
 
 
+# -- kernel 11: flash attention -----------------------------------------------
+
+# (b, h, kv, s, d, causal, block_q, block_k, window): the cases of
+# tests/test_kernels_flash.py, then sliding windows (one narrower than a
+# block, so some rows of a visited block are masked whole)
+FLASH_CASES = [
+    (1, 4, 2, 256, 64, True, 128, 128, None),
+    (2, 2, 2, 128, 128, False, 64, 128, None),
+    (1, 8, 1, 512, 64, True, 256, 128, None),     # MQA
+    (1, 6, 2, 256, 128, True, 64, 64, None),      # ragged head group
+    (1, 2, 2, 384, 64, True, 128, 128, None),     # non-pow2 seq
+    (1, 4, 2, 256, 64, True, 64, 64, 100),
+    (2, 4, 1, 256, 32, True, 128, 64, 40),
+]
+
+
+def _qkv(rng, b, h, kv, s, d):
+    """fp32 q (B,H,S,D), k/v (B,KV,S,D): the Pallas kernel's layout."""
+    return (rng.randn(b, h, s, d).astype(np.float32),
+            rng.randn(b, kv, s, d).astype(np.float32),
+            rng.randn(b, kv, s, d).astype(np.float32))
+
+
+def _port_flash(q, k, v, causal, window):
+    """The port's wrapper takes (B,S,H,D): swap in, run, swap back."""
+    o = ops.flash_attention(_t(q).transpose(1, 2), _t(k).transpose(1, 2),
+                            _t(v).transpose(1, 2), causal=causal,
+                            window=window)
+    return o.transpose(1, 2).numpy()
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_plain_matches_pallas(case):
+    import jax.numpy as jnp
+    from repro.kernels.flash_attn import flash_attention_pallas
+    b, h, kv, s, d, causal, bq, bk, window = case
+    q, k, v = _qkv(np.random.RandomState(0), b, h, kv, s, d)
+    want = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal,
+                                  window=window, block_q=bq, block_k=bk,
+                                  interpret=True)
+    ops.reset_counts()
+    got = _port_flash(q, k, v, causal, window)
+    assert ops.plain_counts()["flash_attention"] == 1
+    np.testing.assert_allclose(got, np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("window", [None, 7, 64])
+def test_flash_plain_matches_jax_oracle_in_bf16(window):
+    """bf16 in, bf16 out, as the model calls it; the oracle of the JAX
+    package (``ref.flash_attention``) on the same bf16 values."""
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    q, k, v = _qkv(np.random.RandomState(3), 2, 4, 2, 96, 32)
+    want = jref.flash_attention(jnp.asarray(q, jnp.bfloat16),
+                                jnp.asarray(k, jnp.bfloat16),
+                                jnp.asarray(v, jnp.bfloat16), causal=True,
+                                window=window)
+    got = ref.flash_attention(_t(q).bfloat16(), _t(k).bfloat16(),
+                              _t(v).bfloat16(), causal=True, window=window)
+    assert got.dtype == torch.bfloat16
+    # both round one fp32 result to bf16: at most one bf16 step apart
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=1e-6, rtol=2 ** -7)
+
+
+def test_flash_wrapper_rejects_bad_arguments():
+    q = torch.zeros(1, 8, 4, 64)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, torch.zeros(1, 8, 3, 64),
+                            torch.zeros(1, 8, 3, 64))       # 4 % 3 heads
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, torch.zeros(1, 9, 2, 64),
+                            torch.zeros(1, 9, 2, 64))       # S differs
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, torch.zeros(1, 8, 2, 64),
+                            torch.zeros(1, 8, 2, 64), window=0)
+
+
 # -- CUDA lane ----------------------------------------------------------------
 
 @pytest.fixture
@@ -396,3 +479,79 @@ def test_cuda_stream_kernels_match_plain(cuda, seed):
         assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
         assert torch.equal(gm, wm)
     torch.cuda.synchronize()
+
+
+# (b, h, kv, s, d, window): the prefill of qwen2.5-3b (B=4, H=16, KV=2,
+# S=2048, D=128), gemma3's window, S not a multiple of the 64-row tile,
+# S inside one tile, a window narrower than a tile, D=64 and D=32
+CUDA_FLASH_CASES = [(4, 16, 2, 2048, 128, None), (2, 16, 2, 2048, 128, 1024),
+                    (2, 4, 2, 1000, 128, None), (1, 4, 1, 384, 128, None),
+                    (2, 2, 2, 40, 128, None), (1, 4, 2, 700, 128, 40),
+                    (1, 8, 2, 300, 64, None), (2, 4, 2, 77, 32, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CUDA_FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(cuda, case):
+    """bf16 on the card; the kernel rounds p to bf16 before p.V where the
+    plain version keeps fp32, so the tolerance is test_kernels_flash.py's
+    bf16 one (atol 2e-2, rtol 5e-2)."""
+    b, h, kv, s, d, window = case
+    rng = np.random.RandomState(s)
+    q = torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
+    k = torch.from_numpy(rng.randn(b, s, kv, d).astype(np.float32))
+    v = torch.from_numpy(rng.randn(b, s, kv, d).astype(np.float32))
+    q, k, v = (t.to(cuda, torch.bfloat16) for t in (q, k, v))
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = tflash.flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=5e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_reads_strided_views_and_non_causal(cuda):
+    """(B,H,S,D) tensors seen as (B,S,H,D) views run without a copy; the
+    non-causal lane masks only the keys past a ragged S."""
+    rng = np.random.RandomState(5)
+    b, h, kv, s, d = 2, 4, 2, 200, 128
+    q = torch.from_numpy(rng.randn(b, h, s, d).astype(np.float32))
+    k = torch.from_numpy(rng.randn(b, kv, s, d).astype(np.float32))
+    v = torch.from_numpy(rng.randn(b, kv, s, d).astype(np.float32))
+    q, k, v = (t.to(cuda, torch.bfloat16).transpose(1, 2)
+               for t in (q, k, v))
+    for causal in (True, False):
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = tflash.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=5e-2)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.float(), k.float(), v.float())
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_run_on_a_side_stream(cuda):
+    """Each wrapper launches on PyTorch's current stream, handed to the
+    kernel as a pointer, also where its ctypes signature leaves the
+    stream out (sat_add): a side stream gives the same results."""
+    rng = np.random.RandomState(9)
+    a = _t(_int_stream(rng, 1 << 16)).to(cuda)
+    b = _t(_int_stream(rng, 1 << 16)).to(cuda)
+    q, k, v = (torch.from_numpy(rng.randn(1, 256, h, 64).astype(np.float32))
+               .to(cuda, torch.bfloat16) for h in (4, 2, 2))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got_sum = inc_agg.sat_add(a, b)
+        got_att = ops.flash_attention(q, k, v)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(got_sum, inc_agg.sat_add_plain(a, b))
+    torch.testing.assert_close(got_att.float(),
+                               tflash.flash_attention_plain(q, k, v).float(),
+                               atol=2e-2, rtol=5e-2)

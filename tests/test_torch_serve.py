@@ -1,0 +1,200 @@
+"""The port's serving path (``repro_torch.launch.serve``) and its INC
+telemetry against the JAX package, on the CPU.
+
+The reference's ``serve`` draws its weights from ``jax.random.key(0)`` and
+its prompt from ``pipeline.make_batch(..., 0)``; the test draws both the
+same way, carries them across, and hands them to the port's ``serve``.
+Random-init greedy decoding collapses onto one token, so tokens are held
+equal only where the port's top-2 logit gap is wider than the logit
+tolerance of tests/test_torch_model.py, up to a row's first step where it
+is not (after that the two runs feed different tokens).
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.data import pipeline
+from repro_torch.launch import serve as tserve
+from repro_torch.launch import steps
+from repro_torch.models import api
+
+ROOT = Path(__file__).resolve().parents[1]
+LOGIT_TOL = 2e-2               # as tests/test_torch_model.py
+PROMPT, DECODE, BATCH = 32, 4, 2
+
+
+def _reference_inputs():
+    """The weights and prompt the reference's serve builds for itself."""
+    import jax
+    from repro.configs.base import get_arch
+    from repro.data import pipeline as jpipeline
+    from repro.models import api as japi
+    cfg = get_arch("qwen2.5-3b").reduced()
+    params = jax.jit(lambda k: japi.init_params(k, cfg))(jax.random.key(0))
+    dcfg = jpipeline.DataConfig(vocab=cfg.vocab, batch=BATCH,
+                                seq_len=PROMPT - 1, kind="uniform")
+    tokens = jpipeline.make_batch(dcfg, 0)["tokens"]
+    return jax.tree.map(np.asarray, params), np.asarray(tokens)
+
+
+def _held_equal(got, want, logits):
+    """Tokens equal wherever the port's top-2 gap exceeds the tolerance,
+    until a row's first step where it does not."""
+    scale = logits.float().abs().amax(dim=-1)            # (steps, B)
+    top2 = logits.float().topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * LOGIT_TOL * scale
+    checked = 0
+    for b in range(got.shape[0]):
+        for t in range(got.shape[1]):
+            if not decided[t, b]:
+                break
+            assert int(got[b, t]) == int(want[b, t]), (b, t)
+            checked += 1
+    return checked
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_serve_matches_reference(flash, monkeypatch, capsys):
+    from repro.launch import serve as jserve
+    if flash:
+        monkeypatch.setenv("REPRO_FLASH_ATTN", "1")
+    else:
+        monkeypatch.delenv("REPRO_FLASH_ATTN", raising=False)
+    want = jserve.serve(arch="qwen2.5-3b", prompt_len=PROMPT,
+                        decode_n=DECODE, batch=BATCH, reduced=True)
+    np_params, tokens = _reference_inputs()
+    got = tserve.serve(arch="qwen2.5-3b", prompt_len=PROMPT,
+                       decode_n=DECODE, batch=BATCH, reduced=True,
+                       flash=flash, device="cpu",
+                       params=api.params_from_jax(np_params, "cpu"),
+                       tokens=torch.from_numpy(tokens.copy()))
+    out = capsys.readouterr().out.splitlines()
+    assert out[-3].startswith(f"prefill {PROMPT} tokens x{BATCH}: ")
+    assert out[-2].startswith(f"inc telemetry: tokens={BATCH * DECODE} ")
+    assert out[-1].startswith("sampled token ids[0]: [")
+    assert got["tokens"].shape == (BATCH, DECODE + 1)
+    assert got["logits"].shape == (DECODE + 1, BATCH, 512)
+    assert torch.isfinite(got["logits"].float()).all()
+    assert _held_equal(got["tokens"], np.asarray(want["tokens"]),
+                       got["logits"]) >= 1
+    for inc in (got["inc_telemetry"], want["inc_telemetry"]):
+        assert inc["metrics"]["decode_tokens"] == BATCH * DECODE
+
+
+def test_flash_and_dense_lanes_agree_teacher_forced():
+    """The two prefill lanes on one set of weights, decoding the same fed
+    tokens: logits within the model tolerance at every step."""
+    cfg = tserve.model_config("qwen2.5-3b", reduced=True, layers=2)
+    params = api.init_params(3, cfg, device="cpu")
+    kw = dict(arch="qwen2.5-3b", prompt_len=PROMPT, decode_n=DECODE,
+              batch=BATCH, reduced=True, layers=2, device="cpu",
+              params=params)
+    a = tserve.serve(flash=True, **kw)
+    b = tserve.serve(flash=False, feed=a["tokens"][:, :-1], **kw)
+    for t in range(DECODE + 1):
+        la, lb = a["logits"][t].float(), b["logits"][t].float()
+        assert float((la - lb).abs().max() / lb.abs().max()) < LOGIT_TOL
+
+
+def test_grow_cache_pads_with_zeros():
+    cfg = tserve.model_config("qwen2.5-3b", reduced=True, layers=2)
+    params = api.init_params(0, cfg, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (BATCH, 8))
+    _, cache = api.prefill(params, cfg, {"tokens": toks})
+    grown = tserve.grow_cache(cache, 12)
+    k = grown[0]["s0"]["k"]
+    assert tuple(k.shape) == tuple(api.cache_specs(cfg, BATCH, 12)[0]["s0"]
+                                   ["k"].shape)
+    assert torch.equal(k[:, :, :8], cache[0]["s0"]["k"])
+    assert not k[:, :, 8:].any()
+
+
+def test_make_batch_is_a_function_of_seed_and_step():
+    dcfg = pipeline.DataConfig(vocab=512, batch=2, seq_len=7)
+    a, b = pipeline.make_batch(dcfg, 3), pipeline.make_batch(dcfg, 3)
+    assert a["tokens"].shape == (2, 8) and a["tokens"].dtype == torch.int32
+    assert torch.equal(a["tokens"], b["tokens"])
+    assert not torch.equal(a["tokens"], pipeline.make_batch(dcfg, 4)["tokens"])
+    assert int(a["tokens"].min()) >= 0 and int(a["tokens"].max()) < 512
+    with pytest.raises(NotImplementedError):
+        pipeline.make_batch(dataclasses.replace(dcfg, kind="bigram"), 0)
+    assert pipeline.DataConfig(vocab=8, batch=1, seq_len=1).kind == \
+        "uniform"
+
+
+def test_telemetry_matches_reference():
+    """Metric pushes, a read, quorum votes and a gradient round trip on
+    the port's TrainTelemetry (device="cpu") and the reference's."""
+    from repro.launch import steps as jsteps
+    rng = np.random.RandomState(11)
+    pushes = [{"loss": float(rng.rand() * 3), "tokens": 8.0}
+              for _ in range(6)]
+    grads = {"w": rng.randn(3, 5).astype(np.float32),
+             "b": [rng.randn(7).astype(np.float32)]}
+    results = []
+    for mod, kw, to in ((steps, {"device": "cpu"}, torch.from_numpy),
+                        (jsteps, {}, np.asarray)):
+        tel = mod.TrainTelemetry(n_workers=2, app_prefix="t", grad_slots=22,
+                                 **kw)
+        for p in pushes:
+            tel.push(p)
+        for step in range(3):
+            tel.vote(step)
+            tel.vote(step)
+        agg = tel.aggregate_gradients({"w": to(grads["w"]),
+                                       "b": [to(grads["b"][0])]})
+        summary = tel.finish()
+        results.append((summary["metrics"], summary["commits"],
+                        np.asarray(agg["w"]), np.asarray(agg["b"][0])))
+    (gm, gc, gw, gb), (wm, wc, ww, wb) = results
+    assert gm == wm and gc == wc == 3
+    np.testing.assert_array_equal(gw, ww)
+    np.testing.assert_array_equal(gb, wb)
+
+
+def test_serve_cli_runs_on_the_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen2.5-3b", "--reduced", "--device", "cpu", "--prompt-len", "16",
+         "--decode", "2", "--batch", "2"], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=120, check=True)
+    lines = out.stdout.strip().splitlines()
+    assert lines[-2].startswith("inc telemetry: tokens=4 ")
+    assert lines[-1].startswith("sampled token ids[0]: [")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_serve_matches_cpu(cuda):
+    """The reduced config at two layers on the card (prefill through the
+    flash kernel, telemetry through sparse_addto) against the same
+    weights and tokens on the CPU, teacher forced."""
+    import copy
+    from repro_torch.kernels import ops
+    cfg = tserve.model_config("qwen2.5-3b", reduced=True, layers=2)
+    p_cpu = api.init_params(5, cfg, device="cpu")
+    kw = dict(arch="qwen2.5-3b", prompt_len=PROMPT, decode_n=DECODE,
+              batch=BATCH, reduced=True, layers=2)
+    ops.reset_counts()
+    card = tserve.serve(device=None, params=copy.deepcopy(p_cpu).to(cuda),
+                        **kw)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2 and counts["sparse_addto"] > 0
+    cpu = tserve.serve(device="cpu", params=p_cpu,
+                       feed=card["tokens"][:, :-1].cpu(), **kw)
+    for t in range(DECODE + 1):
+        la, lb = card["logits"][t].float().cpu(), cpu["logits"][t].float()
+        assert float((la - lb).abs().max() / lb.abs().max()) < LOGIT_TOL
