@@ -8,6 +8,11 @@ kernel of ``csrc/flash_attn.cu`` (bf16, D of 32, 64 or 128), replacing
 (B, S, H, D) tensors through their strides, so a strided view costs no
 copy. A CPU tensor takes the plain version (``ref.flash_attention``, which
 works on the reference kernel's (B, H, S, D) layout).
+
+There is no backward kernel (the reference has none either: its train
+step runs the plain attention unless ``REPRO_FLASH_ATTN=1``), so the
+wrapper raises when autograd would need one, on both lanes, rather than
+return an output that carries no gradient.
 """
 from __future__ import annotations
 
@@ -49,6 +54,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: operands must share one device")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for {q.device.type} tensors")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward kernel: q, k and v would get "
+            "no gradient. Train with the plain attention (flash=False), or "
+            "call it under torch.no_grad()")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -122,10 +122,11 @@ def test_make_batch_is_a_function_of_seed_and_step():
     assert torch.equal(a["tokens"], b["tokens"])
     assert not torch.equal(a["tokens"], pipeline.make_batch(dcfg, 4)["tokens"])
     assert int(a["tokens"].min()) >= 0 and int(a["tokens"].max()) < 512
-    with pytest.raises(NotImplementedError):
-        pipeline.make_batch(dataclasses.replace(dcfg, kind="bigram"), 0)
+    big = pipeline.make_batch(dataclasses.replace(dcfg, kind="bigram"), 0)
+    assert big["tokens"].shape == (2, 8)
+    assert int(big["tokens"].min()) >= 0 and int(big["tokens"].max()) < 512
     assert pipeline.DataConfig(vocab=8, batch=1, seq_len=1).kind == \
-        "uniform"
+        "bigram"
 
 
 def test_telemetry_matches_reference():
