@@ -43,6 +43,33 @@
    before p.V, the plain version keeps fp32), and is timed beside
    ``scaled_dot_product_attention`` on the same tensors.
 
+8. Path, phase j: training qwen2.5-3b at full width and depth (36 layers,
+   random weights from a seed, uniform tokens) through ``train_loop``:
+   three steps of B=2 x S=1 024 in ``netrpc`` (precision 8: every
+   gradient leaf through quantize, sat_add and dequantize) and three in
+   ``fp32-ring``, from the same state, with the train telemetry on the
+   card's ``IncRuntime``. Checks: finite losses, step 0's no lower than
+   ln(vocab) - 0.5 (on uniform tokens an untrained model's expected loss
+   is at least ln(vocab); the tied embedding puts it above); the two
+   modes' losses within 1e-3 (relative) at each step;
+   one quantize, sat_add and dequantize launch per scattered leaf and
+   step, no flash launch (the train lane is the plain attention);
+   telemetry pushes through sparse_addto and one commit a step. Prints the
+   warm step time, tokens/s, peak memory, the card's busy share of one
+   step and the device time of its three stages. Then one ``netrpc`` step at 2 full-width layers (B=2, S=256) on
+   the card and on the CPU from the same params and optimizer state:
+   loss within 1e-3 and gnorm within 1e-2 (relative), and the updated
+   fp32 masters within 2.5 lr of each other, at most 2% of them more than
+   lr/100 apart (one AdamW step moves an element by about lr, so a
+   gradient whose sign differs between the devices moves it about 2 lr
+   apart).
+9. Path, phase k: the int8 wire format's entry points ``ops.pack_int8``
+   and ``ops.unpack_int8`` (kernels 9-10) on the 25 MiB bucket and on a
+   ragged stream that pads, on the card, bitwise equal to the same calls
+   on the CPU and within half an int8 step of the input. Both kernels
+   join the kernel check at those shapes, bitwise against their plain
+   versions.
+
 Launch counts are set to 0 just before each path run on the card and read
 just after it; every kernel must have launched in the path.
 
@@ -81,6 +108,14 @@ FOLD_ROUNDS, BATCH_ROWS = 8, 16
 MODES = ("xla-psum", "fp32-ring", "netrpc", "netrpc-opt")
 ARCH, PROMPT, DECODE, SERVE_BATCH = "qwen2.5-3b", 2048, 32, 4     # phase i
 SMALL_LAYERS, SMALL_PROMPT, SMALL_BATCH, SMALL_DECODE = 2, 256, 2, 8
+# phase j: train at full width; the card-vs-CPU step at 2 layers
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 36, 1024, 2, 3
+TRAIN_SMALL_LAYERS, TRAIN_SMALL_SEQ, TRAIN_CPU_STEP = 2, 256, 5
+STEP0_TOL = 0.5        # step 0's loss at least ln(vocab) less this
+MODES_TOL = 1e-3       # netrpc vs fp32-ring loss, relative, each step
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-3, 1e-2     # card vs CPU
+MASTER_FLIP_FRAC = 0.02   # card vs CPU masters more than lr/100 apart
+RAGGED = BUCKET - 1000    # phase k: a stream that pads to whole tiles
 SEED = 0
 LANES_TOL = 6e-2       # flash vs plain lane, 36 layers (max|d| / max|ref|)
 CPU_TOL = 2e-2         # card vs CPU, 2 layers
@@ -99,6 +134,8 @@ REPLACES = {
     "quantize": "src/repro/kernels/quantize.py:34",
     "dequantize": "src/repro/kernels/dequantize.py:30",
     "flash_attention": "src/repro/kernels/flash_attn.py:95",
+    "pack_int8": "src/repro/kernels/pack_int8.py:28",
+    "unpack_int8": "src/repro/kernels/pack_int8.py:54",
 }
 SOURCE = {
     "fused_addto": "src/repro_torch/kernels/csrc/fused_gpv.cu",
@@ -111,6 +148,8 @@ SOURCE = {
     "quantize": "src/repro_torch/kernels/csrc/quantize.cu",
     "dequantize": "src/repro_torch/kernels/csrc/dequantize.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attn.cu",
+    "pack_int8": "src/repro_torch/kernels/csrc/pack_int8.cu",
+    "unpack_int8": "src/repro_torch/kernels/csrc/pack_int8.cu",
 }
 
 
@@ -401,6 +440,69 @@ def check_flash(torch) -> dict:
             "max_abs_err": errs[0], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "timer": timer}
+
+
+# -- phase 2, kernels 9-10: the int8 pack and unpack --------------------------
+
+def check_int8(torch) -> list[dict]:
+    """Kernels 9-10 against their plain versions, bitwise, on the bucket
+    (51 200 rows, no padding) and on a ragged stream padded to whole
+    tiles; timed on the bucket."""
+    from repro_torch.kernels import pack_int8 as pk
+    from repro_torch.kernels.constants import LANES
+    dev = torch.device("cuda")
+    errs = {"pack_int8": 0.0, "unpack_int8": 0.0}
+    for n in (BUCKET, RAGGED):
+        x = torch.from_numpy(bucket(np.random.RandomState(9), n)).to(dev)
+        tiles = torch.nn.functional.pad(x, (0, (-n) % (256 * LANES)))
+        tiles = tiles.reshape(-1, LANES)
+        q, s = pk.pack_int8(tiles)
+        qp, sp = pk.pack_int8_plain(tiles)
+        y = pk.unpack_int8(q, s)
+        yp = pk.unpack_int8_plain(qp, sp)
+        torch.cuda.synchronize()
+        if not torch.equal(q, qp) or not torch.equal(
+                s.view(torch.int32), sp.view(torch.int32)):
+            fail(f"pack_int8 (n={n}): q or scale differs from the plain "
+                 f"version")
+        if not torch.equal(y.view(torch.int32), yp.view(torch.int32)):
+            fail(f"unpack_int8 (n={n}): differs from the plain version")
+        errs["pack_int8"] = max(errs["pack_int8"],
+                                float((q.int() - qp.int()).abs().max()),
+                                float((s - sp).abs().max()))
+        errs["unpack_int8"] = max(errs["unpack_int8"],
+                                  float((y - yp).abs().max()))
+        print(f"kernel pack_int8/unpack_int8 n={n} ({tiles.shape[0]} rows): "
+              f"bitwise equal to the plain versions", flush=True)
+    x = torch.from_numpy(bucket(np.random.RandomState(9))).to(dev)
+    tiles = x.reshape(-1, LANES)
+    rows = tiles.shape[0]
+    q, s = pk.pack_int8(tiles)
+    nbytes = 5 * BUCKET + 4 * rows          # fp32 in, int8 + scales out
+    # the bucket's 33 MB fit the 50 MB L2: write 64 MiB between launches
+    # so that each one reads its input from device memory, as a caller
+    # whose gradients were written long before would
+    flush = torch.empty(2 ** 24, dtype=torch.int32, device=dev)
+    out = []
+    for name, kernel, plain in (
+            ("pack_int8", lambda: pk.pack_int8(tiles),
+             lambda: pk.pack_int8_plain(tiles)),
+            ("unpack_int8", lambda: pk.unpack_int8(q, s),
+             lambda: pk.unpack_int8_plain(q, s))):
+        ms, timer = device_ms(torch, kernel, lambda: flush.fill_(1), 50)
+        warm, _ = device_ms(torch, kernel, lambda: None, 50)
+        plain_ms = event_ms(torch, plain, lambda: flush.fill_(1), 5)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"kernel {name}: ok vs plain, ms={ms:.6f} ({timer}, L2 "
+              f"flushed; {warm:.6f} with the bucket in L2) plain_ms="
+              f"{plain_ms:.6f} bound_ms={bound_ms:.6f}", flush=True)
+        out.append({"name": name, "route": "cuda", "source": SOURCE[name],
+                    "replaces": REPLACES[name], "launches": 0,
+                    "max_abs_err": errs[name], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "bytes", "library_ms": None,
+                    "timer": timer})
+    return out
 
 
 # -- phase 3: the main path ---------------------------------------------------
@@ -931,6 +1033,245 @@ def check_serve(torch, smi: str) -> dict:
     return counts
 
 
+# -- phase j: training qwen2.5-3b ---------------------------------------------
+
+def train_run(mode: str, *, device=None, layers=TRAIN_LAYERS, seq=TRAIN_SEQ,
+              batch=TRAIN_BATCH, reduced=False) -> dict:
+    """``train_loop`` of ARCH for TRAIN_STEPS steps on uniform tokens
+    (random weights from the loop's seed, 0)."""
+    from repro_torch.launch.train import train_loop
+    return train_loop(arch=ARCH, inc_mode=mode, steps_n=TRAIN_STEPS,
+                      seq=seq, batch=batch, reduced=reduced,
+                      precision=PRECISION, data_kind="uniform", log_every=1,
+                      device=device, layers=layers)
+
+
+def scattered_leaves(cfg) -> int:
+    """Leaves the train step reduce-scatters (one quantize, sat_add and
+    dequantize each in netrpc) on one rank."""
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    dims = steps.scatter_dims_tree(api.param_shapes(cfg), 1, 1)
+    return sum(d >= 0 for d in dims.values())
+
+
+def train_oracle(run: dict, vocab: int, what: str) -> None:
+    """Every step ran with a finite loss; step 0's is no better than
+    chance: on uniform targets the expected loss of any logits is
+    lse - mean >= ln(vocab), so a sample of thousands of tokens lands
+    above ln(vocab) - STEP0_TOL (random tied embeddings put it well
+    above: each position's own token gets a logit near sqrt(d_model));
+    and the telemetry counted and committed every step."""
+    losses = run["losses"]
+    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        fail(f"{what}: losses {losses}")
+    if losses[0] < np.log(vocab) - STEP0_TOL:
+        fail(f"{what}: step 0's loss {losses[0]:.4f} beats chance, "
+             f"ln({vocab}) = {np.log(vocab):.4f}, by more than {STEP0_TOL}")
+    inc = run["inc_telemetry"]
+    if inc["commits"] != TRAIN_STEPS or \
+            inc["metrics"].get("steps") != TRAIN_STEPS:
+        fail(f"{what}: telemetry committed {inc['commits']} and counted "
+             f"{inc['metrics'].get('steps')} of {TRAIN_STEPS} steps")
+
+
+def modes_oracle(a: dict, b: dict, what: str) -> float:
+    """netrpc and fp32-ring from the same state: the same loss at each
+    step within MODES_TOL; returns the largest relative difference."""
+    err = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"]))
+    if err > MODES_TOL:
+        fail(f"{what}: netrpc and fp32-ring losses differ by {err:.2e} "
+             f"> {MODES_TOL} ({a['losses']} vs {b['losses']})")
+    return err
+
+
+def step_pair(torch, mesh_card, mesh_cpu) -> None:
+    """One netrpc step at 2 full-width layers on the card and on the CPU
+    from the same params, optimizer state and tokens."""
+    import copy as _copy
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.inc_agg import IncAggConfig
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import model_config
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = model_config(ARCH, layers=TRAIN_SMALL_LAYERS)
+    shape = ShapeConfig("j_small", TRAIN_SMALL_SEQ, TRAIN_BATCH, "train")
+    kw = dict(inc=IncAggConfig(mode="netrpc", precision=PRECISION),
+              opt_cfg=AdamWConfig(warmup_steps=5, total_steps=100),
+              n_micro=1)
+    p_cpu = api.init_params(SEED, cfg, device="cpu")
+    o_cpu = steps.init_opt(p_cpu)
+    p_card = _copy.deepcopy(p_cpu).to("cuda")
+    o_card = {k: _copy.deepcopy(v).to("cuda") for k, v in o_cpu.items()}
+    batch = pipeline.make_batch(pipeline.DataConfig(
+        vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SMALL_SEQ,
+        seed=SEED, kind="uniform"), TRAIN_CPU_STEP)
+    card = steps.build_train_step(cfg, shape, mesh_card, device="cuda",
+                                  **kw)
+    cpu = steps.build_train_step(cfg, shape, mesh_cpu, device="cpu", **kw)
+    _, o_card, m_card = card.fn(p_card, o_card, batch, TRAIN_CPU_STEP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, o_cpu, m_cpu = cpu.fn(p_cpu, o_cpu, batch, TRAIN_CPU_STEP)
+    cpu_s = time.perf_counter() - t0
+    lr = float(m_cpu["lr"])
+    if float(m_card["lr"]) != lr:
+        fail("phase j: the card's learning rate is not the CPU's")
+    loss_err = abs(float(m_card["loss"]) / float(m_cpu["loss"]) - 1)
+    gnorm_err = abs(float(m_card["gnorm"]) / float(m_cpu["gnorm"]) - 1)
+    d = torch.cat([(a.cpu() - b).abs().reshape(-1) for (_, a), (_, b) in
+                   zip(api.named_leaves(o_card["master"]),
+                       api.named_leaves(o_cpu["master"]))])
+    far = float((d > lr / 100).float().mean())
+    print(f"path j_train: {TRAIN_SMALL_LAYERS} layers at full width, S="
+          f"{TRAIN_SMALL_SEQ}, B={TRAIN_BATCH}, one netrpc step, card vs CPU "
+          f"({cpu_s:.3f} s on the CPU): loss {float(m_card['loss']):.6f} vs "
+          f"{float(m_cpu['loss']):.6f} (rel {loss_err:.2e}, tolerance "
+          f"{TRAIN_LOSS_RTOL}), gnorm rel {gnorm_err:.2e} (tolerance "
+          f"{TRAIN_GNORM_RTOL}); masters: max|d| {float(d.max()) / lr:.4f} "
+          f"lr (tolerance 2.5), {far:.6f} of {d.numel()} more than lr/100 "
+          f"apart (tolerance {MASTER_FLIP_FRAC})", flush=True)
+    if loss_err > TRAIN_LOSS_RTOL or gnorm_err > TRAIN_GNORM_RTOL \
+            or float(d.max()) > 2.5 * lr or far > MASTER_FLIP_FRAC:
+        fail("phase j: the card's train step differs from the CPU's")
+
+
+def profile_train(torch, run: dict, mesh) -> None:
+    """Two more netrpc steps on the trained state: one under the profiler
+    (the card's busy share and top kernels), one with the stage clock
+    (the stream's ms per stage of launch/steps.py, CUDA events)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.inc_agg import IncAggConfig
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import model_config
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = model_config(ARCH, layers=TRAIN_LAYERS)
+    prog = steps.build_train_step(
+        cfg, ShapeConfig("j", TRAIN_SEQ, TRAIN_BATCH, "train"), mesh,
+        inc=IncAggConfig(mode="netrpc", precision=PRECISION),
+        opt_cfg=AdamWConfig(warmup_steps=5, total_steps=TRAIN_STEPS),
+        n_micro=1, device="cuda")
+    batch = pipeline.shard_batch(pipeline.make_batch(pipeline.DataConfig(
+        vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=SEED,
+        kind="uniform"), TRAIN_STEPS), "cuda")
+
+    def step():
+        prog.fn(run["params"], run["opt"], batch, TRAIN_STEPS)
+    wall, share, top = busy_share(torch, step)
+    print(f"path j_train profile, one netrpc step: {wall * 1e3:.3f} ms "
+          f"(wall, profiler on), card busy {share:.4f} of it; top kernels "
+          f"(ms): {top}", flush=True)
+    step()
+    stages = prog.meta["clock"].ms()
+    print("path j_train, one netrpc step by stage (ms of the card's stream "
+          "between CUDA events, profiler off): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in stages.items())
+          + f"; total {sum(stages.values()):.3f}", flush=True)
+
+
+def check_train(torch, smi: str) -> dict:
+    """Phase j on the card: both modes at full width, the profile of one
+    step, and the 2-layer step against the CPU."""
+    from repro_torch import compat
+    from repro_torch.launch.serve import model_config
+    from repro_torch.launch.train import one_rank_group
+    cfg = model_config(ARCH, layers=TRAIN_LAYERS)
+    leaves = scattered_leaves(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with one_rank_group(torch.device("cuda")):
+        mesh = compat.make_mesh((1, 1), ("data", "model"))
+        run, counts, secs = counted(
+            torch, lambda: train_run("netrpc"),
+            "phase j (train, netrpc)",
+            ("quantize", "sat_add", "dequantize", "sparse_addto"))
+        peak = torch.cuda.max_memory_allocated()
+        train_oracle(run, cfg.vocab, "phase j (netrpc)")
+        for name in ("quantize", "sat_add", "dequantize"):
+            if counts[name] != leaves * TRAIN_STEPS:
+                fail(f"phase j: {counts[name]} {name} launches, not one per "
+                     f"scattered leaf ({leaves}) and step")
+        if counts["flash_attention"]:
+            fail("phase j: the train step launched the flash kernel")
+        warm = statistics.mean(run["step_s"][1:])
+        print(f"path j_train: {ARCH}, {run['n_layers']} of "
+              f"{model_config(ARCH).n_layers} layers, d_model {cfg.d_model}, "
+              f"B={TRAIN_BATCH} x S={TRAIN_SEQ}, netrpc (precision "
+              f"{PRECISION}): {secs:.3f} s for {TRAIN_STEPS} steps; losses "
+              f"{run['losses']}; step seconds {run['step_s']}; warm step "
+              f"{warm:.6f} s, {TRAIN_BATCH * TRAIN_SEQ / warm:.3f} tokens/s; "
+              f"peak device memory {peak / 2 ** 30:.3f} GiB; {leaves} "
+              f"scattered leaves; launches {counts}", flush=True)
+        print(f"path j_train card: {smi}", flush=True)
+        profile_train(torch, run, mesh)
+        netrpc_losses = {"losses": run["losses"]}
+        del run
+        torch.cuda.empty_cache()
+        ring, ring_counts, ring_s = counted(
+            torch, lambda: train_run("fp32-ring"),
+            "phase j (train, fp32-ring)", ("sparse_addto",))
+        train_oracle(ring, cfg.vocab, "phase j (fp32-ring)")
+        err = modes_oracle(netrpc_losses, ring, "phase j")
+        print(f"path j_train: fp32-ring {ring_s:.3f} s, losses "
+              f"{ring['losses']}, step seconds {ring['step_s']}; netrpc vs "
+              f"fp32-ring max relative loss difference {err:.2e} "
+              f"(tolerance {MODES_TOL}); launches {ring_counts}", flush=True)
+        del ring
+        torch.cuda.empty_cache()
+        step_pair(torch, mesh, compat.make_mesh((1, 1), ("data", "model"),
+                                                device="cpu"))
+    return {k: counts[k] + ring_counts[k] for k in counts}
+
+
+# -- phase k: the int8 wire format --------------------------------------------
+
+def drive_int8_wire(torch, device) -> dict:
+    """ops.pack_int8 -> ops.unpack_int8 of the bucket and of a ragged
+    stream on ``device``; returns the results as numpy."""
+    from repro_torch.kernels import ops
+    out = {}
+    for n in (BUCKET, RAGGED):
+        x = torch.from_numpy(bucket(np.random.RandomState(10), n)).to(device)
+        q, s = ops.pack_int8(x)
+        y = ops.unpack_int8(q, s, n)
+        out.update({f"{n}|q": q.cpu().numpy(), f"{n}|s": s.cpu().numpy(),
+                    f"{n}|y": y.cpu().numpy()})
+    return out
+
+
+def int8_wire_oracle(got: dict) -> None:
+    """Whole 256 x 128 tiles, and every element within half an int8 step
+    of its input (amax / 254, with an ulp of slack)."""
+    for n in (BUCKET, RAGGED):
+        x = bucket(np.random.RandomState(10), n)
+        q, y = got[f"{n}|q"], got[f"{n}|y"]
+        if q.shape != (-(-n // (256 * 128)) * 256, 128) or y.shape != (n,):
+            fail(f"k_int8_wire: shapes {q.shape}, {y.shape} for n={n}")
+        amax = np.abs(np.pad(x, (0, (-n) % 128))).reshape(-1, 128).max(1)
+        if not np.all(np.abs(y - x) <= np.repeat(amax / 254.0 * (1 + 1e-5),
+                                                 128)[:n]):
+            fail(f"k_int8_wire: the round trip of n={n} is off its grid")
+
+
+def check_int8_wire(torch) -> dict:
+    got, counts, secs = counted(
+        torch, lambda: drive_int8_wire(torch, "cuda"),
+        "phase k (int8 wire)", ("pack_int8", "unpack_int8"))
+    want = drive_int8_wire(torch, "cpu")
+    for k in want:
+        if got[k].tobytes() != want[k].tobytes():
+            fail(f"k_int8_wire: {k} differs between card and CPU")
+    int8_wire_oracle(got)
+    print(f"path k_int8_wire: ops.pack_int8 -> ops.unpack_int8 of n="
+          f"{BUCKET} and n={RAGGED}: {secs:.3f} s, bitwise equal to the CPU "
+          f"run, within half an int8 step; launches {counts}", flush=True)
+    return counts
+
+
 def rehearse(scale_down: int = 64) -> None:
     """Every path phase on the CPU at 1/scale_down of its size, with the
     plain versions: a rehearsal of the script's control flow and its
@@ -972,7 +1313,17 @@ def rehearse(scale_down: int = 64) -> None:
     plain = serve_run("cpu", params, False, shape, feed=run["tokens"][:, :-1])
     if lanes_err(run, plain, cfg.vocab) > LANES_TOL:
         fail("rehearsal: the flash and plain lanes disagree")
-    print("rehearsal: phases a-i ran on the CPU and met their oracles")
+    small = dict(device="cpu", reduced=True, layers=2, seq=64)
+    ops.reset_counts()
+    netrpc = train_run("netrpc", **small)
+    cfg = model_config(ARCH, reduced=True, layers=2)
+    train_oracle(netrpc, cfg.vocab, "rehearsal of phase j")
+    if ops.plain_counts()["quantize"] != scattered_leaves(cfg) * TRAIN_STEPS:
+        fail("rehearsal: not one quantize per scattered leaf and step")
+    modes_oracle(netrpc, train_run("fp32-ring", **small),
+                 "rehearsal of phase j")
+    int8_wire_oracle(drive_int8_wire(torch, "cpu"))
+    print("rehearsal: phases a-k ran on the CPU and met their oracles")
 
 
 def main() -> int:
@@ -993,12 +1344,14 @@ def main() -> int:
           flush=True)
     phase_s = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()
-    kernels = check_kernels(torch) + [check_flash(torch)]
+    kernels = check_kernels(torch) + [check_flash(torch)] + check_int8(torch)
     phase_s["kernels"] = time.perf_counter() - t0
     counts = {}
     for label, check in (("a-e", check_path), ("f", check_local_accum),
                          ("g", check_syncagtr), ("h", check_clear_policies),
-                         ("i", lambda t: check_serve(t, smi))):
+                         ("i", lambda t: check_serve(t, smi)),
+                         ("j", lambda t: check_train(t, smi)),
+                         ("k", check_int8_wire)):
         t0 = time.perf_counter()
         for name, c in check(torch).items():
             counts[name] = counts.get(name, 0) + c

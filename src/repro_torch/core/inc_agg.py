@@ -16,7 +16,8 @@ Modes:
              with a *static* no-overflow guarantee (127 * n_dp <= 32767)
              replacing the dynamic fallback entirely.
 
-This is the flat-buffer API of the JAX package's ``core/inc_agg.py``.
+This is the JAX package's ``core/inc_agg.py``: the flat-buffer API and
+the per-leaf API of the train step.
 Every process is one data-parallel rank; ``dp_axes`` are mesh axes of
 ``compat.make_mesh``. JAX's collectives map onto ``torch.distributed``:
 ``psum`` is ``all_reduce(SUM)`` and ``pmax`` is ``all_reduce(MAX)`` over
@@ -236,6 +237,14 @@ def _owned_offset(dp_axes: tuple[Axis, ...], chunk_len: int) -> int:
 # netrpc-opt encode/decode: shared-scale int8 payload, int16 on the wire
 # ---------------------------------------------------------------------------
 
+def _int8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """amax / 127, or 1 where amax is 0. A tensor divisor: PyTorch's CUDA
+    division by a scalar multiplies by its reciprocal, which is not the
+    reference's (or the CPU's) divide."""
+    return torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                       torch.ones_like(amax))
+
+
 def _opt_encode(g: torch.Tensor, dp_axes: tuple[Axis, ...]
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """fp32 (L,) -> (int16 (L,), fp32 block scales (L/128,)).
@@ -248,11 +257,7 @@ def _opt_encode(g: torch.Tensor, dp_axes: tuple[Axis, ...]
     if L % _BLOCK:
         raise ValueError(f"length {L} is not a multiple of {_BLOCK}")
     blocks = g.reshape(L // _BLOCK, _BLOCK)
-    amax = _pmax(blocks.abs().amax(dim=1), dp_axes)
-    # a tensor divisor: PyTorch's CUDA division by a scalar multiplies by
-    # its reciprocal, which is not the reference's (or the CPU's) divide
-    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
-                        torch.ones_like(amax))
+    scale = _int8_scale(_pmax(blocks.abs().amax(dim=1), dp_axes))
     q = torch.clamp(torch.round(blocks / scale[:, None]), -127, 127)
     return q.to(torch.int16).reshape(L), scale
 
@@ -269,3 +274,100 @@ def opt_mode_static_check(dp_sizes: tuple[int, ...]) -> None:
         raise ValueError(
             f"netrpc-opt int16 wire format needs 127*n_dp <= {_INT16_MAX}; "
             f"n_dp={n}. Use hierarchical int32 promotion or netrpc mode.")
+
+
+# ---------------------------------------------------------------------------
+# per-leaf (dim-wise) API — the train-step path
+# ---------------------------------------------------------------------------
+# Each gradient leaf is reduce-scattered along its own dp-divisible dim
+# (chosen by sharding/rules.fsdp_dim): the leaf IS the paper's FPArray
+# stream, and leaves aggregate as independent concurrent flows (the
+# paper's automatic data parallelism, M9).
+#
+# Kernels: the reference runs the kernels.ref oracles here. The port runs
+# ``ops.quantize`` / ``ops.sat_add`` / ``ops.dequantize``, which are exact
+# against those oracles: kernels 7, 6 and 8 on the card, their plain
+# versions on the CPU.
+
+def _lead(scale: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A per-dim-0 vector shaped to broadcast over an ``ndim`` tensor."""
+    return scale.reshape(-1, *([1] * (ndim - 1)))
+
+
+def _row_amax(x: torch.Tensor) -> torch.Tensor:
+    """max|x| over every dim but 0 (the reference's max over trailing
+    axes; a 1-D x has none, so it is |x| itself)."""
+    a = x.abs()
+    return a.amax(dim=tuple(range(1, x.dim()))) if x.dim() > 1 else a
+
+
+def reduce_scatter_dim(g: torch.Tensor, dim: int, dp_axes: tuple[Axis, ...],
+                       cfg: IncAggConfig) -> torch.Tensor:
+    """fp32/bf16 leaf -> this rank's fully reduced fp32 chunk along `dim`.
+
+    Output keeps the original dim order with dim shrunk by n_dp; chunk
+    ownership is dp_axes[0]-major (matches hierarchical_all_gather and
+    the tiled psum_scatter/all_gather).
+    """
+    x = torch.movedim(g, dim, 0).to(torch.float32)
+    if cfg.mode == "xla-psum":
+        out = x
+        for ax in dp_axes:
+            out = _psum_scatter(out, ax)
+    elif cfg.mode == "fp32-ring":
+        out = ring.hierarchical_reduce_scatter(x, dp_axes, torch.add)
+    elif cfg.mode == "netrpc":
+        r = ring.hierarchical_reduce_scatter(quantize(x, cfg.precision),
+                                             dp_axes, ops.sat_add)
+        val, mask = dequantize(r, cfg.precision)
+        del r
+        if cfg.fallback == "always":
+            c = x.shape[0] // dp_size(dp_axes)
+            off = ring.dp_index(dp_axes) * c
+            x_own = x[off:off + c]
+            repaired = _psum(torch.where(mask, x_own,
+                                         torch.zeros_like(x_own)), dp_axes)
+            val = torch.where(mask, repaired, val)
+        out = val
+    elif cfg.mode == "netrpc-opt":
+        # per-row shared scale, int16 wire, statically overflow-free
+        scale = _int8_scale(_pmax(_row_amax(x), dp_axes))
+        q = torch.clamp(torch.round(x / _lead(scale, x.dim())),
+                        -127, 127).to(torch.int16)
+        r = ring.hierarchical_reduce_scatter(q, dp_axes, torch.add)
+        c = x.shape[0] // dp_size(dp_axes)
+        off = ring.dp_index(dp_axes) * c
+        out = r.to(torch.float32) * _lead(scale[off:off + c], x.dim())
+    else:
+        raise ValueError(cfg.mode)
+    return torch.movedim(out, 0, dim)
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, dp_axes: tuple[Axis, ...],
+                   cfg: IncAggConfig) -> torch.Tensor:
+    """Inverse of reduce_scatter_dim (used to rebuild updated params)."""
+    y = torch.movedim(x, dim, 0)
+    if cfg.mode == "xla-psum":
+        for ax in reversed(dp_axes):
+            y = _all_gather_tiled(y, ax)
+    else:
+        y = ring.hierarchical_all_gather(y, dp_axes)
+    return torch.movedim(y, 0, dim)
+
+
+def all_gather_dim_q8(x: torch.Tensor, dim: int, dp_axes: tuple[Axis, ...]
+                      ) -> torch.Tensor:
+    """Quantized parameter gather (ZeRO++-style, beyond-paper): the local
+    shard is block-quantized to int8 with one fp32 scale per dim-0 row —
+    the same shared-scale scheme as the netrpc-opt wire format — gathered
+    at 1 B/element instead of 2 (bf16), and dequantized locally."""
+    y = torch.movedim(x, dim, 0).to(torch.float32)
+    scale = _int8_scale(_row_amax(y))
+    qg = torch.clamp(torch.round(y / _lead(scale, y.dim())),
+                     -127, 127).to(torch.int8)
+    sg = scale
+    for ax in reversed(dp_axes):
+        qg = _all_gather_tiled(qg, ax)
+        sg = _all_gather_tiled(sg, ax)
+    out = qg.to(torch.float32) * _lead(sg, y.dim())
+    return torch.movedim(out, 0, dim).to(x.dtype)

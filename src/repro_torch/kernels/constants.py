@@ -14,3 +14,8 @@ INT32_MAX = 2**31 - 1          # positive-overflow sentinel (paper: MAX_INT)
 INT32_MIN = -(2**31 - 1)       # negative-overflow sentinel (paper: MIN_INT)
 SAT_MAX = INT32_MAX - 1        # largest representable non-sentinel value
 SAT_MIN = INT32_MIN + 1        # smallest representable non-sentinel value
+
+# the int8 block pack's scale group: one 128-lane row (the reference's TPU
+# lane width), and the rows of one tile of the reference's entry point
+LANES = 128
+DEFAULT_BLOCK_ROWS = 256

@@ -13,7 +13,9 @@ Two families go through here:
   register file update the segment in place and return it, so callers
   keep assigning the result back (``seg.regs = ops.sparse_addto(...)``).
 - attention: the model's prefill (models/attention.py) calls
-  ``flash_attention`` on (B, S, H, D) activations.
+  ``flash_attention`` on (B, S, H, D) activations;
+- the int8 wire format: ``pack_int8`` / ``unpack_int8`` turn a flat fp32
+  stream into int8 rows of 128 lanes with one fp32 scale each, and back.
 
 Every wrapper runs the hand-written kernel for a CUDA tensor and the
 plain version for a CPU tensor, and counts both (``launch_counts``,
@@ -28,13 +30,15 @@ from repro_torch.kernels import dequantize as _dequantize
 from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import fused_gpv
 from repro_torch.kernels import inc_agg
+from repro_torch.kernels import pack_int8 as _pack
 from repro_torch.kernels import quantize as _quantize
 from repro_torch.kernels import sparse_addto as _sparse
-from repro_torch.kernels.constants import SAT_MAX
+from repro_torch.kernels.constants import DEFAULT_BLOCK_ROWS, LANES, SAT_MAX
 from repro_torch.kernels.ref import _sat_add_scalar
 
 # every kernel wrapper of the port, for launch accounting: the INC family
-# (register file, fold, SyncAgtr stream verbs) and the attention kernel
+# (register file, fold, SyncAgtr stream verbs), the attention kernel and
+# the int8 pack
 KERNELS = {"fused_addto": fused_gpv.fused_addto,
            "fused_scatter": fused_gpv.fused_scatter,
            "fused_read": fused_gpv.fused_read,
@@ -44,7 +48,9 @@ KERNELS = {"fused_addto": fused_gpv.fused_addto,
            "sat_add_batch": inc_agg.sat_add_batch,
            "quantize": _quantize.quantize,
            "dequantize": _dequantize.dequantize,
-           "flash_attention": _flash.flash_attention}
+           "flash_attention": _flash.flash_attention,
+           "pack_int8": _pack.pack_int8,
+           "unpack_int8": _pack.unpack_int8}
 
 
 def launch_counts() -> dict[str, int]:
@@ -311,3 +317,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     reads this layout through its strides, where the reference swaps axes
     to (B,H,S,D) for the Pallas kernel."""
     return _flash.flash_attention(q, k, v, causal=causal, window=window)
+
+
+# -- the int8 wire format -----------------------------------------------------
+
+def pack_int8(x: torch.Tensor, block_rows: int = DEFAULT_BLOCK_ROWS
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 (n,) -> (int8 (rows, 128), fp32 scales (rows,)): the stream
+    padded with zeros to whole (block_rows, 128) tiles, as the reference
+    pads it, so both return the same shapes. The caller keeps n to
+    truncate after ``unpack_int8``."""
+    x = x.reshape(-1).to(torch.float32)
+    tile = block_rows * LANES
+    pad = (-x.shape[0]) % tile
+    t = torch.nn.functional.pad(x, (0, pad)) if pad else x.contiguous()
+    return _pack.pack_int8(t.reshape(-1, LANES))
+
+
+def unpack_int8(q: torch.Tensor, scale: torch.Tensor, n: int,
+                block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
+    """(int8 tiles, scales, n) -> fp32 (n,)."""
+    if q.shape[0] % block_rows:
+        raise ValueError(f"{q.shape[0]} rows are not whole tiles of "
+                         f"{block_rows}")
+    return _pack.unpack_int8(q.contiguous(),
+                             scale.contiguous()).reshape(-1)[:n]

@@ -149,6 +149,29 @@ STREAM_OPS = ("nop", "max", "min", "add", "assign",
               "shiftl", "shiftr", "band", "bor", "bnot", "bxor")
 
 
+# ---------------------------------------------------------------------------
+# block-scaled int8 pack (the int8 wire format of ops.pack_int8)
+# ---------------------------------------------------------------------------
+
+def pack_int8_block(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 (rows, lanes) -> (int8 q, fp32 per-row scale).
+
+    scale = max|row| / 127 (a zero row gets scale 1, so it unpacks to
+    exact zeros); q = round-half-even(x / scale) clipped to [-127, 127].
+    Both the scale and q come from IEEE divides by a tensor: PyTorch's
+    CUDA division by a Python scalar multiplies by its reciprocal."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                        torch.ones_like(amax))
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def unpack_int8_block(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale[..., None]
+
+
 def stream_modify(v: torch.Tensor, op: str, para: int = 0) -> torch.Tensor:
     """Apply one Table-8 arithmetic op to an int32 stream."""
     v = torch.as_tensor(v).to(torch.int32)

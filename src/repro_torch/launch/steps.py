@@ -1,20 +1,40 @@
-"""The INC telemetry of the train and serve loops: the host half of
-``repro/launch/steps.py``.
+"""Train step builder and the INC telemetry of the train and serve
+loops: the port of ``repro/launch/steps.py`` on one rank.
 
 The loop's metric stream, step-commit quorum and gradient channel run on
-the port's async ``IncRuntime`` through typed schema services. The step
-builders of the reference (``build_train_step``/``build_serve_step``)
-wrap ``shard_map`` over a device mesh; one card has no counterpart, and
-they wait for the train step (ROADMAP).
+the port's async ``IncRuntime`` through typed schema services. The train
+step is the paper's SyncAgtr pipeline as the gradient aggregation path
+(zero1): local grads accumulate over microbatches in fp32; each leaf is
+INC reduce-scattered along its scatter dim (quantize -> per-hop
+saturating Map.addTo ring -> dequant + overflow fallback); AdamW updates
+this rank's fp32 chunk; the updated leaf is rebuilt by the INC
+all-gather. The reference runs the step as one ``jit(shard_map(...))``
+over a mesh; here it is eager PyTorch on the ranks of a
+``compat.make_mesh`` mesh of one data-parallel rank (``(data=1,
+model=1)``: NCCL on the card, gloo with ``device="cpu"``). More ranks,
+tensor parallelism and the ``fsdp`` mode raise ``NotImplementedError``
+(ROADMAP: several cards). The serve step builder is not ported: serving
+calls ``models.api`` directly (``launch/serve.py``).
 """
 from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 import repro_torch.api as inc
 from repro_torch.api import DrainPolicy, IncFuture, IncRuntime
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.core import inc_agg
+from repro_torch.core.inc_agg import IncAggConfig
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import api
 from repro_torch.obs import hooks as _obs
+from repro_torch.optim import adamw
+from repro_torch.sharding import rules
 
 # fixed-point digits for metric scalars; milli-precision keeps long-run
 # accumulated sums far from the int32 saturation sentinels of the register
@@ -220,3 +240,233 @@ class TrainTelemetry:
         if self._own_rt:
             self.rt.close()
         return summary
+
+
+# ---------------------------------------------------------------------------
+# scatter-dim bookkeeping
+# ---------------------------------------------------------------------------
+
+def scatter_dims_tree(params, n_dp: int, n_model: int) -> dict[str, int]:
+    """{leaf path: the dp-scatter dim of the leaf, -1 if it has none
+    (small norms/biases -> psum + replicated opt state)}. ``params`` is a
+    ``Tree`` (on any device, the meta device included)."""
+    out = {}
+    for name, leaf in api.named_leaves(params):
+        path = name.split(".")
+        t = rules.tp_dim(path, leaf.shape, n_model)
+        f = rules.fsdp_dim(path, leaf.shape, n_dp, t)
+        out[name] = -1 if f is None else f
+    return out
+
+
+# ---------------------------------------------------------------------------
+# microbatching
+# ---------------------------------------------------------------------------
+
+def default_n_micro(cfg: ArchConfig, shape: ShapeConfig, n_dp: int,
+                    budget_bytes: float = 2e9) -> int:
+    """Pick n_micro so per-device remat boundary memory fits the budget."""
+    local_b = max(shape.global_batch // n_dp, 1)
+    per_layer = local_b * shape.seq_len * cfg.d_model * 2
+    total = per_layer * (cfg.n_layers + cfg.enc_layers)
+    n = 1
+    while total / n > budget_bytes and n < local_b:
+        n *= 2
+    return n
+
+
+# ---------------------------------------------------------------------------
+# the train step
+# ---------------------------------------------------------------------------
+
+# the train step's stages, in order
+STAGES = ("grads", "aggregate", "update")
+
+
+class StageClock:
+    """Marks at the train step's stage boundaries: CUDA events on the
+    card (the stream's time between them, with no synchronize), the host
+    clock on the CPU, where every operation finishes before it returns.
+    ``ms()`` gives the last step's milliseconds per stage."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.marks: list = []
+
+    def mark(self) -> None:
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def ms(self) -> dict[str, float]:
+        m = self.marks
+        if self.device.type == "cuda":
+            m[-1].synchronize()
+            return {k: m[i].elapsed_time(m[i + 1])
+                    for i, k in enumerate(STAGES)}
+        return {k: (m[i + 1] - m[i]) * 1e3 for i, k in enumerate(STAGES)}
+
+
+@dataclass
+class Program:
+    """A built step: ``fn(params, opt, batch, step)`` and what it was
+    built for."""
+    fn: Any
+    mesh: Any
+    meta: dict
+
+
+def _several_cards(what: str):
+    return NotImplementedError(
+        f"{what} is not ported yet: the train step runs on one "
+        f"data-parallel rank (ROADMAP: several cards)")
+
+
+def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
+                     inc: IncAggConfig, opt_cfg: adamw.AdamWConfig,
+                     n_micro: int | None = None, mode: str | None = None,
+                     device=None) -> Program:
+    """The train step of ``cfg`` at ``shape`` on ``mesh`` (a
+    ``compat.make_mesh`` mesh with a "data" axis and optionally "pod" and
+    "model"), its tensors on ``device`` (the card by default).
+
+    ``prog.fn(params, opt, batch, step)`` -> ``(params, opt, {"loss",
+    "gnorm", "lr"})``, the metrics 0-d fp32 tensors. It follows the
+    reference's body step for step. Unlike the reference, which returns
+    new trees (and donates the old ones), it updates ``params`` (a
+    ``Tree``) and ``opt`` (``{"master", "m", "v"}``, fp32 ``Tree``s) in
+    place and returns them: the full-width model's optimizer state is
+    37 GB, and a second copy would not fit the card. ``meta["clock"]``
+    (a ``StageClock``) times the stages of the last step."""
+    dev = resolve_device(device)
+    mode = mode or rules.mode_for(cfg.name)
+    if mode != "zero1":
+        raise _several_cards(f"the {mode!r} mode")
+    names = tuple(a for a in ("pod", "data") if a in mesh.names)
+    manual = mesh.axes_of(names)
+    n_dp = inc_agg.dp_size(manual)
+    n_model = mesh.shape[mesh.names.index("model")] \
+        if "model" in mesh.names else 1
+    if n_dp != 1 or n_model != 1:
+        raise _several_cards(f"a mesh of {n_dp} data x {n_model} model "
+                             f"ranks")
+    if n_micro is None:
+        n_micro = default_n_micro(cfg, shape, n_dp)
+    local_b = shape.global_batch // n_dp
+    if local_b % n_micro:
+        raise ValueError(f"a local batch of {local_b} does not split into "
+                         f"{n_micro} microbatches")
+    dims = scatter_dims_tree(api.param_shapes(cfg), n_dp, n_model)
+
+    def grads_of(params, leaves, mb):
+        """fp32 gradient per leaf summed over the microbatches, and the
+        mean loss over the data-parallel ranks."""
+        for _, p in leaves:
+            p.requires_grad_(True)
+        gacc = [None] * len(leaves)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        try:
+            for i in range(n_micro):
+                loss, _ = api.train_loss(params, cfg, {"tokens": mb[i]},
+                                         remat=True)
+                grads = list(torch.autograd.grad(
+                    loss, [p for _, p in leaves]))
+                for j in range(len(grads)):
+                    # an fp32 buffer per leaf as its bf16 gradient is
+                    # freed: 0 + g, then + g of each later microbatch
+                    if gacc[j] is None:
+                        gacc[j] = torch.zeros(grads[j].shape,
+                                              dtype=torch.float32,
+                                              device=dev)
+                    gacc[j].add_(grads[j])
+                    grads[j] = None
+                loss_sum = loss_sum + loss.detach()
+        finally:
+            for _, p in leaves:
+                p.requires_grad_(False)
+        loss = inc_agg._psum(loss_sum / torch.full_like(loss_sum, n_micro),
+                             manual) / torch.full_like(loss_sum, n_dp)
+        return gacc, loss
+
+    def aggregate(gacc, flat_d):
+        """Each leaf's mean over the ranks: INC reduce-scattered along its
+        scatter dim, or summed where it has none."""
+        inv = 1.0 / (n_micro * n_dp)
+        agg = []
+        for j, d in enumerate(flat_d):
+            g, gacc[j] = gacc[j], None
+            if d >= 0:
+                agg.append(inc_agg.reduce_scatter_dim(g, d, manual, inc)
+                           .mul_(inv))
+            else:
+                agg.append(inc_agg._psum(g, manual).mul_(inv))
+            del g
+        sq_scat = sum(torch.sum(torch.square(g))
+                      for g, d in zip(agg, flat_d) if d >= 0)
+        sq_repl = sum(torch.sum(torch.square(g))
+                      for g, d in zip(agg, flat_d) if d < 0)
+        gnorm = torch.sqrt(inc_agg._psum(torch.as_tensor(
+            sq_scat, dtype=torch.float32, device=dev), manual) + sq_repl)
+        return agg, gnorm
+
+    def update(opt, leaves, flat_d, agg, factor, lr, step):
+        """AdamW on each leaf's chunk, then the bf16 leaf rebuilt by the
+        INC all-gather, in place."""
+        state = {k: dict(opt[k].named_parameters())
+                 for k in ("master", "m", "v")}
+        for j, ((name, p), d) in enumerate(zip(leaves, flat_d)):
+            g, agg[j] = agg[j], None
+            st = adamw.adamw_leaf(
+                {k: state[k][name] for k in state}, g.mul_(factor), lr=lr,
+                cfg=opt_cfg, step=step, wd_on=adamw.decay_mask(p))
+            del g
+            upd = st["master"].to(p.dtype)
+            if d >= 0:
+                upd = inc_agg.all_gather_dim(upd, d, manual, inc)
+            p.data.copy_(upd)
+            del upd
+
+    clock = StageClock(dev)
+
+    def fn(params, opt, batch, step):
+        clock.marks = []
+        leaves = api.named_leaves(params)
+        flat_d = [dims[name] for name, _ in leaves]
+        tokens = batch["tokens"].to(dev)
+        mb = tokens.reshape(n_micro, tokens.shape[0] // n_micro,
+                            *tokens.shape[1:])
+        clock.mark()
+        gacc, loss = grads_of(params, leaves, mb)      # local grads
+        clock.mark()
+        agg, gnorm = aggregate(gacc, flat_d)           # INC aggregation
+        clock.mark()
+        factor = adamw.clip_factor(gnorm, opt_cfg.grad_clip)
+        lr = adamw.schedule(opt_cfg, step, device=dev)
+        update(opt, leaves, flat_d, agg, factor, lr, step)   # AdamW
+        clock.mark()
+        return params, opt, {"loss": loss, "gnorm": gnorm, "lr": lr}
+
+    meta = {"mode": mode, "n_micro": n_micro, "n_dp": n_dp,
+            "n_model": n_model, "manual": names, "kind": "train",
+            "dims": dims, "device": dev, "clock": clock}
+    return Program(fn=fn, mesh=mesh, meta=meta)
+
+
+def init_state(program: Program, cfg: ArchConfig, seed: int = 0):
+    """Random params from ``seed`` and a fresh optimizer state (fp32
+    master copies, zero m and v) on the program's device."""
+    params = api.init_params(seed, cfg, device=program.meta["device"])
+    return params, init_opt(params)
+
+
+def init_opt(params) -> dict:
+    """AdamW state for ``params``: an fp32 master copy, zero m and v."""
+    return {"master": api.map_tree(
+                lambda t: t.detach().to(torch.float32, copy=True), params),
+            "m": api.map_tree(lambda t: torch.zeros(
+                t.shape, dtype=torch.float32, device=t.device), params),
+            "v": api.map_tree(lambda t: torch.zeros(
+                t.shape, dtype=torch.float32, device=t.device), params)}

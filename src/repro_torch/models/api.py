@@ -2,12 +2,15 @@
 ``global`` blocks.
 
   init_params(seed, cfg, device)           -> Tree (bf16 leaves)
+  forward(params, cfg, batch, remat)       -> (logits, aux)
+  train_loss(params, cfg, batch, remat)    -> (loss, metrics)
   prefill(params, cfg, batch, flash=...)   -> (last_logits, cache)
   decode_step(params, cfg, token, pos, cache) -> (logits, cache)
   cache_specs(cfg, batch, seq_len)         -> cache of meta tensors
-  count_params(cfg)                        -> int
-  params_from_jax / cache_from_jax / cache_to_numpy: the JAX package's
-  trees (as numpy) across, for the tests
+  input_specs(cfg, shape)                  -> dict of meta tensors
+  param_shapes(cfg) / count_params(cfg)    -> meta Tree / int
+  params_from_jax / opt_from_jax / cache_from_jax / cache_to_numpy: the
+  JAX package's trees (as numpy) across, for the tests
 
 Parameters keep the reference's stacked layout, ``groups[gi]["s{i}"]``
 with the layer dim first, held in an ``nn.Module`` whose ``state_dict``
@@ -15,19 +18,28 @@ keys spell the reference's tree path (``groups.0.s0.attn.wq``). A Python
 loop over the layers replaces ``lax.scan``. The cache is a tuple per
 pattern group of ``{"s{i}": {"k", "v"}}`` stacked over the layers, and
 ``decode_step`` updates it in place.
+
+``train_loss`` runs the stack under autograd; ``remat=True`` wraps each
+layer in ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint``
+on the reference's scan body), so only the layer inputs stay alive
+between the forward and the backward pass.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.blocks import Ctx
 from repro_torch.models.common import (COMPUTE_DTYPE, dense_init, rms_norm,
                                        rms_norm_init)
+
+
+AUX_COEF = 0.01
 
 
 class Tree(nn.Module):
@@ -52,6 +64,27 @@ class Tree(nn.Module):
 
     def __contains__(self, key: str) -> bool:
         return key in self._parameters or key in self._modules
+
+
+def named_leaves(tree: nn.Module) -> list[tuple[str, torch.Tensor]]:
+    """(path, tensor) of every leaf, the path's keys joined by "."
+    ("groups.0.s0.attn.wq"), in the order the reference flattens its
+    tree: dict keys sorted, tuple entries by index."""
+    def key(name: str):
+        return tuple(int(k) if k.isdigit() else k for k in name.split("."))
+    return sorted(tree.named_parameters(), key=lambda kv: key(kv[0]))
+
+
+def map_tree(fn, tree: nn.Module) -> "Tree":
+    """A new ``Tree`` of the same structure with ``fn`` applied to every
+    leaf."""
+    def plain(node):
+        if isinstance(node, nn.ModuleList):
+            return tuple(plain(m) for m in node)
+        out = {k: fn(v) for k, v in node._parameters.items()}
+        out.update({k: plain(m) for k, m in node._modules.items()})
+        return out
+    return Tree(plain(tree))
 
 
 def _layer(tree, i: int) -> dict:
@@ -89,11 +122,15 @@ def init_params(seed: int, cfg: ArchConfig, device=None) -> Tree:
     return Tree(_init_tree(gen, cfg, dev))
 
 
+def param_shapes(cfg: ArchConfig) -> Tree:
+    """The parameter tree's shapes and dtypes, on the meta device."""
+    return Tree(_init_tree(None, cfg, torch.device("meta")))
+
+
 def count_params(cfg: ArchConfig) -> int:
     """Parameter count from the port's own shapes, built on the meta
     device."""
-    shapes = Tree(_init_tree(None, cfg, torch.device("meta")))
-    return sum(t.numel() for t in shapes.parameters())
+    return sum(t.numel() for t in param_shapes(cfg).parameters())
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +162,71 @@ def logits_of(params: Tree, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
+
+def _unbind(tree) -> list[dict]:
+    """A stacked subtree as one dict of tensors per layer, from ONE
+    ``unbind`` per leaf: under autograd the layers' gradients then meet
+    in one stack at the end of the backward pass, where ``tree[i]`` per
+    layer would add a zero-padded full-size gradient for every layer."""
+    items = tree.items() if isinstance(tree, dict) else \
+        list(tree._parameters.items()) + list(tree._modules.items())
+    per = {k: v.unbind(0) if isinstance(v, torch.Tensor) else _unbind(v)
+           for k, v in items}
+    n = len(next(iter(per.values())))
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
+def _stack_train(params: Tree, cfg: ArchConfig, x: torch.Tensor, ctx: Ctx,
+                 remat: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The layers over a full sequence, one pattern unit at a time (the
+    reference's scan body), each under ``checkpoint`` when ``remat``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for gi, (pat, n) in enumerate(cfg.pattern_groups):
+        gp = params["groups"][gi]
+        slots = [_unbind(gp[f"s{i}"]) for i in range(len(pat))]
+        for layer in range(n):
+            def body(h, _pat=pat, _layer_i=layer, _slots=slots):
+                a = torch.zeros((), dtype=torch.float32, device=h.device)
+                for i, bt in enumerate(_pat):
+                    h, ai = blocks.block_train(_slots[i][_layer_i], bt, h,
+                                               ctx)
+                    a = a + ai
+                return h, a
+            if remat:
+                x, a = checkpoint(body, x, use_reentrant=False)
+            else:
+                x, a = body(x)
+            aux = aux + a
+    return x, aux
+
+
+def forward(params: Tree, cfg: ArchConfig, batch: dict, remat: bool = True
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """batch["tokens"]: (B, S) int -> (logits (B, S, V), aux), with the
+    plain attention: the flash kernel has no backward."""
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    ctx = Ctx(cfg=cfg, positions=positions)
+    x = _embed(params, cfg, tokens)
+    x, aux = _stack_train(params, cfg, x, ctx, remat)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return logits_of(params, cfg, x), aux
+
+
+def train_loss(params: Tree, cfg: ArchConfig, batch: dict,
+               remat: bool = True) -> tuple[torch.Tensor, dict]:
+    """batch["tokens"]: (B, S+1) -> next-token cross-entropy (+ MoE aux),
+    the log-sum-exp in fp32."""
+    tokens = batch["tokens"]
+    inp = {**batch, "tokens": tokens[:, :-1]}
+    tgt = tokens[:, 1:].long()
+    logits, aux = forward(params, cfg, inp, remat)
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    tl = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    ce = torch.mean(lse - tl.float())
+    loss = ce + AUX_COEF * aux
+    return loss, {"ce": ce, "aux": aux}
+
 
 def prefill(params: Tree, cfg: ArchConfig, batch: dict, *,
             flash: bool = False) -> tuple[torch.Tensor, tuple]:
@@ -181,6 +283,29 @@ def cache_specs(cfg: ArchConfig, batch: int, seq_len: int) -> tuple:
     return tuple(out)
 
 
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """Meta-tensor stand-ins for the model inputs of a shape cell (text
+    models: the tokens; decode: token, pos and the cache)."""
+    if cfg.family == "vlm" or cfg.is_encdec:
+        raise _not_text(cfg)
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(*sh):
+        return torch.empty(sh, dtype=torch.int32, device="meta")
+    if shape.kind == "train":
+        return {"tokens": meta(b, s + 1)}
+    if shape.kind == "prefill":
+        return {"tokens": meta(b, s)}
+    return {"token": meta(b), "pos": meta(),
+            "cache": cache_specs(cfg, b, s)}
+
+
+def _not_text(cfg: ArchConfig):
+    return NotImplementedError(
+        f"{cfg.name}: the {cfg.family} family's inputs are not ported yet "
+        f"(ROADMAP: the other block types come in a later slice)")
+
+
 # ---------------------------------------------------------------------------
 # the JAX package's trees, as numpy, across
 # ---------------------------------------------------------------------------
@@ -208,6 +333,13 @@ def params_from_jax(np_tree: dict, device=None) -> Tree:
     """The reference's parameter tree (numpy leaves, e.g.
     ``jax.tree.map(np.asarray, params)``) as the port's parameters."""
     return Tree(_from_numpy(np_tree, resolve_device(device)))
+
+
+def opt_from_jax(np_opt: dict, device=None) -> dict:
+    """The reference's optimizer state ``{"master", "m", "v"}`` (numpy
+    leaves) as the port's: one fp32 ``Tree`` each."""
+    dev = resolve_device(device)
+    return {k: Tree(_from_numpy(np_opt[k], dev)) for k in ("master", "m", "v")}
 
 
 def cache_from_jax(np_cache: tuple, device=None) -> tuple:
