@@ -11,7 +11,8 @@
    R=8 x n=262 144; sat_add, quantize and dequantize over a 25 MiB fp32
    gradient bucket, n=6 553 600; sat_add_batch at B=16 x n=40 000), with
    sentinels and saturating lanes; exact for ints and masks, bitwise for
-   fp32. Times each one and its bound.
+   fp32. Times each one and its bound. Kernels 9-10 (the int8 pack) are
+   only timed here; phase k checks them.
 3. Path, phases a-e: the typed INC RPC round trip through ``IncRuntime()``
    on the default device, at the paper's switch geometry (32 x 40 000
    int32), two workers over four rounds of five services; replies checked
@@ -48,27 +49,30 @@
    three steps of B=2 x S=1 024 in ``netrpc`` (precision 8: every
    gradient leaf through quantize, sat_add and dequantize) and three in
    ``fp32-ring``, from the same state, with the train telemetry on the
-   card's ``IncRuntime``. Checks: finite losses, step 0's no lower than
-   ln(vocab) - 0.5 (on uniform tokens an untrained model's expected loss
-   is at least ln(vocab); the tied embedding puts it above); the two
-   modes' losses within 1e-3 (relative) at each step;
+   card's ``IncRuntime``. Checks: finite losses, step 0's within
+   [ln(vocab) - 0.5, ln(vocab) + 1.5] (on uniform tokens an untrained
+   model's expected loss is at least ln(vocab); the tied embedding puts
+   it above); the two modes' losses within 1e-3 (relative) at each step;
    one quantize, sat_add and dequantize launch per scattered leaf and
    step, no flash launch (the train lane is the plain attention);
-   telemetry pushes through sparse_addto and one commit a step. Prints the
-   warm step time, tokens/s, peak memory, the card's busy share of one
-   step and the device time of its three stages. Then one ``netrpc`` step at 2 full-width layers (B=2, S=256) on
-   the card and on the CPU from the same params and optimizer state:
-   loss within 1e-3 and gnorm within 1e-2 (relative), and the updated
-   fp32 masters within 2.5 lr of each other, at most 2% of them more than
-   lr/100 apart (one AdamW step moves an element by about lr, so a
-   gradient whose sign differs between the devices moves it about 2 lr
-   apart).
+   telemetry pushes through sparse_addto and one commit a step. Prints
+   the warm step time, tokens/s, peak memory, the card's busy share of
+   one step and the device time of its three stages. Then one ``netrpc``
+   step at 2 full-width layers (B=2, S=256) on the card and on the CPU
+   from the same params and optimizer state: loss within 1e-3 and gnorm
+   within 1e-2 (relative); AdamW's m and v, per leaf, within 3e-2
+   (||card - CPU|| / ||CPU||, 1.4e-2 measured, on the v of the k bias:
+   they are the aggregated gradient and its square, so a wrong quantize
+   or dequantize of any leaf shows); and the updated fp32 masters within
+   2.5 lr of each other, at most 2% of them more than lr/100 apart (one
+   AdamW step moves an element by about lr, so a gradient whose sign
+   differs between the devices moves it about 2 lr apart).
 9. Path, phase k: the int8 wire format's entry points ``ops.pack_int8``
    and ``ops.unpack_int8`` (kernels 9-10) on the 25 MiB bucket and on a
    ragged stream that pads, on the card, bitwise equal to the same calls
-   on the CPU and within half an int8 step of the input. Both kernels
-   join the kernel check at those shapes, bitwise against their plain
-   versions.
+   on the CPU (the plain versions) and within half an int8 step of the
+   input. The kernel phase times both on the bucket, unpack also beside
+   ``q * scale[:, None]``.
 
 Launch counts are set to 0 just before each path run on the card and read
 just after it; every kernel must have launched in the path.
@@ -111,10 +115,12 @@ SMALL_LAYERS, SMALL_PROMPT, SMALL_BATCH, SMALL_DECODE = 2, 256, 2, 8
 # phase j: train at full width; the card-vs-CPU step at 2 layers
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 36, 1024, 2, 3
 TRAIN_SMALL_LAYERS, TRAIN_SMALL_SEQ, TRAIN_CPU_STEP = 2, 256, 5
-STEP0_TOL = 0.5        # step 0's loss at least ln(vocab) less this
+# step 0's loss within [ln(vocab) - STEP0_BELOW, ln(vocab) + STEP0_ABOVE]
+STEP0_BELOW, STEP0_ABOVE = 0.5, 1.5
 MODES_TOL = 1e-3       # netrpc vs fp32-ring loss, relative, each step
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-3, 1e-2     # card vs CPU
 MASTER_FLIP_FRAC = 0.02   # card vs CPU masters more than lr/100 apart
+MV_RTOL = 3e-2         # card vs CPU m and v, per leaf, relative norm
 RAGGED = BUCKET - 1000    # phase k: a stream that pads to whole tiles
 SEED = 0
 LANES_TOL = 6e-2       # flash vs plain lane, 36 layers (max|d| / max|ref|)
@@ -445,62 +451,55 @@ def check_flash(torch) -> dict:
 # -- phase 2, kernels 9-10: the int8 pack and unpack --------------------------
 
 def check_int8(torch) -> list[dict]:
-    """Kernels 9-10 against their plain versions, bitwise, on the bucket
-    (51 200 rows, no padding) and on a ragged stream padded to whole
-    tiles; timed on the bucket."""
+    """Kernels 9-10 timed on the bucket (51 200 rows, no padding) beside
+    their plain versions; unpack also beside ``q * scale[:, None]``, one
+    PyTorch call (int8 times fp32 promotes to one fp32 elementwise
+    kernel), which must equal the plain version bitwise. Pack has no such
+    call: no one PyTorch call takes a per-row amax, divides, rounds and
+    clamps. Phase k holds both kernels bitwise against their plain
+    versions and fills in ``max_abs_err``."""
     from repro_torch.kernels import pack_int8 as pk
     from repro_torch.kernels.constants import LANES
     dev = torch.device("cuda")
-    errs = {"pack_int8": 0.0, "unpack_int8": 0.0}
-    for n in (BUCKET, RAGGED):
-        x = torch.from_numpy(bucket(np.random.RandomState(9), n)).to(dev)
-        tiles = torch.nn.functional.pad(x, (0, (-n) % (256 * LANES)))
-        tiles = tiles.reshape(-1, LANES)
-        q, s = pk.pack_int8(tiles)
-        qp, sp = pk.pack_int8_plain(tiles)
-        y = pk.unpack_int8(q, s)
-        yp = pk.unpack_int8_plain(qp, sp)
-        torch.cuda.synchronize()
-        if not torch.equal(q, qp) or not torch.equal(
-                s.view(torch.int32), sp.view(torch.int32)):
-            fail(f"pack_int8 (n={n}): q or scale differs from the plain "
-                 f"version")
-        if not torch.equal(y.view(torch.int32), yp.view(torch.int32)):
-            fail(f"unpack_int8 (n={n}): differs from the plain version")
-        errs["pack_int8"] = max(errs["pack_int8"],
-                                float((q.int() - qp.int()).abs().max()),
-                                float((s - sp).abs().max()))
-        errs["unpack_int8"] = max(errs["unpack_int8"],
-                                  float((y - yp).abs().max()))
-        print(f"kernel pack_int8/unpack_int8 n={n} ({tiles.shape[0]} rows): "
-              f"bitwise equal to the plain versions", flush=True)
     x = torch.from_numpy(bucket(np.random.RandomState(9))).to(dev)
     tiles = x.reshape(-1, LANES)
     rows = tiles.shape[0]
-    q, s = pk.pack_int8(tiles)
+    q, s = pk.pack_int8_plain(tiles)
+
+    def library():
+        return torch.mul(q, s.unsqueeze(1))
+
+    if not torch.equal(library().view(torch.int32),
+                       pk.unpack_int8_plain(q, s).view(torch.int32)):
+        fail("q * scale[:, None] differs from the plain unpack")
     nbytes = 5 * BUCKET + 4 * rows          # fp32 in, int8 + scales out
     # the bucket's 33 MB fit the 50 MB L2: write 64 MiB between launches
     # so that each one reads its input from device memory, as a caller
     # whose gradients were written long before would
     flush = torch.empty(2 ** 24, dtype=torch.int32, device=dev)
     out = []
-    for name, kernel, plain in (
+    for name, kernel, plain, lib in (
             ("pack_int8", lambda: pk.pack_int8(tiles),
-             lambda: pk.pack_int8_plain(tiles)),
+             lambda: pk.pack_int8_plain(tiles), None),
             ("unpack_int8", lambda: pk.unpack_int8(q, s),
-             lambda: pk.unpack_int8_plain(q, s))):
+             lambda: pk.unpack_int8_plain(q, s), library)):
         ms, timer = device_ms(torch, kernel, lambda: flush.fill_(1), 50)
         warm, _ = device_ms(torch, kernel, lambda: None, 50)
         plain_ms = event_ms(torch, plain, lambda: flush.fill_(1), 5)
+        library_ms = lib_timer = None
+        if lib is not None:
+            library_ms, lib_timer = device_ms(
+                torch, lib, lambda: flush.fill_(1), 50, match="MulFunctor")
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        print(f"kernel {name}: ok vs plain, ms={ms:.6f} ({timer}, L2 "
-              f"flushed; {warm:.6f} with the bucket in L2) plain_ms="
-              f"{plain_ms:.6f} bound_ms={bound_ms:.6f}", flush=True)
+        print(f"kernel {name}: ms={ms:.6f} ({timer}, L2 flushed; "
+              f"{warm:.6f} with the bucket in L2) plain_ms={plain_ms:.6f} "
+              f"library_ms={library_ms} ({lib_timer}, L2 flushed) "
+              f"bound_ms={bound_ms:.6f}", flush=True)
         out.append({"name": name, "route": "cuda", "source": SOURCE[name],
                     "replaces": REPLACES[name], "launches": 0,
-                    "max_abs_err": errs[name], "ms": ms,
+                    "max_abs_err": None, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": "bytes", "library_ms": None,
+                    "bound_by": "bytes", "library_ms": library_ms,
                     "timer": timer})
     return out
 
@@ -1056,18 +1055,22 @@ def scattered_leaves(cfg) -> int:
 
 
 def train_oracle(run: dict, vocab: int, what: str) -> None:
-    """Every step ran with a finite loss; step 0's is no better than
-    chance: on uniform targets the expected loss of any logits is
-    lse - mean >= ln(vocab), so a sample of thousands of tokens lands
-    above ln(vocab) - STEP0_TOL (random tied embeddings put it well
-    above: each position's own token gets a logit near sqrt(d_model));
-    and the telemetry counted and committed every step."""
+    """Every step ran with a finite loss; step 0's lies within
+    [ln(vocab) - STEP0_BELOW, ln(vocab) + STEP0_ABOVE]: on uniform targets
+    the expected loss of any logits is lse - mean >= ln(vocab), so a
+    sample of thousands of tokens lands above the lower end; the random
+    tied embedding puts it above ln(vocab) (each position's own token
+    gets a logit near sqrt(d_model), diluted by depth: 12.485 at 36
+    full-width layers on the card), and a forward that goes wrong or
+    diverges lands far above the upper end. The telemetry counted and
+    committed every step."""
     losses = run["losses"]
     if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
         fail(f"{what}: losses {losses}")
-    if losses[0] < np.log(vocab) - STEP0_TOL:
-        fail(f"{what}: step 0's loss {losses[0]:.4f} beats chance, "
-             f"ln({vocab}) = {np.log(vocab):.4f}, by more than {STEP0_TOL}")
+    low, high = np.log(vocab) - STEP0_BELOW, np.log(vocab) + STEP0_ABOVE
+    if not low <= losses[0] <= high:
+        fail(f"{what}: step 0's loss {losses[0]:.4f} lies outside "
+             f"[{low:.4f}, {high:.4f}] (ln({vocab}) = {np.log(vocab):.4f})")
     inc = run["inc_telemetry"]
     if inc["commits"] != TRAIN_STEPS or \
             inc["metrics"].get("steps") != TRAIN_STEPS:
@@ -1126,6 +1129,17 @@ def step_pair(torch, mesh_card, mesh_cpu) -> None:
                    zip(api.named_leaves(o_card["master"]),
                        api.named_leaves(o_cpu["master"]))])
     far = float((d > lr / 100).float().mean())
+    # after a step from zero m and v, m = (1 - b1) g and v = (1 - b2) g^2
+    # of each leaf's aggregated gradient: they carry the magnitudes that
+    # one step's master update (about lr sign(g)) does not
+    mv_err, mv_worst = 0.0, ""
+    for k in ("m", "v"):
+        for (name, a), (_, b) in zip(api.named_leaves(o_card[k]),
+                                     api.named_leaves(o_cpu[k])):
+            e = float(torch.linalg.vector_norm((a.cpu() - b).double())
+                      / torch.linalg.vector_norm(b.double()))
+            if not e <= mv_err:
+                mv_err, mv_worst = e, f"{k} {name}"
     print(f"path j_train: {TRAIN_SMALL_LAYERS} layers at full width, S="
           f"{TRAIN_SMALL_SEQ}, B={TRAIN_BATCH}, one netrpc step, card vs CPU "
           f"({cpu_s:.3f} s on the CPU): loss {float(m_card['loss']):.6f} vs "
@@ -1133,9 +1147,12 @@ def step_pair(torch, mesh_card, mesh_cpu) -> None:
           f"{TRAIN_LOSS_RTOL}), gnorm rel {gnorm_err:.2e} (tolerance "
           f"{TRAIN_GNORM_RTOL}); masters: max|d| {float(d.max()) / lr:.4f} "
           f"lr (tolerance 2.5), {far:.6f} of {d.numel()} more than lr/100 "
-          f"apart (tolerance {MASTER_FLIP_FRAC})", flush=True)
+          f"apart (tolerance {MASTER_FLIP_FRAC}); m and v: worst leaf "
+          f"{mv_worst}, ||card - CPU|| / ||CPU|| {mv_err:.3e} (tolerance "
+          f"{MV_RTOL})", flush=True)
     if loss_err > TRAIN_LOSS_RTOL or gnorm_err > TRAIN_GNORM_RTOL \
-            or float(d.max()) > 2.5 * lr or far > MASTER_FLIP_FRAC:
+            or float(d.max()) > 2.5 * lr or far > MASTER_FLIP_FRAC \
+            or not mv_err <= MV_RTOL:
         fail("phase j: the card's train step differs from the CPU's")
 
 
@@ -1257,7 +1274,11 @@ def int8_wire_oracle(got: dict) -> None:
             fail(f"k_int8_wire: the round trip of n={n} is off its grid")
 
 
-def check_int8_wire(torch) -> dict:
+def check_int8_wire(torch, kernels: list) -> dict:
+    """Phase k on the card against the same calls on the CPU, where
+    ``ops`` takes the plain versions: kernels 9-10 bitwise against their
+    plain versions on the same inputs. Their ``max_abs_err`` in
+    ``kernels`` is this run's card-vs-CPU difference."""
     got, counts, secs = counted(
         torch, lambda: drive_int8_wire(torch, "cuda"),
         "phase k (int8 wire)", ("pack_int8", "unpack_int8"))
@@ -1266,9 +1287,18 @@ def check_int8_wire(torch) -> dict:
         if got[k].tobytes() != want[k].tobytes():
             fail(f"k_int8_wire: {k} differs between card and CPU")
     int8_wire_oracle(got)
+    err = {"pack_int8": 0.0, "unpack_int8": 0.0}
+    for k in want:
+        name = "unpack_int8" if k.endswith("|y") else "pack_int8"
+        d = np.abs(got[k].astype(np.float64) - want[k].astype(np.float64))
+        err[name] = max(err[name], float(d.max()))
+    for k in kernels:
+        if k["name"] in err:
+            k["max_abs_err"] = err[k["name"]]
     print(f"path k_int8_wire: ops.pack_int8 -> ops.unpack_int8 of n="
           f"{BUCKET} and n={RAGGED}: {secs:.3f} s, bitwise equal to the CPU "
-          f"run, within half an int8 step; launches {counts}", flush=True)
+          f"run (the plain versions), within half an int8 step; launches "
+          f"{counts}", flush=True)
     return counts
 
 
@@ -1351,7 +1381,7 @@ def main() -> int:
                          ("g", check_syncagtr), ("h", check_clear_policies),
                          ("i", lambda t: check_serve(t, smi)),
                          ("j", lambda t: check_train(t, smi)),
-                         ("k", check_int8_wire)):
+                         ("k", lambda t: check_int8_wire(t, kernels))):
         t0 = time.perf_counter()
         for name, c in check(torch).items():
             counts[name] = counts.get(name, 0) + c

@@ -311,6 +311,42 @@ def test_scatter_dims_match_reference():
                 jsteps.default_n_micro(jcfg, JShape("t", s, b, "train"), 16)
 
 
+def _spec_leaves(tree, prefix="") -> dict:
+    """A nest of dicts and tuples (the port's meta tensors, the
+    reference's ShapeDtypeStructs) as {"cache/0/s0/k": leaf}."""
+    if not isinstance(tree, (dict, tuple, list)):
+        return {prefix: tree}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        out.update(_spec_leaves(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_input_specs_match_reference(kind):
+    """input_specs of a text model: meta tensors with the reference's
+    inputs' shapes and dtypes, leaf for leaf (decode: token, pos and the
+    stacked cache); a family whose inputs are not ported raises."""
+    from repro.configs.base import ShapeConfig as JShape
+    from repro.configs.base import get_arch as jget
+    from repro.models import api as japi
+
+    def spec(leaves):
+        return {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+                for k, v in leaves.items()}
+    for b, s in ((4, 64), (2, 1024)):
+        got = _spec_leaves(api.input_specs(get_arch(ARCH),
+                                           ShapeConfig("t", s, b, kind)))
+        want = _spec_leaves(japi.input_specs(jget(ARCH),
+                                             JShape("t", s, b, kind)))
+        assert spec(got) == spec(want)
+        assert all(t.device.type == "meta" for t in got.values())
+    with pytest.raises(NotImplementedError, match="not ported"):
+        api.input_specs(get_arch("llama-3.2-vision-90b"),
+                        ShapeConfig("t", 64, 4, kind))
+
+
 # -- repair: flash attention under autograd ------------------------------------
 
 def test_flash_attention_raises_under_autograd():
