@@ -4,331 +4,643 @@
 //
 // Semantics kept from the TPU kernel (_flash_kernel):
 //   - score = fp32 dot(q, k) * sm_scale, the scale applied after the dot;
-//   - masked scores are -1e30: kpos > qpos, or qpos - kpos >= window;
-//   - running (online) max m and sum l in fp32; p = exp(s - m_new) with
-//     expf, alpha = exp(m_prev - m_new); l sums the unrounded fp32 p,
-//     while p is rounded to bf16 before the p.V product;
+//   - masked scores are -1e30: kpos > qpos, or qpos - kpos >= window, and
+//     keys at or past S;
+//   - running (online) max m and sum l in fp32; l sums the unrounded fp32
+//     p, while p is rounded to bf16 before the p.V product;
 //   - fp32 accumulator; out = acc / max(l, 1e-30), rounded to bf16;
 //   - tiles wholly above the diagonal or left of the window are skipped.
 //     The diagonal tile is always visited last, so a row that a window
 //     masks wholly in an earlier tile (its state then holds p = 1 for
 //     every key) is wiped by that tile's alpha = 0, as on the TPU.
+// The one change in arithmetic is the exponent. The kernel works in the
+// base-2 domain: s2 = dot * (sm_scale * log2(e)), m and the masked -1e30
+// are base-2 values, p = ex2.approx(s2 - m) and alpha = ex2.approx(m_old -
+// m_new). That is exp(s - m) of the reference up to a few fp32 ulp (one
+// FFMA and one MUFU op an element, where expf takes a long sequence), far
+// below the bf16 rounding p gets before p.V.
 //
-// Layout: q and out (B, S, H, D), k and v (B, S, KV, D), bf16, addressed
-// by explicit strides (the last dim contiguous), so the model's (B,S,H,D)
-// tensors need no transpose. The kv head of query head h is h / (H / KV);
-// K and V are never broadcast over the group.
+// Layout: q and out (B, S, H, D), k and v (B, S, KV, D), bf16, read through
+// their strides (the last dim contiguous), so the model's (B, S, H, D)
+// tensors and strided views need no copy. The kv head of query head h is
+// h / (H / KV); K and V are never broadcast over the group.
 //
-// Design (a first, simple form; wgmma, TMA and warp specialisation are
-// later work): one CTA of 4 warps per (64-row q tile, head, batch); each
-// warp owns 16 q rows and keeps their row state (m, l, the 16 x D fp32
-// accumulator) in registers. K/V tiles of 32 keys stream through shared
-// memory in increasing key order, double-buffered with cp.async so the
-// next tile loads while this one computes. With the accurate expf the
-// softmax's per-element work, not the tensor cores, sets the pace: tiles
-// of 32 keys ran faster on the H100 than tiles of 64, and a tile that no
-// row of a warp masks skips the mask. Both products run on the
-// tensor cores through mma.sync m16n8k16 (bf16 in, fp32 accumulate);
-// fragments come from shared memory through ldmatrix (.trans for V).
-// Rows and keys past S (a ragged last tile) load as zeros and are masked.
+// Design: one CTA of three warpgroups per (128-row q tile, head, batch).
+//   - Warpgroup 0 is the producer: it drops to 24 registers (setmaxnreg)
+//     and one thread issues every load with TMA. q, k and v are 4-D tensor
+//     maps (D, S, heads, B) with the tensors' own strides; a tile is D/64
+//     boxes of 64 columns (one of 32 at D = 32), 128-byte swizzled (64-byte
+//     at D = 32) to match the wgmma descriptors. Rows at or past S come
+//     back as zeros from outside the map and are masked. Q is loaded once;
+//     K and V tiles stream through a 2-stage ring, each stage with a "full"
+//     mbarrier (TMA's byte count) and an "empty" one (the consumers'
+//     release), K and V on barriers of their own.
+//   - Warpgroups 1 and 2 are consumers (240 registers), 64 q rows each.
+//     S = Q K^T is a wgmma with both operands in shared memory (K-major);
+//     O += P V is a wgmma with P, rounded to bf16, from registers, and V
+//     from shared memory as it lands, (keys, D) with D contiguous: the
+//     MN-major (transposed) B operand. Each warpgroup issues tile i's
+//     Q K^T together with tile i-1's P V, then does tile i's softmax while
+//     that P V runs. The two warpgroups take turns on two named barriers
+//     to issue their products, so one's softmax overlaps the other's
+//     products. The first and last issue points (Q K^T alone, P V alone)
+//     are peeled off the loop: a wgmma on a divergent path makes ptxas
+//     serialise every wgmma of the kernel (warning C7520).
+//   - A tile that masks no row of a warpgroup skips the mask: one FFMA and
+//     one ex2 an element.
+//   - Tile sizes are a template over D: BN = 128 keys for D <= 128 (160 KB
+//     of shared memory at D = 128, one CTA an SM) and BN = 64 at D = 256,
+//     where O alone is 128 registers a consumer thread and Q is 64 KB.
+//   - CTAs run the longest q tiles first (grid.y reversed, heads and
+//     batches on grid.x).
+// Out is stored from registers, 4 bytes a thread.
 //
 // Bound: at the prefill shape of qwen2.5-3b (B=4, H=16, KV=2, S=2048,
 // D=128) the causal half of the two products is 68.7 GFLOP against
 // 75.5 MB of q, k, v and out, so the tensor cores bound it, not memory.
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BM = 64;           // q rows per CTA
-constexpr int BN = 32;           // keys per tile
-constexpr int WARPS = 4;         // 16 q rows each
-constexpr int PAD = 8;           // bf16 of row padding: conflict-free ldmatrix
+constexpr int BM = 128;          // q rows per CTA: 64 per consumer warpgroup
+constexpr int STAGES = 2;        // K/V ring depth
+constexpr int THREADS = 384;     // producer + two consumer warpgroups
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int BAR_WG0 = 1, BAR_WG1 = 2;   // named barriers: turn to issue
+
+template <int D>
+struct Tile {
+    static constexpr int BN = D == 256 ? 64 : 128;    // keys per K/V tile
+    static constexpr int BOXC = D == 32 ? 32 : 64;    // columns per TMA box
+    static constexpr int ROWB = BOXC * 2;             // bytes a box row
+    static constexpr int NBOX = D / BOXC;
+    static constexpr int KPB = BOXC / 16;             // k16 steps per box
+    static constexpr uint64_t LAYOUT = D == 32 ? 2 : 1;   // B64 : B128
+    static constexpr int Q_BYTES = BM * D * 2;
+    static constexpr int KV_BYTES = BN * D * 2;
+    static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES;
+    static constexpr int SMEM_ALLOC = SMEM + 1024 + 128;   // align + barriers
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// 16-byte async copy global -> shared; zero-fills when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
+// -- mbarriers and TMA ---------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(bar) : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    asm volatile(
+        "{\n"
+        ".reg .pred done;\n"
+        "WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+        "@done bra DONE;\n"
+        "bra WAIT;\n"
+        "DONE:\n"
+        "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+           "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+    asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+    asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+// -- wgmma -----------------------------------------------------------------
+
+// shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle mode in bits 62-63
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16)
+        | ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1,
-                                        uint32_t& r2, uint32_t& r3,
-                                        const void* p) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(smem_u32(p)));
+// keep the compiler from moving register reads or writes across a wgmma
+// that is in flight on these registers
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+    #pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1,
-                                              uint32_t& r2, uint32_t& r3,
-                                              const void* p) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-        "[%4];\n"
-        : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(smem_u32(p)));
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
+    #pragma unroll
+    for (int i = 0; i < N; ++i)
+        #pragma unroll
+        for (int j = 0; j < M; ++j)
+            asm volatile("" : "+r"(r[i][j]) :: "memory");
 }
 
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+#define WG_R16 "{" \
+    "%0, %1, %2, %3, %4, %5, %6, %7, " \
+    "%8, %9, %10, %11, %12, %13, %14, %15}"
+
+#define WG_R32 "{" \
+    "%0, %1, %2, %3, %4, %5, %6, %7, " \
+    "%8, %9, %10, %11, %12, %13, %14, %15, " \
+    "%16, %17, %18, %19, %20, %21, %22, %23, " \
+    "%24, %25, %26, %27, %28, %29, %30, %31}"
+
+#define WG_R64 "{" \
+    "%0, %1, %2, %3, %4, %5, %6, %7, " \
+    "%8, %9, %10, %11, %12, %13, %14, %15, " \
+    "%16, %17, %18, %19, %20, %21, %22, %23, " \
+    "%24, %25, %26, %27, %28, %29, %30, %31, " \
+    "%32, %33, %34, %35, %36, %37, %38, %39, " \
+    "%40, %41, %42, %43, %44, %45, %46, %47, " \
+    "%48, %49, %50, %51, %52, %53, %54, %55, " \
+    "%56, %57, %58, %59, %60, %61, %62, %63}"
+
+#define WG_R128 "{" \
+    "%0, %1, %2, %3, %4, %5, %6, %7, " \
+    "%8, %9, %10, %11, %12, %13, %14, %15, " \
+    "%16, %17, %18, %19, %20, %21, %22, %23, " \
+    "%24, %25, %26, %27, %28, %29, %30, %31, " \
+    "%32, %33, %34, %35, %36, %37, %38, %39, " \
+    "%40, %41, %42, %43, %44, %45, %46, %47, " \
+    "%48, %49, %50, %51, %52, %53, %54, %55, " \
+    "%56, %57, %58, %59, %60, %61, %62, %63, " \
+    "%64, %65, %66, %67, %68, %69, %70, %71, " \
+    "%72, %73, %74, %75, %76, %77, %78, %79, " \
+    "%80, %81, %82, %83, %84, %85, %86, %87, " \
+    "%88, %89, %90, %91, %92, %93, %94, %95, " \
+    "%96, %97, %98, %99, %100, %101, %102, %103, " \
+    "%104, %105, %106, %107, %108, %109, %110, %111, " \
+    "%112, %113, %114, %115, %116, %117, %118, %119, " \
+    "%120, %121, %122, %123, %124, %125, %126, %127}"
+
+#define WG_D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+    "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_D16(i) WG_D8(i), WG_D8(i + 8)
+#define WG_D32(i) WG_D16(i), WG_D16(i + 16)
+#define WG_D64(i) WG_D32(i), WG_D32(i + 32)
+#define WG_D128(i) WG_D64(i), WG_D64(i + 64)
+
+// d (64 x N fp32) = a (64 x 16, shared, K-major) . b (N x 16, shared,
+// K-major)^T + (scale_d ? d : 0)
+template <int N>
+__device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                         int scale_d);
+
+// d (64 x N fp32) += a (64 x 16 bf16, registers) . b (16 x N, shared,
+// MN-major: the transpose bit)
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                         uint64_t db);
+
+#define WG_SS(N, R, ARGS, IA, IB, IS)                                         \
+    template <>                                                               \
+    __device__ __forceinline__ void wgmma_ss<N>(float (&d)[R], uint64_t da,   \
+                                                uint64_t db, int scale_d) {   \
+        asm volatile(                                                         \
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"                 \
+            "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 "       \
+            WG_R##R ", %" #IA ", %" #IB ", p, 1, 1, 0, 0;\n}\n"               \
+            : ARGS : "l"(da), "l"(db), "r"(scale_d));                         \
+    }
+
+#define WG_RS(N, R, ARGS, I0, I1, I2, I3, IB, IS)                             \
+    template <>                                                               \
+    __device__ __forceinline__ void wgmma_rs<N>(float (&d)[R],                \
+                                                const uint32_t (&a)[4],       \
+                                                uint64_t db) {                \
+        asm volatile(                                                         \
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"                 \
+            "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 "       \
+            WG_R##R ", {%" #I0 ", %" #I1 ", %" #I2 ", %" #I3 "}, %" #IB       \
+            ", p, 1, 1, 1;\n}\n"                                              \
+            : ARGS : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),     \
+              "r"(1));                                                        \
+    }
+
+WG_SS(64, 32, WG_D32(0), 32, 33, 34)
+WG_SS(128, 64, WG_D64(0), 64, 65, 66)
+WG_RS(32, 16, WG_D16(0), 16, 17, 18, 19, 20, 21)
+WG_RS(64, 32, WG_D32(0), 32, 33, 34, 35, 36, 37)
+WG_RS(128, 64, WG_D64(0), 64, 65, 66, 67, 68, 69)
+WG_RS(256, 128, WG_D128(0), 128, 129, 130, 131, 132, 133)
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
 struct Params {
-    const __nv_bfloat16* q;
-    const __nv_bfloat16* k;
-    const __nv_bfloat16* v;
     __nv_bfloat16* o;
-    int64_t q_sb, q_ss, q_sh;    // element strides of q (d stride 1)
-    int64_t k_sb, k_ss, k_sh;
-    int64_t v_sb, v_ss, v_sh;
-    int64_t o_sb, o_ss, o_sh;
+    int64_t o_sb, o_ss, o_sh;    // element strides of out (d stride 1)
     int S, H, KV;
     int causal;
     int window;                  // 0: no window
-    float sm_scale;
+    float scale_log2;            // sm_scale * log2(e)
 };
 
-// rows x D bf16 tile (row stride D + PAD in shared memory) from rows
-// [row0, row0 + rows) of a (S, D) slice with row stride `ss`
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int64_t ss, int row0, int S) {
-    constexpr int CHUNKS = D / 8;                 // 16 B chunks per row
-    for (int c = threadIdx.x; c < ROWS * CHUNKS; c += WARPS * 32) {
-        int r = c / CHUNKS, col = (c % CHUNKS) * 8;
-        bool valid = row0 + r < S;
-        const __nv_bfloat16* g = valid ? src + (int64_t)(row0 + r) * ss + col
-                                       : src;
-        cp_async16(dst + r * (D + PAD) + col, g, valid);
+// The softmax of one tile for this thread's two rows (r0 and r0 + 8):
+// s holds the raw dots on entry and p (fp32) on exit; returns alpha for
+// each row and adds the tile's p to l.
+template <int BN>
+__device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], bool open,
+                                             int k0, int r0, int tcol,
+                                             const Params& p, float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float& alpha0, float& alpha1) {
+    const float c = p.scale_log2;
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+    if (open) {
+        // no row masks a key: max of the raw dots, then one FFMA and one
+        // ex2 an element (c > 0, so max(dot) * c = max(dot * c))
+        #pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+            if (i % 4 < 2) mx0 = fmaxf(mx0, s[i]);
+            else mx1 = fmaxf(mx1, s[i]);
+        }
+        mx0 *= c;
+        mx1 *= c;
+    } else {
+        #pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+            const int qpos = i % 4 < 2 ? r0 : r0 + 8;
+            const int kpos = k0 + (i / 4) * 8 + tcol + (i & 1);
+            bool ok = kpos < p.S;
+            if (p.causal) {
+                ok = ok && qpos >= kpos;
+                if (p.window > 0) ok = ok && qpos - kpos < p.window;
+            }
+            const float x = ok ? s[i] * c : NEG_INF;
+            s[i] = x;
+            if (i % 4 < 2) mx0 = fmaxf(mx0, x);
+            else mx1 = fmaxf(mx1, x);
+        }
     }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    alpha0 = ex2(m0 - mn0);
+    alpha1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+    if (open) {
+        #pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+            if (i % 4 < 2) { s[i] = ex2(fmaf(s[i], c, -mn0)); sum0 += s[i]; }
+            else { s[i] = ex2(fmaf(s[i], c, -mn1)); sum1 += s[i]; }
+        }
+    } else {
+        #pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+            if (i % 4 < 2) { s[i] = ex2(s[i] - mn0); sum0 += s[i]; }
+            else { s[i] = ex2(s[i] - mn1); sum1 += s[i]; }
+        }
+    }
+    l0 = alpha0 * l0 + sum0;
+    l1 = alpha1 * l1 + sum1;
 }
 
 template <int D>
-__global__ void __launch_bounds__(WARPS * 32)
-flash_k_attn_fwd(Params p) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    __nv_bfloat16* Ks = Qs + BM * (D + PAD);       // two buffers
-    __nv_bfloat16* Vs = Ks + 2 * BN * (D + PAD);   // two buffers
+__global__ void __launch_bounds__(THREADS, 1)
+flash_k_attn_fwd(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, const Params p) {
+    using T = Tile<D>;
+    constexpr int BN = T::BN;
+    extern __shared__ unsigned char smem_raw[];
+    // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows
+    const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
+    const uint32_t k_s = q_s + T::Q_BYTES;               // STAGES tiles
+    const uint32_t v_s = k_s + STAGES * T::KV_BYTES;     // STAGES tiles
+    // mbarriers: q_full, then full_k, full_v, empty_k, empty_v per stage
+    const uint32_t q_full = v_s + STAGES * T::KV_BYTES;
+    const uint32_t full_k = q_full + 8, full_v = full_k + 8 * STAGES;
+    const uint32_t empty_k = full_v + 8 * STAGES;
+    const uint32_t empty_v = empty_k + 8 * STAGES;
 
     const int nq = (p.S + BM - 1) / BM;
-    const int qi = nq - 1 - (int)blockIdx.x;       // longest rows first
-    const int h = blockIdx.y, b = blockIdx.z;
+    const int q0 = (nq - 1 - (int)blockIdx.y) * BM;      // longest rows first
+    const int h = (int)blockIdx.x % p.H, b = (int)blockIdx.x / p.H;
     const int kvh = h / (p.H / p.KV);
-    const int q0 = qi * BM;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int g = lane / 4, t = lane % 4;          // mma group, thread in it
-
-    const __nv_bfloat16* qg = p.q + b * p.q_sb + h * p.q_sh;
-    const __nv_bfloat16* kg = p.k + b * p.k_sb + kvh * p.k_sh;
-    const __nv_bfloat16* vg = p.v + b * p.v_sb + kvh * p.v_sh;
 
     // key tiles this q tile needs
     const int q_last = min(q0 + BM - 1, p.S - 1);
     const int nk = (p.S + BN - 1) / BN;
-    int kt_end = p.causal ? q_last / BN + 1 : nk;
+    const int kt_end = p.causal ? q_last / BN + 1 : nk;
     int kt_begin = 0;
     if (p.causal && p.window > 0) {
-        int first_key = q0 - (p.window - 1);
+        const int first_key = q0 - (p.window - 1);
         kt_begin = first_key > 0 ? first_key / BN : 0;
     }
+    const int ntiles = kt_end - kt_begin;
 
-    load_tile<D, BM>(Qs, qg, p.q_ss, q0, p.S);
-    load_tile<D, BN>(Ks, kg, p.k_ss, kt_begin * BN, p.S);
-    load_tile<D, BN>(Vs, vg, p.v_ss, kt_begin * BN, p.S);
-    cp_async_commit();
-
-    uint32_t qf[D / 16][4];                        // this warp's q rows
-    float acc[D / 8][4];
-    #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-        acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    float m0 = NEG_INF, m1 = NEG_INF;              // rows g and g + 8
-    float l0 = 0.f, l1 = 0.f;                      // this thread's share
-    const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-
-    for (int kt = kt_begin; kt < kt_end; ++kt) {
-        const int buf = (kt - kt_begin) & 1;
-        if (kt + 1 < kt_end) {
-            load_tile<D, BN>(Ks + (buf ^ 1) * BN * (D + PAD), kg, p.k_ss,
-                             (kt + 1) * BN, p.S);
-            load_tile<D, BN>(Vs + (buf ^ 1) * BN * (D + PAD), vg, p.v_ss,
-                             (kt + 1) * BN, p.S);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
+    if (threadIdx.x == 0) {
+        mbar_init(q_full, 1);
+        #pragma unroll
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full_k + 8 * s, 1);
+            mbar_init(full_v + 8 * s, 1);
+            mbar_init(empty_k + 8 * s, 256);     // every consumer thread
+            mbar_init(empty_v + 8 * s, 256);
         }
-        __syncthreads();
-        if (kt == kt_begin) {
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    // warp-uniform for the compiler: wgmma must not sit on a divergent path
+    const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+    if (wg == 0) {
+        // == producer: one thread issues every TMA load ==
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+        if (threadIdx.x == 0) {
+            mbar_expect_tx(q_full, T::Q_BYTES);
+            #pragma unroll
+            for (int x = 0; x < T::NBOX; ++x)
+                tma_load_4d(q_s + x * BM * T::ROWB, &qmap, q_full,
+                            x * T::BOXC, q0, h, b);
+            for (int i = 0; i < ntiles; ++i) {
+                const int st = i % STAGES;
+                const uint32_t parity = ((i / STAGES) & 1) ^ 1;
+                const int row = (kt_begin + i) * BN;
+                if (i >= STAGES) mbar_wait(empty_k + 8 * st, parity);
+                mbar_expect_tx(full_k + 8 * st, T::KV_BYTES);
+                #pragma unroll
+                for (int x = 0; x < T::NBOX; ++x)
+                    tma_load_4d(k_s + st * T::KV_BYTES + x * BN * T::ROWB,
+                                &kmap, full_k + 8 * st, x * T::BOXC, row, kvh,
+                                b);
+                if (i >= STAGES) mbar_wait(empty_v + 8 * st, parity);
+                mbar_expect_tx(full_v + 8 * st, T::KV_BYTES);
+                #pragma unroll
+                for (int x = 0; x < T::NBOX; ++x)
+                    tma_load_4d(v_s + st * T::KV_BYTES + x * BN * T::ROWB,
+                                &vmap, full_v + 8 * st, x * T::BOXC, row, kvh,
+                                b);
+            }
+        }
+    } else {
+        // == consumers: 64 q rows a warpgroup ==
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+        const int c = wg - 1;
+        const int tid = threadIdx.x % 128;
+        const int warp = tid / 32, lane = tid % 32;
+        const int wr0 = q0 + c * 64;                 // this warpgroup's rows
+        const int r0 = wr0 + warp * 16 + lane / 4;   // and r0 + 8
+        const int tcol = (lane % 4) * 2;
+        const int my_bar = c == 0 ? BAR_WG0 : BAR_WG1;
+        const int other_bar = c == 0 ? BAR_WG1 : BAR_WG0;
+        constexpr uint32_t SBO = 8 * T::ROWB;        // next 8-row group
+        const uint32_t q_wg = q_s + c * 64 * T::ROWB;
+
+        float o[D / 2];
+        #pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+        float s[BN / 2];
+        uint32_t pf[BN / 16][4];
+        float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
+        if (c == 1) named_arrive(BAR_WG0);           // warpgroup 1 goes first
+        mbar_wait(q_full, 0);
+
+        // S_i = Q K_i^T, both operands in shared memory (K-major)
+        auto issue_s = [&](int i) {
+            const int st = i % STAGES;
+            const uint32_t k_t = k_s + st * T::KV_BYTES;
             #pragma unroll
             for (int kk = 0; kk < D / 16; ++kk) {
-                const __nv_bfloat16* a = Qs + (warp * 16 + (lane % 16))
-                    * (D + PAD) + kk * 16 + (lane / 16) * 8;
-                ldsm_x4(qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3], a);
+                const uint32_t box = kk / T::KPB, step = (kk % T::KPB) * 32;
+                wgmma_ss<BN>(s,
+                    gmma_desc(q_wg + box * BM * T::ROWB + step, 16, SBO,
+                              T::LAYOUT),
+                    gmma_desc(k_t + box * BN * T::ROWB + step, 16, SBO,
+                              T::LAYOUT),
+                    kk > 0);
             }
-        }
-        const __nv_bfloat16* Kb = Ks + buf * BN * (D + PAD);
-        const __nv_bfloat16* Vb = Vs + buf * BN * (D + PAD);
-
-        // s = q . k^T over this tile: 8 column blocks of 8 keys
-        float s[BN / 8][4];
-        #pragma unroll
-        for (int j = 0; j < BN / 8; ++j)
-            s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-        #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+            wgmma_commit();
+        };
+        // O += P_i V_i, P from registers, V MN-major in shared memory
+        auto issue_pv = [&](int i) {
+            const int st = i % STAGES;
+            mbar_wait(full_v + 8 * st, (i / STAGES) & 1);
+            const uint32_t v_t = v_s + st * T::KV_BYTES;
             #pragma unroll
-            for (int j = 0; j < BN / 8; j += 2) {
-                uint32_t b0, b1, b2, b3;
-                const __nv_bfloat16* a = Kb
-                    + ((j + (lane / 16)) * 8 + (lane % 8)) * (D + PAD)
-                    + kk * 16 + ((lane / 8) % 2) * 8;
-                ldsm_x4(b0, b1, b2, b3, a);
-                mma_bf16(s[j], qf[kk], b0, b1);
-                mma_bf16(s[j + 1], qf[kk], b2, b3);
+            for (int kk = 0; kk < BN / 16; ++kk)
+                wgmma_rs<D>(o, pf[kk], gmma_desc(v_t + kk * 16 * T::ROWB,
+                                                 BN * T::ROWB, SBO,
+                                                 T::LAYOUT));
+            wgmma_commit();
+        };
+        // S_i landed: release K_i, softmax; rescale O once no P V is in
+        // flight, then P_i in bf16 as wgmma's register A operand (k16 step
+        // kk holds keys 16kk..16kk+15 of rows r0 and r0 + 8)
+        auto softmax = [&](int i, bool pv_in_flight) {
+            fence_regs(s);
+            mbar_arrive(empty_k + 8 * (i % STAGES));
+            const int k0 = (kt_begin + i) * BN;
+            const bool open = k0 + BN <= p.S && (!p.causal
+                || (k0 + BN - 1 <= wr0
+                    && (p.window <= 0 || wr0 + 63 - k0 < p.window)));
+            float alpha0, alpha1;
+            softmax_tile<BN>(s, open, k0, r0, tcol, p, m0, m1, l0, l1,
+                             alpha0, alpha1);
+            if (pv_in_flight) {
+                wgmma_wait<0>();
+                fence_regs(o);
+                mbar_arrive(empty_v + 8 * ((i - 1) % STAGES));
             }
-        }
-
-        // scale, mask, running max. A tile whose every key every row of
-        // this warp sees needs no mask (the same values, less work).
-        const int k0 = kt * BN;
-        const int w0 = q0 + warp * 16;                // this warp's rows
-        const bool open = k0 + BN <= p.S && (!p.causal
-            || (k0 + BN - 1 <= w0
-                && (p.window <= 0 || w0 + 15 - k0 < p.window)));
-        float mx0 = NEG_INF, mx1 = NEG_INF;
-        if (open) {
             #pragma unroll
-            for (int j = 0; j < BN / 8; ++j) {
-                #pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const float x = s[j][e] * p.sm_scale;
-                    s[j][e] = x;
-                    if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
-                }
+            for (int j = 0; j < D / 8; ++j) {
+                o[j * 4 + 0] *= alpha0;
+                o[j * 4 + 1] *= alpha0;
+                o[j * 4 + 2] *= alpha1;
+                o[j * 4 + 3] *= alpha1;
             }
-        } else {
             #pragma unroll
-            for (int j = 0; j < BN / 8; ++j) {
-                #pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int qpos = e < 2 ? r0 : r1;
-                    const int kpos = k0 + j * 8 + t * 2 + (e & 1);
-                    bool ok = kpos < p.S;
-                    if (p.causal) {
-                        ok = ok && qpos >= kpos;
-                        if (p.window > 0) ok = ok && qpos - kpos < p.window;
-                    }
-                    const float x = ok ? s[j][e] * p.sm_scale : NEG_INF;
-                    s[j][e] = x;
-                    if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
-                }
+            for (int kk = 0; kk < BN / 16; ++kk) {
+                pf[kk][0] = pack_bf16(s[kk * 8 + 0], s[kk * 8 + 1]);
+                pf[kk][1] = pack_bf16(s[kk * 8 + 2], s[kk * 8 + 3]);
+                pf[kk][2] = pack_bf16(s[kk * 8 + 4], s[kk * 8 + 5]);
+                pf[kk][3] = pack_bf16(s[kk * 8 + 6], s[kk * 8 + 7]);
             }
-        }
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-        const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
-        m0 = mn0;
-        m1 = mn1;
+        };
 
-        // p = exp(s - m_new); l sums it unrounded, p.V takes it in bf16
-        uint32_t pf[BN / 16][4];
-        float sum0 = 0.f, sum1 = 0.f;
-        #pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-            const float p0 = expf(s[j][0] - mn0), p1 = expf(s[j][1] - mn0);
-            const float p2 = expf(s[j][2] - mn1), p3 = expf(s[j][3] - mn1);
-            sum0 += p0 + p1;
-            sum1 += p2 + p3;
-            pf[j / 2][(j % 2) * 2 + 0] = pack_bf16(p0, p1);
-            pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+        // the warpgroups take turns to issue: BAR_WG0 lets warpgroup 0 go,
+        // BAR_WG1 warpgroup 1; each sync is paired with one arrive
+        mbar_wait(full_k, 0);
+        named_sync(my_bar);
+        wgmma_fence();
+        issue_s(0);
+        named_arrive(other_bar);
+        wgmma_wait<0>();
+        softmax(0, false);
+        // next tile's Q K^T with this tile's P V; the softmax of the one
+        // runs while the other's product does
+        for (int i = 1; i < ntiles; ++i) {
+            mbar_wait(full_k + 8 * (i % STAGES), (i / STAGES) & 1);
+            named_sync(my_bar);
+            fence_regs(s);
+            fence_regs(o);
+            fence_regs(pf);
+            wgmma_fence();
+            issue_s(i);
+            issue_pv(i - 1);
+            named_arrive(other_bar);
+            wgmma_wait<1>();
+            softmax(i, true);
         }
-        l0 = alpha0 * l0 + sum0;
-        l1 = alpha1 * l1 + sum1;
+        named_sync(my_bar);
+        fence_regs(o);
+        fence_regs(pf);
+        wgmma_fence();
+        issue_pv(ntiles - 1);
+        if (c == 0) named_arrive(other_bar);          // warpgroup 1 ends
+        wgmma_wait<0>();
+        fence_regs(o);
+        mbar_arrive(empty_v + 8 * ((ntiles - 1) % STAGES));
+        // the row sums: each of the 4 threads of a quad holds a share
+        l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+        l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+        const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+        __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh;
+        const int r1 = r0 + 8;
         #pragma unroll
-        for (int i = 0; i < D / 8; ++i) {
-            acc[i][0] *= alpha0;
-            acc[i][1] *= alpha0;
-            acc[i][2] *= alpha1;
-            acc[i][3] *= alpha1;
+        for (int j = 0; j < D / 8; ++j) {
+            const int col = j * 8 + tcol;
+            if (r0 < p.S)
+                *reinterpret_cast<uint32_t*>(og + (int64_t)r0 * p.o_ss + col)
+                    = pack_bf16(o[j * 4 + 0] / d0, o[j * 4 + 1] / d0);
+            if (r1 < p.S)
+                *reinterpret_cast<uint32_t*>(og + (int64_t)r1 * p.o_ss + col)
+                    = pack_bf16(o[j * 4 + 2] / d1, o[j * 4 + 3] / d1);
         }
-
-        // acc += p . v: 4 key steps of 16, D/8 column blocks of 8
-        #pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk) {
-            #pragma unroll
-            for (int i = 0; i < D / 8; i += 2) {
-                uint32_t b0, b1, b2, b3;
-                const __nv_bfloat16* a = Vb
-                    + (kk * 16 + (lane % 16)) * (D + PAD)
-                    + (i + lane / 16) * 8;
-                ldsm_x4_trans(b0, b1, b2, b3, a);
-                mma_bf16(acc[i], pf[kk], b0, b1);
-                mma_bf16(acc[i + 1], pf[kk], b2, b3);
-            }
-        }
-        __syncthreads();       // this buffer is reloaded two tiles on
-    }
-
-    // the row sums: each of the 4 threads of a group holds a share
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-    __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh;
-    #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-        const int col = i * 8 + t * 2;
-        if (r0 < p.S)
-            *reinterpret_cast<uint32_t*>(og + (int64_t)r0 * p.o_ss + col) =
-                pack_bf16(acc[i][0] / d0, acc[i][1] / d0);
-        if (r1 < p.S)
-            *reinterpret_cast<uint32_t*>(og + (int64_t)r1 * p.o_ss + col) =
-                pack_bf16(acc[i][2] / d1, acc[i][3] / d1);
     }
 }
 
+// cuTensorMapEncodeTiled from the driver the runtime has loaded, so the
+// library links against no libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* ptr = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+        cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+    return fn;
+}
+
+// a (D, S, heads, B) bf16 tensor with element strides ss, sh, sb, cut into
+// boxes of (boxc columns, rows) and swizzled to match the wgmma descriptors
+int encode(CUtensorMap* map, const void* ptr, int64_t D, int64_t S,
+           int64_t heads, int64_t B, int64_t ss, int64_t sh, int64_t sb,
+           int boxc, int rows) {
+    EncodeTiled fn = encoder();
+    if (fn == nullptr) return (int)cudaErrorNotSupported;
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
+                                (cuuint64_t)heads, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                   (cuuint64_t)sb * 2};
+    const cuuint32_t box[4] = {(cuuint32_t)boxc, (cuuint32_t)rows, 1, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                      const_cast<void*>(ptr), dims, strides, box, unit,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      boxc == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                 : CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);    // zeros
+    return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 template <int D>
-int launch(const Params& p, int B, cudaStream_t stream) {
-    constexpr int smem = (BM + 4 * BN) * (D + PAD) * 2;   // 52 224 B at D=128
-    cudaError_t err = cudaFuncSetAttribute(
+int launch(const void* q, const void* k, const void* v, const Params& p,
+           int64_t B, const int64_t* qs, const int64_t* ks,
+           const int64_t* vs, cudaStream_t stream) {
+    using T = Tile<D>;
+    CUtensorMap qm, km, vm;
+    int err = encode(&qm, q, D, p.S, p.H, B, qs[1], qs[2], qs[0], T::BOXC, BM);
+    if (!err)
+        err = encode(&km, k, D, p.S, p.KV, B, ks[1], ks[2], ks[0], T::BOXC,
+                     T::BN);
+    if (!err)
+        err = encode(&vm, v, D, p.S, p.KV, B, vs[1], vs[2], vs[0], T::BOXC,
+                     T::BN);
+    if (err) return err;
+    cudaError_t e = cudaFuncSetAttribute(
         flash_k_attn_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((p.S + BM - 1) / BM, p.H, B);
-    flash_k_attn_fwd<D><<<grid, WARPS * 32, smem, stream>>>(p);
+        T::SMEM_ALLOC);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((unsigned)(p.H * B), (unsigned)((p.S + BM - 1) / BM));
+    flash_k_attn_fwd<D><<<grid, THREADS, T::SMEM_ALLOC, stream>>>(qm, km, vm,
+                                                                  p);
     return (int)cudaGetLastError();
 }
 
@@ -343,22 +655,21 @@ extern "C" int repro_flash_attn(
         int64_t o_sb, int64_t o_ss, int64_t o_sh,
         int64_t causal, int64_t window, float sm_scale, void* stream) {
     if (B <= 0 || S <= 0) return 0;
+    if ((S + BM - 1) / BM > 65535 || H * B > 0x7fffffff)
+        return (int)cudaErrorInvalidValue;
     Params p;
-    p.q = static_cast<const __nv_bfloat16*>(q);
-    p.k = static_cast<const __nv_bfloat16*>(k);
-    p.v = static_cast<const __nv_bfloat16*>(v);
     p.o = static_cast<__nv_bfloat16*>(o);
-    p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-    p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
-    p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
     p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
     p.S = (int)S; p.H = (int)H; p.KV = (int)KV;
     p.causal = (int)causal;
     p.window = (int)window;
-    p.sm_scale = sm_scale;
+    p.scale_log2 = sm_scale * LOG2E;
+    const int64_t qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh},
+                  vs[3] = {v_sb, v_ss, v_sh};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (D == 32) return launch<32>(p, (int)B, st);
-    if (D == 64) return launch<64>(p, (int)B, st);
-    if (D == 128) return launch<128>(p, (int)B, st);
+    if (D == 32) return launch<32>(q, k, v, p, B, qs, ks, vs, st);
+    if (D == 64) return launch<64>(q, k, v, p, B, qs, ks, vs, st);
+    if (D == 128) return launch<128>(q, k, v, p, B, qs, ks, vs, st);
+    if (D == 256) return launch<256>(q, k, v, p, B, qs, ks, vs, st);
     return (int)cudaErrorInvalidValue;
 }

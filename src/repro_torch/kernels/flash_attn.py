@@ -3,10 +3,11 @@
 ``flash_attention(q, k, v, causal, window)``: q (B, S, H, D), k and v
 (B, S, KV, D) with H % KV == 0 -> (B, S, H, D) in q's dtype; query head h
 reads kv head ``h // (H // KV)``. On the card it is the hand-written
-kernel of ``csrc/flash_attn.cu`` (bf16, D of 32, 64 or 128), replacing
-``repro/kernels/flash_attn.py:flash_attention_pallas``; it reads the
-(B, S, H, D) tensors through their strides, so a strided view costs no
-copy. A CPU tensor takes the plain version (``ref.flash_attention``, which
+kernel of ``csrc/flash_attn.cu`` (bf16, D of 32, 64, 128 or 256; TMA
+loads, wgmma products, a producer warp and two consumer warpgroups),
+replacing ``repro/kernels/flash_attn.py:flash_attention_pallas``; it
+reads the (B, S, H, D) tensors through TMA tensor maps built from their
+strides, so a strided view costs no copy. A CPU tensor takes the plain version (``ref.flash_attention``, which
 works on the reference kernel's (B, H, S, D) layout).
 
 There is no backward kernel (the reference has none either: its train
@@ -27,7 +28,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 # q, k, v, out; B, S, H, KV, D; 12 strides; causal, window, sm_scale; stream
 SIGNATURES = {"repro_flash_attn": (_P,) * 4 + (_I,) * 5 + (_I,) * 12
               + (_I, _I, _F, _P)}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -72,7 +73,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         flash_attention.plain_calls += 1
         return flash_attention_plain(q, k, v, causal, window)
     for t in (q, k, v):
-        # 16-byte cp.async rows: bf16, unit last stride, 8-element strides
+        # TMA: bf16, unit last stride, 16-byte base and strides
         if t.dtype != torch.bfloat16:
             raise TypeError("flash_attention: the kernel takes bf16")
         if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) \
