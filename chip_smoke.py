@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 1. Build: every CUDA kernel of the path, from the sources in the checkout
-   (one nvcc per source, in parallel); prints the card and the build time.
+   (one nvcc per source, in parallel); prints the card and the build time,
+   and, where the toolkit has cuobjdump, the counts of HGMMA (wgmma),
+   UTMALDG (TMA load) and SYNCS (mbarrier) instructions in the flash
+   kernel's SASS (fails if cuobjdump ran and found no HGMMA).
 2. Kernels: each kernel against its plain PyTorch version on the card, at
    the path's shapes (a 40 000-slot segment, dense n=40 000, scatter
    k=65 536 with duplicates and saturating values; the fused fold at
@@ -12,7 +15,9 @@
    gradient bucket, n=6 553 600; sat_add_batch at B=16 x n=40 000), with
    sentinels and saturating lanes; exact for ints and masks, bitwise for
    fp32. Times each one and its bound. Kernels 9-10 (the int8 pack) are
-   only timed here; phase k checks them.
+   only timed here; phase k checks them. sparse_addto is timed a second
+   time with nothing to flag (no saturating value, no sentinel register),
+   the common case on the path, where the serial walk returns at once.
 3. Path, phases a-e: the typed INC RPC round trip through ``IncRuntime()``
    on the default device, at the paper's switch geometry (32 x 40 000
    int32), two workers over four rounds of five services; replies checked
@@ -39,10 +44,12 @@
    reduced layers on the CPU); a 2-layer full-width run (S=256, B=2) on
    the card within 2e-2 of the same run on the CPU. Flash attention joins
    the kernel check at the prefill's shape (B=4, H=16, KV=2, S=2 048,
-   D=128), gemma3's window of 1 024 and a ragged S, within atol 2e-2,
-   rtol 5e-2 of its plain version (bf16: the kernel rounds p to bf16
-   before p.V, the plain version keeps fp32), and is timed beside
-   ``scaled_dot_product_attention`` on the same tensors.
+   D=128), gemma3's window of 1 024, a ragged S and recurrentgemma-9b's
+   local layer (B=1, H=16, KV=1, S=4 096, D=256, window 2 048), within
+   atol 2e-2, rtol 5e-2 of its plain version (bf16: the kernel rounds p
+   to bf16 before p.V, the plain version keeps fp32); each case is timed
+   beside ``scaled_dot_product_attention`` on the same tensors, with its
+   TFLOP/s and share of the bound.
 
 8. Path, phase j: training qwen2.5-3b at full width and depth (36 layers,
    random weights from a seed, uniform tokens) through ``train_loop``:
@@ -83,6 +90,7 @@ result, at the first failure or when no CUDA device is present.
 """
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -126,9 +134,10 @@ SEED = 0
 LANES_TOL = 6e-2       # flash vs plain lane, 36 layers (max|d| / max|ref|)
 CPU_TOL = 2e-2         # card vs CPU, 2 layers
 FLASH_ATOL, FLASH_RTOL = 2e-2, 5e-2
-# (B, H, KV, S, D, window): the prefill's shape, gemma3's window, ragged S
+# (B, H, KV, S, D, window): the prefill's shape, gemma3's window, ragged S,
+# recurrentgemma-9b's local layer (D = 256, window 2 048) at B = 1
 FLASH_CHECKS = ((4, 16, 2, 2048, 128, None), (4, 16, 2, 2048, 128, 1024),
-                (2, 16, 2, 1000, 128, None))
+                (2, 16, 2, 1000, 128, None), (1, 16, 1, 4096, 256, 2048))
 REPLACES = {
     "fused_addto": "src/repro/kernels/fused_gpv.py:67",
     "fused_scatter": "src/repro/kernels/fused_gpv.py:113",
@@ -374,7 +383,46 @@ def check_kernels(torch) -> list[dict]:
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": "bytes",
                     "library_ms": None, "timer": timer})
+    row = next(r for r in out if r["name"] == "sparse_addto")
+    row["common_ms"] = sparse_addto_common(torch, regs_np, idx_np,
+                                              ivals_np, same_int)
     return out
+
+
+def sparse_addto_common(torch, regs_np, idx_np, ivals_np, same_int) -> float:
+    """Kernel 4 on the same idx with nothing to flag, as on the path: the
+    512 saturating values and the 8 sentinel registers replaced by
+    ordinary ones, so every slot is safe and the serial walk returns at
+    once. Checked against the plain version, then timed."""
+    from repro_torch.kernels import sparse_addto
+    rng = np.random.RandomState(4321)
+    regs_np = regs_np.copy()
+    ivals_np = ivals_np.copy()
+    hot = np.abs(regs_np.astype(np.int64)) > 10 ** 7
+    regs_np[hot] = rng.randint(-10 ** 7, 10 ** 7, int(hot.sum()))
+    sat = ivals_np == 2 ** 30
+    ivals_np[sat] = rng.randint(-10 ** 6, 10 ** 6, int(sat.sum()))
+    dev = torch.device("cuda")
+    regs0 = torch.from_numpy(regs_np).to(dev)
+    idx = torch.from_numpy(idx_np).to(dev)
+    ivals = torch.from_numpy(ivals_np).to(dev)
+    regs = regs0.clone()
+
+    def reset():
+        regs.copy_(regs0)
+
+    def kernel():
+        return sparse_addto.sparse_addto(regs, idx, ivals)
+
+    got = kernel().clone()
+    reset()
+    same_int("sparse_addto (common case)", got,
+             sparse_addto.sparse_addto_plain(regs, idx, ivals))
+    ms, timer = device_ms(torch, kernel, reset, 50)
+    print(f"kernel sparse_addto, common case (no saturating value, no "
+          f"sentinel register: nothing flagged): ok vs plain, ms={ms:.6f} "
+          f"({timer})", flush=True)
+    return ms
 
 
 # -- phase 2, kernel 11: flash attention --------------------------------------
@@ -386,66 +434,112 @@ def flash_inputs(torch, b, h, kv, s, d, seed):
                  .bfloat16() for n in (h, kv, kv))
 
 
+def flash_work(b, h, kv, s, d, window) -> tuple[int, int]:
+    """(operations, bytes) of one causal call: two products over the
+    (q, k) pairs with 0 <= qpos - kpos < window; q, k, v read once and out
+    written once, in bf16."""
+    w = s if window is None else min(window, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w
+    return 4 * d * b * h * pairs, 2 * b * s * (2 * h + 2 * kv) * d
+
+
 def check_flash(torch) -> dict:
-    """Kernel 11 against its plain version at FLASH_CHECKS; timed at the
-    prefill's shape beside its plain version and PyTorch's
-    scaled_dot_product_attention (the yardstick; the port never calls
-    it)."""
+    """Kernel 11 against its plain version at FLASH_CHECKS, each case then
+    timed beside PyTorch's scaled_dot_product_attention (the yardstick;
+    the port never calls it; a window goes to it as a boolean mask); the
+    prefill's shape also beside the plain version."""
     from repro_torch.kernels import flash_attn
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    errs = []
     for i, (b, h, kv, s, d, window) in enumerate(FLASH_CHECKS):
+        case = (b, h, kv, s, d, window)
         q, k, v = flash_inputs(torch, b, h, kv, s, d, i)
-        got = flash_attn.flash_attention(q, k, v, causal=True, window=window)
-        want = flash_attn.flash_attention_plain(q, k, v, causal=True,
-                                                window=window)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None
+        if window is not None:
+            pos = torch.arange(s, device="cuda")
+            gap = pos[:, None] - pos[None, :]
+            mask = (gap >= 0) & (gap < window)
+
+        def kernel():
+            return flash_attn.flash_attention(q, k, v, causal=True,
+                                              window=window)
+
+        def plain():
+            return flash_attn.flash_attention_plain(q, k, v, causal=True,
+                                                    window=window)
+
+        def library():
+            if mask is None:
+                return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+            return sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        got = kernel()
+        want = plain()
         torch.cuda.synchronize()
         if got.shape != want.shape or not torch.isfinite(got.float()).all() \
                 or not torch.allclose(got.float(), want.float(),
                                       atol=FLASH_ATOL, rtol=FLASH_RTOL):
-            fail(f"flash_attention (B,H,KV,S,D,window)="
-                 f"{(b, h, kv, s, d, window)} disagrees with its plain "
-                 f"version")
-        errs.append(float((got.float() - want.float()).abs().max()))
-        print(f"kernel flash_attention (B,H,KV,S,D,window)="
-              f"{(b, h, kv, s, d, window)}: ok vs plain (atol {FLASH_ATOL}, "
-              f"rtol {FLASH_RTOL}), max_abs_err={errs[-1]:.6f}", flush=True)
-    b, h, kv, s, d, _ = FLASH_CHECKS[0]
-    q, k, v = flash_inputs(torch, b, h, kv, s, d, 0)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            fail(f"flash_attention (B,H,KV,S,D,window)={case} disagrees "
+                 f"with its plain version")
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(library().transpose(1, 2).float(),
+                              want.float(), atol=FLASH_ATOL,
+                              rtol=FLASH_RTOL):
+            fail(f"scaled_dot_product_attention {case} disagrees with the "
+                 f"plain version")
+        del got, want
+        ms, timer = device_ms(torch, kernel, lambda: None, 20,
+                              match="flash_k_")
+        library_ms, _ = device_ms(torch, library, lambda: None, 20, match="")
+        flops, nbytes = flash_work(*case)
+        bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        bound_by = "operations" if flops / BF16_FLOPS \
+            > nbytes / HBM_BYTES_PER_S else "bytes"
+        print(f"kernel flash_attention (B,H,KV,S,D,window)={case}: ok vs "
+              f"plain (atol {FLASH_ATOL}, rtol {FLASH_RTOL}), max_abs_err="
+              f"{err:.6f}; ms={ms:.6f} ({timer}), "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.4f} of "
+              f"bound_ms={bound_ms:.6f} ({bound_by}: {flops / 1e9:.2f} "
+              f"GFLOP, {nbytes / 1e6:.1f} MB); library_ms={library_ms:.6f} "
+              f"({flops / library_ms / 1e9:.1f} TFLOP/s)", flush=True)
+        if i == 0:                  # the prefill's shape: the JSON row
+            plain_ms = event_ms(torch, plain, lambda: None, 5)
+            print(f"kernel flash_attention {case}: plain_ms={plain_ms:.6f}; "
+                  f"back-to-back events: kernel "
+                  f"{loop_ms(torch, kernel, 20):.6f} ms, library "
+                  f"{loop_ms(torch, library, 20):.6f} ms", flush=True)
+            row = {"name": "flash_attention", "route": "cuda",
+                   "source": SOURCE["flash_attention"],
+                   "replaces": REPLACES["flash_attention"], "launches": 0,
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms, "timer": timer}
+    return row
 
-    def kernel():
-        return flash_attn.flash_attention(q, k, v, causal=True)
 
-    def plain():
-        return flash_attn.flash_attention_plain(q, k, v, causal=True)
-
-    def library():
-        return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-
-    if not torch.allclose(library().transpose(1, 2).float(), plain().float(),
-                          atol=FLASH_ATOL, rtol=FLASH_RTOL):
-        fail("scaled_dot_product_attention disagrees with the plain version")
-    ms, timer = device_ms(torch, kernel, lambda: None, 20, match="flash_k_")
-    plain_ms = event_ms(torch, plain, lambda: None, 5)
-    library_ms, _ = device_ms(torch, library, lambda: None, 20, match="")
-    flops = 4 * d * b * h * (s * (s + 1) // 2)   # causal: kpos <= qpos
-    nbytes = 2 * b * s * (2 * h + 2 * kv) * d    # q, k, v read, out written
-    bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-    bound_by = "operations" if flops / BF16_FLOPS > nbytes / HBM_BYTES_PER_S \
-        else "bytes"
-    print(f"kernel flash_attention: ms={ms:.6f} ({timer}) plain_ms="
-          f"{plain_ms:.6f} library_ms={library_ms:.6f} bound_ms="
-          f"{bound_ms:.6f} ({bound_by}: {flops / 1e9:.2f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB); back-to-back events: kernel "
-          f"{loop_ms(torch, kernel, 20):.6f} ms, library "
-          f"{loop_ms(torch, library, 20):.6f} ms", flush=True)
-    return {"name": "flash_attention", "route": "cuda",
-            "source": SOURCE["flash_attention"],
-            "replaces": REPLACES["flash_attention"], "launches": 0,
-            "max_abs_err": errs[0], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "timer": timer}
+def sass_counts(build) -> dict:
+    """Counts of HGMMA (wgmma), UTMALDG (TMA loads) and SYNCS (mbarrier)
+    instructions in the flash library's SASS, where the toolkit has
+    cuobjdump; fails only if it ran and found no HGMMA."""
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        print("cuobjdump not found: the flash SASS is not counted",
+              flush=True)
+        return {}
+    run = subprocess.run([str(tool), "-sass", str(build.lib_path(
+        "flash_attn"))], capture_output=True, text=True)
+    if run.returncode != 0:
+        print(f"cuobjdump failed ({run.returncode}): the flash SASS is not "
+              f"counted", flush=True)
+        return {}
+    counts = {op: len(re.findall(rf"\b{op}\b", run.stdout))
+              for op in ("HGMMA", "UTMALDG", "SYNCS")}
+    print("flash_attn SASS: " + ", ".join(f"{k} {v}"
+                                          for k, v in counts.items()),
+          flush=True)
+    if counts["HGMMA"] == 0:
+        fail("the flash library holds no HGMMA (wgmma) instruction")
+    return counts
 
 
 # -- phase 2, kernels 9-10: the int8 pack and unpack --------------------------
@@ -1373,6 +1467,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s ({each or 'cached'})",
           flush=True)
     phase_s = {"build": time.perf_counter() - t0}
+    sass_counts(build)
     t0 = time.perf_counter()
     kernels = check_kernels(torch) + [check_flash(torch)] + check_int8(torch)
     phase_s["kernels"] = time.perf_counter() - t0

@@ -25,16 +25,16 @@
 // tensors and strided views need no copy. The kv head of query head h is
 // h / (H / KV); K and V are never broadcast over the group.
 //
-// Design: one CTA of three warpgroups per (128-row q tile, head, batch).
+// Design: CTAs of three warpgroups over 128-row q tiles of a head.
 //   - Warpgroup 0 is the producer: it drops to 24 registers (setmaxnreg)
 //     and one thread issues every load with TMA. q, k and v are 4-D tensor
 //     maps (D, S, heads, B) with the tensors' own strides; a tile is D/64
 //     boxes of 64 columns (one of 32 at D = 32), 128-byte swizzled (64-byte
 //     at D = 32) to match the wgmma descriptors. Rows at or past S come
-//     back as zeros from outside the map and are masked. Q is loaded once;
-//     K and V tiles stream through a 2-stage ring, each stage with a "full"
-//     mbarrier (TMA's byte count) and an "empty" one (the consumers'
-//     release), K and V on barriers of their own.
+//     back as zeros from outside the map and are masked. Q is loaded once
+//     a work item; K and V tiles stream through a 2-stage ring, each stage
+//     with a "full" mbarrier (TMA's byte count) and an "empty" one (the
+//     consumers' release), K and V on barriers of their own.
 //   - Warpgroups 1 and 2 are consumers (240 registers), 64 q rows each.
 //     S = Q K^T is a wgmma with both operands in shared memory (K-major);
 //     O += P V is a wgmma with P, rounded to bf16, from registers, and V
@@ -51,8 +51,12 @@
 //   - Tile sizes are a template over D: BN = 128 keys for D <= 128 (160 KB
 //     of shared memory at D = 128, one CTA an SM) and BN = 64 at D = 256,
 //     where O alone is 128 registers a consumer thread and Q is 64 KB.
-//   - CTAs run the longest q tiles first (grid.y reversed, heads and
-//     batches on grid.x).
+//   - Persistent CTAs, one an SM, walk the work items (a q tile of one
+//     batch and head), numbered longest first, in rounds of alternating
+//     direction: a static schedule that evens out the causal triangle's
+//     unequal items. The producer loads the next item's Q (once both
+//     warpgroups are done with this one's: a q_empty mbarrier) and tiles
+//     while the consumers finish this one.
 // Out is stored from registers, 4 bytes a thread.
 //
 // Bound: at the prefill shape of qwen2.5-3b (B=4, H=16, KV=2, S=2048,
@@ -282,7 +286,7 @@ __device__ __forceinline__ float ex2(float x) {
 struct Params {
     __nv_bfloat16* o;
     int64_t o_sb, o_ss, o_sh;    // element strides of out (d stride 1)
-    int S, H, KV;
+    int B, S, H, KV;
     int causal;
     int window;                  // 0: no window
     float scale_log2;            // sm_scale * log2(e)
@@ -352,6 +356,32 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], bool open,
     l1 = alpha1 * l1 + sum1;
 }
 
+// One work item: a 128-row q tile of one (batch, head), and the key tiles
+// it needs. Items are numbered longest first (the q tiles nearest the end
+// of the sequence see the most keys), heads and batches fastest.
+struct Item {
+    int q0, h, b, kvh, kt_begin, ntiles;
+};
+
+template <int BN>
+__device__ __forceinline__ Item item_at(int idx, int nq, const Params& p) {
+    Item w;
+    const int hb = p.H * p.B;
+    w.q0 = (nq - 1 - idx / hb) * BM;
+    w.h = idx % hb % p.H;
+    w.b = idx % hb / p.H;
+    w.kvh = w.h / (p.H / p.KV);
+    const int q_last = min(w.q0 + BM - 1, p.S - 1);
+    const int kt_end = p.causal ? q_last / BN + 1 : (p.S + BN - 1) / BN;
+    w.kt_begin = 0;
+    if (p.causal && p.window > 0) {
+        const int first_key = w.q0 - (p.window - 1);
+        w.kt_begin = first_key > 0 ? first_key / BN : 0;
+    }
+    w.ntiles = kt_end - w.kt_begin;
+    return w;
+}
+
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_k_attn_fwd(const __grid_constant__ CUtensorMap qmap,
@@ -364,35 +394,30 @@ flash_k_attn_fwd(const __grid_constant__ CUtensorMap qmap,
     const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
     const uint32_t k_s = q_s + T::Q_BYTES;               // STAGES tiles
     const uint32_t v_s = k_s + STAGES * T::KV_BYTES;     // STAGES tiles
-    // mbarriers: q_full, then full_k, full_v, empty_k, empty_v per stage
-    const uint32_t q_full = v_s + STAGES * T::KV_BYTES;
-    const uint32_t full_k = q_full + 8, full_v = full_k + 8 * STAGES;
+    // mbarriers: q_full, q_empty, then full_k, full_v, empty_k, empty_v
+    // per stage
+    const uint32_t q_full = v_s + STAGES * T::KV_BYTES, q_empty = q_full + 8;
+    const uint32_t full_k = q_empty + 8, full_v = full_k + 8 * STAGES;
     const uint32_t empty_k = full_v + 8 * STAGES;
     const uint32_t empty_v = empty_k + 8 * STAGES;
-
     const int nq = (p.S + BM - 1) / BM;
-    const int q0 = (nq - 1 - (int)blockIdx.y) * BM;      // longest rows first
-    const int h = (int)blockIdx.x % p.H, b = (int)blockIdx.x / p.H;
-    const int kvh = h / (p.H / p.KV);
-
-    // key tiles this q tile needs
-    const int q_last = min(q0 + BM - 1, p.S - 1);
-    const int nk = (p.S + BN - 1) / BN;
-    const int kt_end = p.causal ? q_last / BN + 1 : nk;
-    int kt_begin = 0;
-    if (p.causal && p.window > 0) {
-        const int first_key = q0 - (p.window - 1);
-        kt_begin = first_key > 0 ? first_key / BN : 0;
-    }
-    const int ntiles = kt_end - kt_begin;
+    const int n_items = nq * p.H * p.B;
+    // this CTA's item of round r: rounds alternate direction, so a CTA that
+    // took one of the longest items of a round takes one of the shortest
+    // of the next, and the sums even out
+    auto item_index = [&](int r) {
+        const int g = (int)gridDim.x, j = (int)blockIdx.x;
+        return r * g + (r % 2 ? g - 1 - j : j);
+    };
 
     if (threadIdx.x == 0) {
         mbar_init(q_full, 1);
+        mbar_init(q_empty, 256);                 // every consumer thread
         #pragma unroll
         for (int s = 0; s < STAGES; ++s) {
             mbar_init(full_k + 8 * s, 1);
             mbar_init(full_v + 8 * s, 1);
-            mbar_init(empty_k + 8 * s, 256);     // every consumer thread
+            mbar_init(empty_k + 8 * s, 256);
             mbar_init(empty_v + 8 * s, 256);
         }
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -402,32 +427,43 @@ flash_k_attn_fwd(const __grid_constant__ CUtensorMap qmap,
     // warp-uniform for the compiler: wgmma must not sit on a divergent path
     const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
     if (wg == 0) {
-        // == producer: one thread issues every TMA load ==
+        // == producer: one thread issues every TMA load, item after item;
+        // the next item's Q and first tiles load while the consumers
+        // finish this one ==
         asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
         if (threadIdx.x == 0) {
-            mbar_expect_tx(q_full, T::Q_BYTES);
-            #pragma unroll
-            for (int x = 0; x < T::NBOX; ++x)
-                tma_load_4d(q_s + x * BM * T::ROWB, &qmap, q_full,
-                            x * T::BOXC, q0, h, b);
-            for (int i = 0; i < ntiles; ++i) {
-                const int st = i % STAGES;
-                const uint32_t parity = ((i / STAGES) & 1) ^ 1;
-                const int row = (kt_begin + i) * BN;
-                if (i >= STAGES) mbar_wait(empty_k + 8 * st, parity);
-                mbar_expect_tx(full_k + 8 * st, T::KV_BYTES);
+            int it = 0;                          // K/V tiles so far
+            int n = 0;                           // items so far
+            for (int r = 0;; ++r) {
+                const int idx = item_index(r);
+                if (idx >= n_items) break;
+                const Item w = item_at<BN>(idx, nq, p);
+                if (n > 0) mbar_wait(q_empty, (n - 1) & 1);
+                mbar_expect_tx(q_full, T::Q_BYTES);
                 #pragma unroll
                 for (int x = 0; x < T::NBOX; ++x)
-                    tma_load_4d(k_s + st * T::KV_BYTES + x * BN * T::ROWB,
-                                &kmap, full_k + 8 * st, x * T::BOXC, row, kvh,
-                                b);
-                if (i >= STAGES) mbar_wait(empty_v + 8 * st, parity);
-                mbar_expect_tx(full_v + 8 * st, T::KV_BYTES);
-                #pragma unroll
-                for (int x = 0; x < T::NBOX; ++x)
-                    tma_load_4d(v_s + st * T::KV_BYTES + x * BN * T::ROWB,
-                                &vmap, full_v + 8 * st, x * T::BOXC, row, kvh,
-                                b);
+                    tma_load_4d(q_s + x * BM * T::ROWB, &qmap, q_full,
+                                x * T::BOXC, w.q0, w.h, w.b);
+                for (int i = 0; i < w.ntiles; ++i, ++it) {
+                    const int st = it % STAGES;
+                    const uint32_t parity = ((it / STAGES) & 1) ^ 1;
+                    const int row = (w.kt_begin + i) * BN;
+                    if (it >= STAGES) mbar_wait(empty_k + 8 * st, parity);
+                    mbar_expect_tx(full_k + 8 * st, T::KV_BYTES);
+                    #pragma unroll
+                    for (int x = 0; x < T::NBOX; ++x)
+                        tma_load_4d(
+                            k_s + st * T::KV_BYTES + x * BN * T::ROWB, &kmap,
+                            full_k + 8 * st, x * T::BOXC, row, w.kvh, w.b);
+                    if (it >= STAGES) mbar_wait(empty_v + 8 * st, parity);
+                    mbar_expect_tx(full_v + 8 * st, T::KV_BYTES);
+                    #pragma unroll
+                    for (int x = 0; x < T::NBOX; ++x)
+                        tma_load_4d(
+                            v_s + st * T::KV_BYTES + x * BN * T::ROWB, &vmap,
+                            full_v + 8 * st, x * T::BOXC, row, w.kvh, w.b);
+                }
+                ++n;
             }
         }
     } else {
@@ -436,8 +472,6 @@ flash_k_attn_fwd(const __grid_constant__ CUtensorMap qmap,
         const int c = wg - 1;
         const int tid = threadIdx.x % 128;
         const int warp = tid / 32, lane = tid % 32;
-        const int wr0 = q0 + c * 64;                 // this warpgroup's rows
-        const int r0 = wr0 + warp * 16 + lane / 4;   // and r0 + 8
         const int tcol = (lane % 4) * 2;
         const int my_bar = c == 0 ? BAR_WG0 : BAR_WG1;
         const int other_bar = c == 0 ? BAR_WG1 : BAR_WG0;
@@ -445,18 +479,17 @@ flash_k_attn_fwd(const __grid_constant__ CUtensorMap qmap,
         const uint32_t q_wg = q_s + c * 64 * T::ROWB;
 
         float o[D / 2];
-        #pragma unroll
-        for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
         float s[BN / 2];
         uint32_t pf[BN / 16][4];
-        float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-
-        if (c == 1) named_arrive(BAR_WG0);           // warpgroup 1 goes first
-        mbar_wait(q_full, 0);
+        float m0, m1, l0, l1;
+        int it = 0;                                  // K/V tiles so far
+        int n = 0;                                   // items so far
+        Item w{};
+        int wr0, r0;                  // this warpgroup's first row, and mine
 
         // S_i = Q K_i^T, both operands in shared memory (K-major)
         auto issue_s = [&](int i) {
-            const int st = i % STAGES;
+            const int st = (it + i) % STAGES;
             const uint32_t k_t = k_s + st * T::KV_BYTES;
             #pragma unroll
             for (int kk = 0; kk < D / 16; ++kk) {
@@ -472,8 +505,8 @@ flash_k_attn_fwd(const __grid_constant__ CUtensorMap qmap,
         };
         // O += P_i V_i, P from registers, V MN-major in shared memory
         auto issue_pv = [&](int i) {
-            const int st = i % STAGES;
-            mbar_wait(full_v + 8 * st, (i / STAGES) & 1);
+            const int st = (it + i) % STAGES;
+            mbar_wait(full_v + 8 * st, ((it + i) / STAGES) & 1);
             const uint32_t v_t = v_s + st * T::KV_BYTES;
             #pragma unroll
             for (int kk = 0; kk < BN / 16; ++kk)
@@ -482,13 +515,15 @@ flash_k_attn_fwd(const __grid_constant__ CUtensorMap qmap,
                                                  T::LAYOUT));
             wgmma_commit();
         };
-        // S_i landed: release K_i, softmax; rescale O once no P V is in
-        // flight, then P_i in bf16 as wgmma's register A operand (k16 step
-        // kk holds keys 16kk..16kk+15 of rows r0 and r0 + 8)
+        // S_i landed: release K_i (and Q after the item's last tile),
+        // softmax; rescale O once no P V is in flight, then P_i in bf16 as
+        // wgmma's register A operand (k16 step kk holds keys 16kk..16kk+15
+        // of rows r0 and r0 + 8)
         auto softmax = [&](int i, bool pv_in_flight) {
             fence_regs(s);
-            mbar_arrive(empty_k + 8 * (i % STAGES));
-            const int k0 = (kt_begin + i) * BN;
+            mbar_arrive(empty_k + 8 * ((it + i) % STAGES));
+            if (i == w.ntiles - 1) mbar_arrive(q_empty);
+            const int k0 = (w.kt_begin + i) * BN;
             const bool open = k0 + BN <= p.S && (!p.causal
                 || (k0 + BN - 1 <= wr0
                     && (p.window <= 0 || wr0 + 63 - k0 < p.window)));
@@ -498,7 +533,7 @@ flash_k_attn_fwd(const __grid_constant__ CUtensorMap qmap,
             if (pv_in_flight) {
                 wgmma_wait<0>();
                 fence_regs(o);
-                mbar_arrive(empty_v + 8 * ((i - 1) % STAGES));
+                mbar_arrive(empty_v + 8 * ((it + i - 1) % STAGES));
             }
             #pragma unroll
             for (int j = 0; j < D / 8; ++j) {
@@ -516,56 +551,77 @@ flash_k_attn_fwd(const __grid_constant__ CUtensorMap qmap,
             }
         };
 
-        // the warpgroups take turns to issue: BAR_WG0 lets warpgroup 0 go,
-        // BAR_WG1 warpgroup 1; each sync is paired with one arrive
-        mbar_wait(full_k, 0);
-        named_sync(my_bar);
-        wgmma_fence();
-        issue_s(0);
-        named_arrive(other_bar);
-        wgmma_wait<0>();
-        softmax(0, false);
-        // next tile's Q K^T with this tile's P V; the softmax of the one
-        // runs while the other's product does
-        for (int i = 1; i < ntiles; ++i) {
-            mbar_wait(full_k + 8 * (i % STAGES), (i / STAGES) & 1);
+        for (int r = 0;; ++r) {
+            const int idx = item_index(r);
+            if (idx >= n_items) break;
+            w = item_at<BN>(idx, nq, p);
+            wr0 = w.q0 + c * 64;
+            r0 = wr0 + warp * 16 + lane / 4;
+            #pragma unroll
+            for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+            m0 = m1 = NEG_INF;
+            l0 = l1 = 0.f;
+
+            // the warpgroups take turns to issue: BAR_WG0 lets warpgroup 0
+            // go, BAR_WG1 warpgroup 1; each sync is paired with one arrive
+            if (c == 1) named_arrive(BAR_WG0);       // warpgroup 0 first
+            mbar_wait(q_full, n & 1);
+            mbar_wait(full_k + 8 * (it % STAGES), (it / STAGES) & 1);
             named_sync(my_bar);
             fence_regs(s);
+            wgmma_fence();
+            issue_s(0);
+            named_arrive(other_bar);
+            wgmma_wait<0>();
+            softmax(0, false);
+            // tile i's Q K^T with tile i-1's P V; the softmax of the one
+            // runs while the other's product does
+            for (int i = 1; i < w.ntiles; ++i) {
+                mbar_wait(full_k + 8 * ((it + i) % STAGES),
+                          ((it + i) / STAGES) & 1);
+                named_sync(my_bar);
+                fence_regs(s);
+                fence_regs(o);
+                fence_regs(pf);
+                wgmma_fence();
+                issue_s(i);
+                issue_pv(i - 1);
+                named_arrive(other_bar);
+                wgmma_wait<1>();
+                softmax(i, true);
+            }
+            named_sync(my_bar);
             fence_regs(o);
             fence_regs(pf);
             wgmma_fence();
-            issue_s(i);
-            issue_pv(i - 1);
-            named_arrive(other_bar);
-            wgmma_wait<1>();
-            softmax(i, true);
-        }
-        named_sync(my_bar);
-        fence_regs(o);
-        fence_regs(pf);
-        wgmma_fence();
-        issue_pv(ntiles - 1);
-        if (c == 0) named_arrive(other_bar);          // warpgroup 1 ends
-        wgmma_wait<0>();
-        fence_regs(o);
-        mbar_arrive(empty_v + 8 * ((ntiles - 1) % STAGES));
-        // the row sums: each of the 4 threads of a quad holds a share
-        l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-        l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-        const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-        __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh;
-        const int r1 = r0 + 8;
-        #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-            const int col = j * 8 + tcol;
-            if (r0 < p.S)
-                *reinterpret_cast<uint32_t*>(og + (int64_t)r0 * p.o_ss + col)
-                    = pack_bf16(o[j * 4 + 0] / d0, o[j * 4 + 1] / d0);
-            if (r1 < p.S)
-                *reinterpret_cast<uint32_t*>(og + (int64_t)r1 * p.o_ss + col)
-                    = pack_bf16(o[j * 4 + 2] / d1, o[j * 4 + 3] / d1);
+            issue_pv(w.ntiles - 1);
+            if (c == 0) named_arrive(other_bar);      // warpgroup 1 ends
+            wgmma_wait<0>();
+            fence_regs(o);
+            mbar_arrive(empty_v + 8 * ((it + w.ntiles - 1) % STAGES));
+            it += w.ntiles;
+            ++n;
+
+            // the row sums: each of the 4 threads of a quad holds a share
+            l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+            l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+            l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+            l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+            const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+            __nv_bfloat16* og = p.o + w.b * p.o_sb + w.h * p.o_sh;
+            const int r1 = r0 + 8;
+            #pragma unroll
+            for (int j = 0; j < D / 8; ++j) {
+                const int col = j * 8 + tcol;
+                if (r0 < p.S)
+                    *reinterpret_cast<uint32_t*>(
+                        og + (int64_t)r0 * p.o_ss + col)
+                        = pack_bf16(o[j * 4 + 0] / d0, o[j * 4 + 1] / d0);
+                if (r1 < p.S)
+                    *reinterpret_cast<uint32_t*>(
+                        og + (int64_t)r1 * p.o_ss + col)
+                        = pack_bf16(o[j * 4 + 2] / d1, o[j * 4 + 3] / d1);
+            }
         }
     }
 }
@@ -638,7 +694,14 @@ int launch(const void* q, const void* k, const void* v, const Params& p,
         flash_k_attn_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         T::SMEM_ALLOC);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((unsigned)(p.H * B), (unsigned)((p.S + BM - 1) / BM));
+    // persistent: one CTA an SM, each walking items longest first
+    int dev = 0, sms = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    const int64_t items = (p.S + BM - 1) / BM * (int64_t)p.H * B;
+    const int grid = (int)(items < sms ? items : sms);
     flash_k_attn_fwd<D><<<grid, THREADS, T::SMEM_ALLOC, stream>>>(qm, km, vm,
                                                                   p);
     return (int)cudaGetLastError();
@@ -655,12 +718,12 @@ extern "C" int repro_flash_attn(
         int64_t o_sb, int64_t o_ss, int64_t o_sh,
         int64_t causal, int64_t window, float sm_scale, void* stream) {
     if (B <= 0 || S <= 0) return 0;
-    if ((S + BM - 1) / BM > 65535 || H * B > 0x7fffffff)
+    if ((S + BM - 1) / BM * H * B > 0x7fffffff)
         return (int)cudaErrorInvalidValue;
     Params p;
     p.o = static_cast<__nv_bfloat16*>(o);
     p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
-    p.S = (int)S; p.H = (int)H; p.KV = (int)KV;
+    p.B = (int)B; p.S = (int)S; p.H = (int)H; p.KV = (int)KV;
     p.causal = (int)causal;
     p.window = (int)window;
     p.scale_log2 = sm_scale * LOG2E;

@@ -482,12 +482,22 @@ def test_cuda_stream_kernels_match_plain(cuda, seed):
 
 
 # (b, h, kv, s, d, window): the prefill of qwen2.5-3b (B=4, H=16, KV=2,
-# S=2048, D=128), gemma3's window, S not a multiple of the 64-row tile,
-# S inside one tile, a window narrower than a tile, D=64 and D=32
+# S=2048, D=128), gemma3's window, S not a multiple of the 128-row tile,
+# S inside one tile, a window narrower than a tile, D=64 and D=32; then the
+# edges of the kernel's tiles (BM = 128 q rows; BN = 128 keys, 64 at
+# D=256): S = 1 and BM -+ 1, S = BN + 1 at D=256, windows of 1 and BN -+ 1,
+# H = KV (stablelm: D=64, 32 heads) and recurrentgemma-9b's local layer
+# (H=16, KV=1, D=256, window 2048) at B=1
 CUDA_FLASH_CASES = [(4, 16, 2, 2048, 128, None), (2, 16, 2, 2048, 128, 1024),
                     (2, 4, 2, 1000, 128, None), (1, 4, 1, 384, 128, None),
                     (2, 2, 2, 40, 128, None), (1, 4, 2, 700, 128, 40),
-                    (1, 8, 2, 300, 64, None), (2, 4, 2, 77, 32, 20)]
+                    (1, 8, 2, 300, 64, None), (2, 4, 2, 77, 32, 20),
+                    (1, 4, 2, 1, 128, None), (2, 4, 2, 127, 128, None),
+                    (2, 4, 2, 129, 128, None), (1, 4, 2, 65, 256, None),
+                    (1, 4, 2, 300, 128, 1), (1, 4, 2, 500, 128, 127),
+                    (1, 4, 2, 500, 128, 129), (1, 4, 2, 300, 256, 63),
+                    (1, 4, 2, 300, 256, 65), (1, 32, 32, 300, 64, None),
+                    (1, 16, 1, 4096, 256, 2048)]
 
 
 @pytest.mark.cuda
@@ -514,11 +524,12 @@ def test_cuda_flash_attention_matches_plain(cuda, case):
 
 
 @pytest.mark.cuda
-def test_cuda_flash_attention_reads_strided_views_and_non_causal(cuda):
+@pytest.mark.parametrize("d", [128, 256])
+def test_cuda_flash_attention_reads_strided_views_and_non_causal(cuda, d):
     """(B,H,S,D) tensors seen as (B,S,H,D) views run without a copy; the
     non-causal lane masks only the keys past a ragged S."""
     rng = np.random.RandomState(5)
-    b, h, kv, s, d = 2, 4, 2, 200, 128
+    b, h, kv, s = 2, 4, 2, 200
     q = torch.from_numpy(rng.randn(b, h, s, d).astype(np.float32))
     k = torch.from_numpy(rng.randn(b, kv, s, d).astype(np.float32))
     v = torch.from_numpy(rng.randn(b, kv, s, d).astype(np.float32))
@@ -532,6 +543,18 @@ def test_cuda_flash_attention_reads_strided_views_and_non_causal(cuda):
                                    rtol=5e-2)
     with pytest.raises(TypeError):
         ops.flash_attention(q.float(), k.float(), v.float())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_a_head_dim_it_does_not_take(cuda):
+    """The kernel takes D in HEAD_DIMS; a CUDA tensor of another D raises
+    rather than fall back to the plain version."""
+    q, k, v = (torch.zeros(1, 64, h, 48, device=cuda, dtype=torch.bfloat16)
+               for h in (4, 2, 2))
+    before = ops.launch_counts()["flash_attention"]
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == before
 
 
 @pytest.mark.cuda
