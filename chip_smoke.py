@@ -1018,8 +1018,8 @@ def serve_oracle(run: dict, shape: dict, vocab: int, what: str) -> None:
 def busy_share(torch, fn, steps: int = 1) -> tuple[float, float, list]:
     """One ``fn()`` under the profiler: (wall seconds per step, the share
     of the wall time the card ran kernels, the five kernels with the most
-    device time as (name, ms)). One stream, so kernel times do not
-    overlap."""
+    device time as (name, ms), then the flash kernel if it ran and is not
+    among them). One stream, so kernel times do not overlap."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1032,6 +1032,7 @@ def busy_share(torch, fn, steps: int = 1) -> tuple[float, float, list]:
            for ev in prof.key_averages()]
     busy_us = sum(us for _, us in evs)
     top = sorted(evs, key=lambda e: -e[1])[:5]
+    top += [e for e in evs if "flash_k_" in e[0] and e not in top]
     return wall / steps, busy_us / 1e6 / wall, \
         [(k[:60], round(us / 1e3, 3)) for k, us in top]
 
