@@ -15,9 +15,16 @@
    gradient bucket, n=6 553 600; sat_add_batch at B=16 x n=40 000), with
    sentinels and saturating lanes; exact for ints and masks, bitwise for
    fp32. Times each one and its bound. Kernels 9-10 (the int8 pack) are
-   only timed here; phase k checks them. sparse_addto is timed a second
-   time with nothing to flag (no saturating value, no sentinel register),
-   the common case on the path, where the serial walk returns at once.
+   only timed here; phase k checks them. The two scatters (sparse_addto,
+   fused_scatter) are timed a second time with nothing to flag (no
+   saturating value, no sentinel register), the common case on the path,
+   each case also per call with host dispatch (CUDA events); and both are
+   held bitwise against their plain versions on either side of the
+   cluster lane's limits (40 000, 262 144 and the largest slot count it
+   takes; one slot past it; the largest k it takes and one past), each
+   launch counted on the lane its size takes. Prints the limits, the
+   resident clusters, and ``index_add_`` of the same int32 stream as a
+   yardstick of an unsaturated scatter (not the same function).
 3. Path, phases a-e: the typed INC RPC round trip through ``IncRuntime()``
    on the default device, at the paper's switch geometry (32 x 40 000
    int32), two workers over four rounds of five services; replies checked
@@ -82,7 +89,10 @@
    ``q * scale[:, None]``.
 
 Launch counts are set to 0 just before each path run on the card and read
-just after it; every kernel must have launched in the path.
+just after it; every kernel must have launched in the path. The two
+scatters also record the lane and the k of each launch: every path launch
+must take the cluster lane. After the path, both are timed again at the
+median k of their path launches, in both cases.
 
 Prints the card's name and power limit, one JSON line of kernel results,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -166,6 +176,11 @@ SOURCE = {
     "pack_int8": "src/repro_torch/kernels/csrc/pack_int8.cu",
     "unpack_int8": "src/repro_torch/kernels/csrc/pack_int8.cu",
 }
+
+
+# the lane and the k of every scatter launch of the path (counted runs)
+PATH_KS = {"sparse_addto": [], "fused_scatter": []}
+PATH_LANES = {"sparse_addto": {}, "fused_scatter": {}}
 
 
 def fail(msg: str) -> None:
@@ -383,46 +398,191 @@ def check_kernels(torch) -> list[dict]:
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": "bytes",
                     "library_ms": None, "timer": timer})
-    row = next(r for r in out if r["name"] == "sparse_addto")
-    row["common_ms"] = sparse_addto_common(torch, regs_np, idx_np,
-                                              ivals_np, same_int)
+    inputs = (regs_np, idx_np, ivals_np, fvals_np)
+    for row in out:
+        if row["name"] in SCATTERS:
+            t = time_scatter(torch, row["name"], *inputs, SCATTER_K)
+            row.update(event_ms=t["event_ms"], common_ms=t["common_ms"],
+                       common_event_ms=t["common_event_ms"])
+    scatter_yardstick(torch, *common_inputs(*inputs))
+    check_scatter_lanes(torch)
     return out
 
 
-def sparse_addto_common(torch, regs_np, idx_np, ivals_np, same_int) -> float:
-    """Kernel 4 on the same idx with nothing to flag, as on the path: the
+# -- phase 2, kernels 2 and 4: the ordered scatter ----------------------------
+
+SCATTERS = ("sparse_addto", "fused_scatter")
+
+
+def common_inputs(regs_np, idx_np, ivals_np, fvals_np):
+    """``kernel_inputs``' scatter with nothing to flag, as on the path: the
     512 saturating values and the 8 sentinel registers replaced by
-    ordinary ones, so every slot is safe and the serial walk returns at
-    once. Checked against the plain version, then timed."""
-    from repro_torch.kernels import sparse_addto
+    ordinary ones, so every slot is safe and pass 3 never runs."""
     rng = np.random.RandomState(4321)
-    regs_np = regs_np.copy()
-    ivals_np = ivals_np.copy()
+    regs_np, ivals_np, fvals_np = (regs_np.copy(), ivals_np.copy(),
+                                   fvals_np.copy())
     hot = np.abs(regs_np.astype(np.int64)) > 10 ** 7
     regs_np[hot] = rng.randint(-10 ** 7, 10 ** 7, int(hot.sum()))
     sat = ivals_np == 2 ** 30
     ivals_np[sat] = rng.randint(-10 ** 6, 10 ** 6, int(sat.sum()))
+    fvals_np[sat] = (rng.randn(int(sat.sum())) * 0.05).astype(np.float32)
+    return regs_np, idx_np, ivals_np, fvals_np
+
+
+def scatter_fns(torch, name, regs_np, idx_np, ivals_np, fvals_np, k):
+    """(kernel, plain, reset) of scatter ``name`` on the first k updates,
+    on the card; both update the same registers, reset restores them."""
+    from repro_torch.kernels import fused_gpv, sparse_addto
+    dev = torch.device("cuda")
+    regs0 = torch.from_numpy(regs_np).to(dev)
+    idx = torch.from_numpy(idx_np[:k]).to(dev)
+    vals = torch.from_numpy((ivals_np if name == "sparse_addto"
+                             else fvals_np)[:k]).to(dev)
+    regs = regs0.clone()
+    scale = 10 ** PRECISION
+
+    def kernel():
+        if name == "sparse_addto":
+            return sparse_addto.sparse_addto(regs, idx, vals)
+        return fused_gpv.fused_scatter(regs, idx, vals, scale)
+
+    def plain():
+        if name == "sparse_addto":
+            return sparse_addto.sparse_addto_plain(regs, idx, vals)
+        return fused_gpv.fused_scatter_plain(regs, idx, vals, scale)
+
+    return kernel, plain, lambda: regs.copy_(regs0)
+
+
+def scatter_same(torch, what, kernel, plain, reset) -> None:
+    """The kernel's registers bitwise equal to the plain version's."""
+    reset()
+    got = kernel().clone()
+    reset()
+    want = plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"{what}: {int((got != want).sum())} registers differ from the "
+             f"plain version")
+
+
+def time_scatter(torch, name, regs_np, idx_np, ivals_np, fvals_np,
+                 k) -> dict:
+    """Scatter ``name`` on the first k updates, on the saturating inputs
+    and in the common case: each held bitwise against the plain version,
+    then timed (CUPTI, mean of 50) and per call with host dispatch (CUDA
+    events, median of 20)."""
+    out = {}
+    for case, inputs in (("", (regs_np, idx_np, ivals_np, fvals_np)),
+                         ("common_", common_inputs(regs_np, idx_np,
+                                                   ivals_np, fvals_np))):
+        kernel, plain, reset = scatter_fns(torch, name, *inputs, k)
+        what = f"{name} k={k} {'common case' if case else 'saturating'}"
+        scatter_same(torch, what, kernel, plain, reset)
+        ms, timer = device_ms(torch, kernel, reset, 50)
+        ev = event_ms(torch, kernel, reset, 20)
+        print(f"kernel {what}: ok vs plain, ms={ms:.6f} ({timer}), "
+              f"event_ms={ev:.6f} a call", flush=True)
+        out[case + "ms"], out[case + "event_ms"] = ms, ev
+    return out
+
+
+def scatter_yardstick(torch, regs_np, idx_np, ivals_np, fvals_np) -> None:
+    """``index_add_`` of the same int32 stream into the same registers: a
+    plain wrapping scatter-add, no saturation and no order, timed as a
+    yardstick of an unsaturated scatter on this card (not the same
+    function, so no row's library_ms)."""
     dev = torch.device("cuda")
     regs0 = torch.from_numpy(regs_np).to(dev)
     idx = torch.from_numpy(idx_np).to(dev)
-    ivals = torch.from_numpy(ivals_np).to(dev)
+    vals = torch.from_numpy(ivals_np).to(dev)
     regs = regs0.clone()
+    ms, timer = device_ms(torch, lambda: regs.index_add_(0, idx, vals),
+                          lambda: regs.copy_(regs0), 50, match="index")
+    print(f"yardstick index_add_ (int32, {len(regs_np)} slots, k="
+          f"{len(idx_np)}, no saturation): ms={ms:.6f} ({timer})",
+          flush=True)
 
-    def reset():
-        regs.copy_(regs0)
 
-    def kernel():
-        return sparse_addto.sparse_addto(regs, idx, ivals)
+def lane_inputs(n, k, seed):
+    """A scatter of k updates into n slots shaped like ``kernel_inputs``:
+    hot duplicate slots, sentinel registers and saturating values."""
+    rng = np.random.RandomState(seed)
+    regs = rng.randint(-10 ** 7, 10 ** 7, n).astype(np.int32)
+    regs[rng.choice(n, 8, replace=False)] = [2 ** 31 - 1, -(2 ** 31 - 1),
+                                             2 ** 31 - 2, -(2 ** 31 - 2),
+                                             -2 ** 31, 0, 2 ** 30, -2 ** 30]
+    idx = rng.randint(0, n, k).astype(np.int32)
+    idx[:k // 8] = rng.randint(0, 256, k // 8)
+    ivals = rng.randint(-10 ** 6, 10 ** 6, k).astype(np.int32)
+    fvals = (rng.randn(k) * 0.05).astype(np.float32)
+    sat = rng.choice(k, min(k, 512), replace=False)
+    ivals[sat] = 2 ** 30
+    fvals[sat] = 12.0
+    return regs, idx, ivals, fvals
 
-    got = kernel().clone()
-    reset()
-    same_int("sparse_addto (common case)", got,
-             sparse_addto.sparse_addto_plain(regs, idx, ivals))
-    ms, timer = device_ms(torch, kernel, reset, 50)
-    print(f"kernel sparse_addto, common case (no saturating value, no "
-          f"sentinel register: nothing flagged): ok vs plain, ms={ms:.6f} "
-          f"({timer})", flush=True)
-    return ms
+
+def check_scatter_lanes(torch) -> None:
+    """Both scatters bitwise against their plain versions on either side
+    of the cluster lane's limits, each launch counted on the lane its
+    size takes; the two sides of the k limit are timed."""
+    from repro_torch.kernels import ops, sparse_addto
+    lim = sparse_addto.cluster_limits()
+    resident = sparse_addto.cluster_ready(
+        "sparse_addto", sparse_addto.SIGNATURES, "repro_sparse_addto_ready",
+        torch.device("cuda"))
+    print(f"scatter lanes: the cluster lane takes n_slots <= "
+          f"INC_CLUSTER_MAX_SLOTS = {lim['max_slots']} and k <= "
+          f"INC_CLUSTER_MAX_K = {lim['max_k']}: one launch of "
+          f"{lim['clusters']} clusters of {lim['ctas']} CTAs x "
+          f"{lim['threads']} threads, at most {lim['smem_bytes']} bytes of "
+          f"dynamic shared memory a CTA; {resident} clusters resident at "
+          f"once; past either limit the large lane (five launches, global "
+          f"scratch)", flush=True)
+    cases = ((SEG, SCATTER_K), (262_144, SCATTER_K),
+             (lim["max_slots"], SCATTER_K), (lim["max_slots"] + 1, SCATTER_K),
+             (SEG, lim["max_k"]), (SEG, lim["max_k"] + 1))
+    for i, (n, k) in enumerate(cases):
+        lane = sparse_addto.scatter_lane(n, k)
+        inputs = lane_inputs(n, k, 100 + i)
+        for name in SCATTERS:
+            kernel, plain, reset = scatter_fns(torch, name, *inputs, k)
+            before = ops.lane_counts()[name][lane]
+            what = f"{name} n_slots={n} k={k} ({lane} lane)"
+            scatter_same(torch, what, kernel, plain, reset)
+            if ops.lane_counts()[name][lane] != before + 1:
+                fail(f"{what}: the launch was not counted on its lane")
+            timed = ""
+            if n == SEG and k >= lim["max_k"]:
+                ms, timer = device_ms(torch, kernel, reset, 20)
+                timed = f", ms={ms:.6f} ({timer})"
+            print(f"kernel {what}: ok vs plain{timed}", flush=True)
+
+
+def report_path_scatters(torch, kernels) -> None:
+    """The k of each scatter's path launches (min, median, max) and their
+    lanes; fails unless every one took the cluster lane; then times each
+    scatter at its median k (the first k updates of ``kernel_inputs``), in
+    both cases, into its row of ``kernels``."""
+    regs_np, _, idx_np, ivals_np, fvals_np = kernel_inputs(
+        np.random.RandomState(1234))
+    for name in SCATTERS:
+        ks = sorted(PATH_KS[name])
+        lanes = PATH_LANES[name]
+        if not ks:
+            fail(f"the path launched no {name}")
+        median = ks[(len(ks) - 1) // 2]
+        print(f"path {name}: {len(ks)} launches, k min {ks[0]}, median "
+              f"{median}, max {ks[-1]}; lanes {lanes}", flush=True)
+        if lanes.get("large", 0):
+            fail(f"{lanes['large']} path launches of {name} took the large "
+                 f"lane")
+        k = min(median, SCATTER_K)
+        t = time_scatter(torch, name, regs_np, idx_np, ivals_np, fvals_np, k)
+        row = next(r for r in kernels if r["name"] == name)
+        row["median_k"] = median
+        row.update({f"{key}_at_median_k": v for key, v in t.items()})
+    print("path scatters: every launch took the cluster lane", flush=True)
 
 
 # -- phase 2, kernel 11: flash attention --------------------------------------
@@ -732,6 +892,11 @@ def counted(torch, run, what: str, needs: tuple) -> tuple:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = ops.launch_counts()
+    for name, ks in ops.launch_ks().items():
+        PATH_KS[name] += ks
+    for name, lanes in ops.lane_counts().items():
+        for lane, c in lanes.items():
+            PATH_LANES[name][lane] = PATH_LANES[name].get(lane, 0) + c
     for name in needs:
         if counts[name] == 0:
             fail(f"{what} never launched {name}")
@@ -1482,6 +1647,9 @@ def main() -> int:
         for name, c in check(torch).items():
             counts[name] = counts.get(name, 0) + c
         phase_s[label] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report_path_scatters(torch, kernels)
+    phase_s["scatters at the path's k"] = time.perf_counter() - t0
     for k in kernels:
         k["launches"] = counts[k["name"]]
         print(f"kernel {k['name']}: ms={k['ms']:.6f} "

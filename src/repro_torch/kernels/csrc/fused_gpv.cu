@@ -14,7 +14,8 @@
 // Pallas kernel copies the whole segment to its output).
 //
 // repro_fused_scatter replaces fused_scatter_pallas: the same quantize, then
-// the ordered saturating scatter-add of scatter.cuh.
+// the ordered saturating scatter-add of scatter.cuh (one cluster launch with
+// its scratch in distributed shared memory at the path's segments).
 //
 // repro_fused_fold replaces fused_fold_pallas, the device lane of
 // local_accum: R fp32 rounds of n elements, each quantized and folded in
@@ -76,12 +77,18 @@ extern "C" int repro_fused_read(const int32_t* regs, int64_t start,
     return (int)cudaGetLastError();
 }
 
+// words and unsafe: the large lane's scratch, null on the cluster lane
 extern "C" int repro_fused_scatter(int32_t* regs, int64_t n_slots,
                                    const int32_t* idx, const float* fvals,
                                    int64_t k, float scale, inc_u64* words,
                                    uint8_t* unsafe, void* stream) {
     return (int)inc_scatter(regs, n_slots, idx, F32Vals{fvals, scale}, k,
                             words, unsafe, (cudaStream_t)stream);
+}
+
+// first use of the cluster lane on the current device: see inc_cluster_ready
+extern "C" int repro_fused_scatter_ready(int* n_clusters) {
+    return (int)inc_cluster_ready<F32Vals>(n_clusters);
 }
 
 extern "C" int repro_fused_fold(const float* fstack, int64_t rounds,

@@ -29,8 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.sparse_addto import (check_scatter_args,
-                                              scatter_scratch)
+from repro_torch.kernels.sparse_addto import (LANES, check_scatter_args,
+                                              launch_scatter)
 from repro_torch.obs import hooks as _obs
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
@@ -38,6 +38,7 @@ SIGNATURES = {
     "repro_fused_addto": (_P, _I, _P, _I, _F, _P),
     "repro_fused_read": (_P, _I, _I, _F, _P, _P, _P),
     "repro_fused_scatter": (_P, _I, _P, _P, _I, _F, _P, _P, _P),
+    "repro_fused_scatter_ready": (_P,),
     "repro_fused_fold": (_P, _I, _I, _F, _P),
 }
 
@@ -127,12 +128,10 @@ def fused_scatter(regs: torch.Tensor, idx: torch.Tensor,
     if k == 0:
         return regs
     t0 = time.perf_counter() if _obs.METRICS else 0.0
-    words, unsafe = scatter_scratch(regs, k)
-    with torch.cuda.device(regs.device):
-        _launch("repro_fused_scatter", regs.data_ptr(), regs.numel(),
-                idx.data_ptr(), fvals.data_ptr(), k, _f32(scale),
-                words.data_ptr(), unsafe.data_ptr())
-    fused_scatter.launches += 1
+    launch_scatter(fused_scatter, "fused_gpv", SIGNATURES,
+                   "repro_fused_scatter", "repro_fused_scatter_ready", regs,
+                   k, regs.data_ptr(), regs.numel(), idx.data_ptr(),
+                   fvals.data_ptr(), k, _f32(scale))
     if _obs.METRICS:
         _obs.kernel_launch("fused_scatter", k, t0)
     return regs
@@ -192,3 +191,5 @@ def fused_fold(fstack: torch.Tensor, scale) -> torch.Tensor:
 for _fn in (fused_addto, fused_scatter, fused_read, fused_fold):
     _fn.launches = 0        # kernel launches on the card
     _fn.plain_calls = 0     # CPU tensors sent to the plain version
+fused_scatter.lanes = dict.fromkeys(LANES, 0)   # launches per scatter lane
+fused_scatter.ks = []                           # k of each launch

@@ -51,6 +51,9 @@ KERNELS = {"fused_addto": fused_gpv.fused_addto,
            "flash_attention": _flash.flash_attention,
            "pack_int8": _pack.pack_int8,
            "unpack_int8": _pack.unpack_int8}
+# the two wrappers of the ordered scatter (csrc/scatter.cuh), which also
+# count their launches per lane and record each launch's k
+SCATTERS = ("sparse_addto", "fused_scatter")
 
 
 def launch_counts() -> dict[str, int]:
@@ -63,10 +66,23 @@ def plain_counts() -> dict[str, int]:
     return {k: fn.plain_calls for k, fn in KERNELS.items()}
 
 
+def lane_counts() -> dict[str, dict[str, int]]:
+    """Launches per lane of the two scatter kernels since the last reset."""
+    return {k: dict(KERNELS[k].lanes) for k in SCATTERS}
+
+
+def launch_ks() -> dict[str, list[int]]:
+    """The k (updates) of each scatter launch since the last reset."""
+    return {k: list(KERNELS[k].ks) for k in SCATTERS}
+
+
 def reset_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
         fn.plain_calls = 0
+    for k in SCATTERS:
+        KERNELS[k].lanes = dict.fromkeys(KERNELS[k].lanes, 0)
+        KERNELS[k].ks = []
 
 
 # -- numpy host kernels (the CPU switch's host segments) ----------------------

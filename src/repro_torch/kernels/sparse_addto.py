@@ -6,6 +6,13 @@ saturate exactly like the sequential oracle. On the card it is the
 hand-written kernel of ``csrc/sparse_addto.cu`` (replacing the TPU kernel
 ``repro/kernels/sparse_addto.py:sparse_addto_pallas``); a CPU tensor takes
 the plain version. The wrapper updates ``regs`` in place and returns it.
+
+The kernel has two lanes (``csrc/scatter.cuh``): a call within
+``cluster_limits()`` (every segment of the path) is one launch of
+thread-block clusters whose scratch stays in their shared memory; a
+larger one takes five launches over a scratch that the wrapper
+allocates.
+``launch_scatter`` serves ``fused_gpv.fused_scatter`` too.
 """
 from __future__ import annotations
 
@@ -16,7 +23,12 @@ import torch
 from repro_torch.kernels import build, ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
-SIGNATURES = {"repro_sparse_addto": (_P, _I, _P, _P, _I, _P, _P, _P)}
+SIGNATURES = {"repro_sparse_addto": (_P, _I, _P, _P, _I, _P, _P, _P),
+              "repro_scatter_limits": (_P,),
+              "repro_sparse_addto_ready": (_P,)}
+LANES = ("cluster", "large")
+_LIMITS: dict[str, int] = {}
+_READY: dict[tuple, int] = {}
 
 
 def check_scatter_args(regs: torch.Tensor, idx: torch.Tensor,
@@ -37,14 +49,74 @@ def check_scatter_args(regs: torch.Tensor, idx: torch.Tensor,
         raise ValueError("regs, idx and values must be contiguous")
 
 
+def cluster_limits() -> dict[str, int]:
+    """The scatter's lane limits, as ``csrc/scatter.cuh`` defines them: a
+    call with at most ``max_slots`` slots and ``max_k`` updates takes the
+    cluster lane (one launch of ``clusters`` clusters of ``ctas`` CTAs of
+    ``threads`` threads, at most ``smem_bytes`` of dynamic shared memory
+    each), a larger one the large lane. Read from the kernel library
+    (built first if needed)."""
+    if not _LIMITS:
+        out = (ctypes.c_int64 * 6)()
+        build.load("sparse_addto", SIGNATURES).repro_scatter_limits(out)
+        _LIMITS.update(zip(("max_slots", "max_k", "ctas", "clusters",
+                            "threads", "smem_bytes"), (int(x) for x in out)))
+    return _LIMITS
+
+
+def scatter_lane(n_slots: int, k: int) -> str:
+    """The lane a scatter of ``k`` updates into ``n_slots`` slots takes."""
+    lim = cluster_limits()
+    return ("cluster" if n_slots <= lim["max_slots"] and k <= lim["max_k"]
+            else "large")
+
+
+def cluster_ready(lib: str, signatures: dict, fn: str,
+                  device: torch.device) -> int:
+    """First use of library ``lib``'s cluster lane on ``device``: lifts the
+    kernel's shared memory limit and returns how many of its clusters can
+    be resident (``cudaOccupancyMaxActiveClusters``); raises if the call
+    fails or none can."""
+    key = (lib, device.index)
+    if key not in _READY:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = getattr(build.load(lib, signatures), fn)(ctypes.byref(n))
+        if err or n.value < 1:
+            raise RuntimeError(f"{fn}: no cluster of the scatter kernel can "
+                               f"be resident on {device} (CUDA error {err}, "
+                               f"{n.value} clusters)")
+        _READY[key] = n.value
+    return _READY[key]
+
+
 def scatter_scratch(regs: torch.Tensor, k: int):
-    """Scratch of one scatter launch: 2 * n_slots + 1 int64 words (per-slot
-    mass and sum, and the unsafe count; the kernel zeroes them) and k flag
-    bytes."""
+    """Scratch of one launch on the large lane: 2 * n_slots + 1 int64 words
+    (per-slot mass and sum, and the unsafe count; the kernel zeroes them)
+    and k flag bytes. The cluster lane keeps its scratch on chip."""
     words = torch.empty(2 * regs.numel() + 1, dtype=torch.int64,
                         device=regs.device)
     unsafe = torch.empty(k, dtype=torch.uint8, device=regs.device)
     return words, unsafe
+
+
+def launch_scatter(wrapper, lib: str, signatures: dict, fn: str,
+                   ready_fn: str, regs: torch.Tensor, k: int, *args) -> None:
+    """Launch the scatter kernel ``fn`` of ``lib`` (its arguments ``args``
+    up to the scratch pointers) on the lane its size takes, and count it on
+    ``wrapper``: ``launches``, ``lanes`` and the ``ks`` of its launches."""
+    lane = scatter_lane(regs.numel(), k)
+    with torch.cuda.device(regs.device):
+        if lane == "cluster":
+            cluster_ready(lib, signatures, ready_fn, regs.device)
+            build.launch(lib, signatures, fn, *args, None, None)
+        else:
+            words, unsafe = scatter_scratch(regs, k)
+            build.launch(lib, signatures, fn, *args, words.data_ptr(),
+                         unsafe.data_ptr())
+    wrapper.launches += 1
+    wrapper.lanes[lane] += 1
+    wrapper.ks.append(k)
 
 
 def sparse_addto_plain(regs: torch.Tensor, idx: torch.Tensor,
@@ -65,14 +137,14 @@ def sparse_addto(regs: torch.Tensor, idx: torch.Tensor,
     k = idx.numel()
     if k == 0:
         return regs
-    words, unsafe = scatter_scratch(regs, k)
-    with torch.cuda.device(regs.device):
-        build.launch("sparse_addto", SIGNATURES, "repro_sparse_addto",
-                     regs.data_ptr(), regs.numel(), idx.data_ptr(),
-                     val.data_ptr(), k, words.data_ptr(), unsafe.data_ptr())
-    sparse_addto.launches += 1
+    launch_scatter(sparse_addto, "sparse_addto", SIGNATURES,
+                   "repro_sparse_addto", "repro_sparse_addto_ready", regs, k,
+                   regs.data_ptr(), regs.numel(), idx.data_ptr(),
+                   val.data_ptr(), k)
     return regs
 
 
 sparse_addto.launches = 0       # kernel launches on the card
+sparse_addto.lanes = dict.fromkeys(LANES, 0)    # launches per lane
+sparse_addto.ks = []            # k of each launch
 sparse_addto.plain_calls = 0    # CPU tensors sent to the plain version

@@ -421,30 +421,87 @@ def test_cuda_fused_addto_and_read_match_plain(cuda, seed):
         assert torch.equal(gm, wm)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("seed", range(3))
-def test_cuda_scatters_match_plain(cuda, seed):
+# the edges of the scatter's two lanes (csrc/scatter.cuh): a case names its
+# slot count and k relative to the cluster lane's limits, which the kernel
+# library holds, so they are resolved inside the test, on the card
+CUDA_SCATTER_CASES = ("seed0", "seed1", "seed2", "slots_not_divisible",
+                      "slots_262144", "slots_at_limit", "slots_past_limit",
+                      "slots_twice_limit",
+                      "k_at_limit", "k_past_limit", "k1", "one_slot_safe",
+                      "one_slot_saturating", "int32_min_and_sticky",
+                      "sentinel_registers", "out_of_range")
+
+
+def _scatter_case(name, limits):
+    """(regs, idx, int values, fp32 values, scale) of a CUDA scatter case.
+    The fp32 stream of a case with exact int values is those values at
+    scale 1 (each a power of two or small enough to be exact in fp32)."""
+    seed = int(name[4:]) if name.startswith("seed") else 7
     rng = np.random.RandomState(seed)
-    regs = _regs(rng, 40_000)
-    k = 65_536
-    idx = rng.randint(0, 40_000, k).astype(np.int32)
-    idx[:4096] = rng.randint(0, 64, 4096)            # hot duplicates
+    n, k = 40_000, 65_536
+    n = {"slots_not_divisible": 40_003, "slots_at_limit": limits["max_slots"],
+         "slots_past_limit": limits["max_slots"] + 1,
+         "slots_twice_limit": 2 * limits["max_slots"],
+         "slots_262144": 262_144, "one_slot_safe": 64,
+         "one_slot_saturating": 64}.get(name, n)
+    k = {"k_at_limit": limits["max_k"], "k_past_limit": limits["max_k"] + 1,
+         "k1": 1}.get(name, k)
+    regs = _regs(rng, n)
+    idx = rng.randint(0, n, k).astype(np.int32)
+    idx[:k // 16] = rng.randint(0, 64, k // 16)            # hot duplicates
     val = rng.randint(-10 ** 5, 10 ** 5, k).astype(np.int32)
-    val[rng.choice(k, 600, replace=False)] = SAT_MAX // 3   # saturates
-    f = _fvals(rng, k, 100)
-    got = tsparse.sparse_addto(_t(regs).to(cuda), _t(idx).to(cuda),
-                               _t(val).to(cuda))
-    want = tsparse.sparse_addto_plain(_t(regs).to(cuda), _t(idx).to(cuda),
-                                      _t(val).to(cuda))
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    got = fused_gpv.fused_scatter(_t(regs).to(cuda), _t(idx).to(cuda),
-                                  _t(f).to(cuda), 100)
-    want = fused_gpv.fused_scatter_plain(_t(regs).to(cuda),
-                                         _t(idx).to(cuda), _t(f).to(cuda),
-                                         100)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    val[rng.choice(k, min(k, 600), replace=False)] = SAT_MAX // 3
+    if name.startswith("seed"):
+        return regs, idx, val, _fvals(rng, k, 100), 100
+    if name.startswith("one_slot"):
+        idx[:] = 5
+        regs[5] = 0
+        val = rng.randint(-10, 11, k).astype(np.int32)
+        if name == "one_slot_saturating":
+            val[::4096] = 2 ** 29
+    elif name == "int32_min_and_sticky":
+        # slot 0 ends on -2**31 (kept), slots 1-3 on a sentinel, and slot 1
+        # keeps it through a later update; no other update touches them
+        regs[:4] = [-2 ** 30, 2 ** 30 - 1, -(2 ** 30 - 1), 2 ** 30 - 1]
+        val[:] = rng.randint(-8, 9, k)
+        idx[idx < 4] += 4
+        idx[:6] = [0, 1, 2, 3, 3, 1]
+        val[:6] = [-2 ** 30, 2 ** 30, -2 ** 30, 2 ** 29, 2 ** 29, -5]
+    elif name == "sentinel_registers":
+        regs[:64:2] = INT32_MAX
+        regs[1:64:2] = INT32_MIN
+        val[:] = rng.randint(-10 ** 5, 10 ** 5, k)
+    elif name == "out_of_range":
+        bad = rng.choice(k, 1000, replace=False)
+        idx[bad] = rng.choice([-1, -2 ** 31, n, n + 5, 2 ** 31 - 1], 1000)
+    return regs, idx, val, val.astype(np.float32), 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CUDA_SCATTER_CASES)
+def test_cuda_scatters_match_plain(cuda, case):
+    """Both scatter kernels bitwise against their plain versions at the
+    edges of the cluster lane and on the large lane; each launch counted
+    on the lane its size takes. Out-of-range slots are skipped, so the
+    plain version sees the stream without them."""
+    regs, idx, val, f, scale = _scatter_case(case, tsparse.cluster_limits())
+    keep = (idx >= 0) & (idx < len(regs))
+    lane = tsparse.scatter_lane(len(regs), len(idx))
+    assert (lane == "large") == case.endswith(("past_limit", "twice_limit"))
+    for name, kernel, plain, v in (
+            ("sparse_addto", tsparse.sparse_addto,
+             tsparse.sparse_addto_plain, val),
+            ("fused_scatter",
+             lambda r, i, x: fused_gpv.fused_scatter(r, i, x, scale),
+             lambda r, i, x: fused_gpv.fused_scatter_plain(r, i, x, scale),
+             f)):
+        before = dict(ops.KERNELS[name].lanes)
+        got = kernel(_t(regs).to(cuda), _t(idx).to(cuda), _t(v).to(cuda))
+        want = plain(_t(regs).to(cuda), _t(idx[keep]).to(cuda),
+                     _t(v[keep]).to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+        assert ops.KERNELS[name].lanes[lane] == before[lane] + 1
 
 
 @pytest.mark.cuda
