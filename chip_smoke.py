@@ -528,9 +528,7 @@ def check_scatter_lanes(torch) -> None:
     size takes; the two sides of the k limit are timed."""
     from repro_torch.kernels import ops, sparse_addto
     lim = sparse_addto.cluster_limits()
-    resident = sparse_addto.cluster_ready(
-        "sparse_addto", sparse_addto.SIGNATURES, "repro_sparse_addto_ready",
-        torch.device("cuda"))
+    resident = sparse_addto.resident_clusters(torch.device("cuda"))
     print(f"scatter lanes: the cluster lane takes n_slots <= "
           f"INC_CLUSTER_MAX_SLOTS = {lim['max_slots']} and k <= "
           f"INC_CLUSTER_MAX_K = {lim['max_k']}: one launch of "

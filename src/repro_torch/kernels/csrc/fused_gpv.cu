@@ -86,11 +86,6 @@ extern "C" int repro_fused_scatter(int32_t* regs, int64_t n_slots,
                             words, unsafe, (cudaStream_t)stream);
 }
 
-// first use of the cluster lane on the current device: see inc_cluster_ready
-extern "C" int repro_fused_scatter_ready(int* n_clusters) {
-    return (int)inc_cluster_ready<F32Vals>(n_clusters);
-}
-
 extern "C" int repro_fused_fold(const float* fstack, int64_t rounds,
                                 int64_t n, float scale, int32_t* out,
                                 void* stream) {

@@ -271,17 +271,6 @@ __device__ __forceinline__ int inc_owned_blocks(int o, int64_t n_slots) {
     return o < nb ? (int)((nb - 1 - o) / INC_CTAS + 1) : 0;
 }
 
-// A cluster barrier in two halves, so that independent work can run
-// between them: arrive releases this thread's earlier writes to the
-// cluster, wait acquires every thread's.
-__device__ __forceinline__ void inc_cluster_arrive() {
-    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void inc_cluster_wait() {
-    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
 template <class V>
 __global__ void __launch_bounds__(INC_CLUSTER_THREADS, 1)
 inc_k_scatter_cluster(int32_t* regs, int64_t n_slots, const int32_t* idx,
@@ -307,9 +296,8 @@ inc_k_scatter_cluster(int32_t* regs, int64_t n_slots, const int32_t* idx,
     for (int i = tid; i < P; i += INC_CLUSTER_THREADS)
         words[i] = make_uint4(0, 0, 0, 0);
     if (tid == 0) any_unsafe = 0;
-    inc_cluster_arrive();       // this CTA's words are zero
 
-    // pass 1's first loads go out while the barrier completes
+    // pass 1's first loads go out before the barrier
     int32_t j[INC_CLUSTER_ITEMS], q[INC_CLUSTER_ITEMS];
     const int64_t unit0 = rank * INC_CLUSTER_WARPS + warp;
     const int64_t stride = (int64_t)INC_CLUSTER * INC_CLUSTER_WARPS;
@@ -325,7 +313,7 @@ inc_k_scatter_cluster(int32_t* regs, int64_t n_slots, const int32_t* idx,
         }
     };
     load();
-    inc_cluster_wait();         // every CTA runs and its words are zero
+    cluster.sync();             // every CTA runs and its words are zero
 
     // pass 1: mass and sum of this cluster's slots, into their owners'
     // shared memory; the lanes of a warp on one slot are summed first
@@ -364,19 +352,23 @@ inc_k_scatter_cluster(int32_t* regs, int64_t n_slots, const int32_t* idx,
     cluster.sync();             // every atomic has landed
 
     // pass 2: the owner settles its slots, warp w its blocks w, w + W, ...,
-    // a lane a slot: a safe slot's new register goes to sum[], a flagged
-    // one is marked (mass = INC_UNSAFE, sum = the register); the barrier
-    // that publishes the flags then overlaps the register stores
+    // a lane a slot: a safe slot's register is written, a flagged one is
+    // marked (mass = INC_UNSAFE, sum = the register, a bit in ubits)
     bool flagged = false;
     for (int t = warp; t < nbo; t += INC_CLUSTER_WARPS) {
         const int l = t * 32 + lane;
+        const int64_t jg = ((int64_t)t * INC_CTAS + o) * 32 + lane;
         const inc_u64 m = mass[l];
         bool unsafe = false;
         if (m != 0) {
-            const long long r = regs[((int64_t)t * INC_CTAS + o) * 32 + lane];
+            const long long r = regs[jg];
             unsafe = (inc_u64)(r < 0 ? -r : r) + m > (inc_u64)INC_SAT_MAX;
-            if (unsafe) mass[l] = INC_UNSAFE;
-            sum[l] = (inc_u64)(unsafe ? r : r + (long long)sum[l]);
+            if (unsafe) {
+                mass[l] = INC_UNSAFE;
+                sum[l] = (inc_u64)r;
+            } else {
+                regs[jg] = (int32_t)(r + (long long)sum[l]);
+            }
         }
         const unsigned bits = __ballot_sync(all, unsafe);
         if (lane == 0) ubits[t] = bits;
@@ -385,15 +377,7 @@ inc_k_scatter_cluster(int32_t* regs, int64_t n_slots, const int32_t* idx,
     if (flagged && lane == 0)   // tell every CTA of the cluster: pass 3 runs
         for (int s = 0; s < INC_CLUSTER; ++s)
             atomicOr(cluster.map_shared_rank(&any_unsafe, s), 1u);
-    inc_cluster_arrive();       // flags final
-    for (int t = warp; t < nbo; t += INC_CLUSTER_WARPS) {
-        const int l = t * 32 + lane;
-        const inc_u64 m = mass[l];
-        if (m != 0 && m != INC_UNSAFE)
-            regs[((int64_t)t * INC_CTAS + o) * 32 + lane] =
-                (int32_t)(long long)sum[l];
-    }
-    inc_cluster_wait();         // any_unsafe alike in the cluster
+    cluster.sync();             // flags final; any_unsafe alike in the cluster
     if (any_unsafe == 0) return;    // no CTA reads a peer past this point
 
     // pass 3a: the cluster's flag words, then the flagged updates of this

@@ -22,6 +22,7 @@ and ``fused_scatter`` update ``regs`` IN PLACE and return it.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import time
 
@@ -29,7 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.sparse_addto import (LANES, check_scatter_args,
+from repro_torch.kernels.sparse_addto import (KS_KEPT, LANES,
+                                              check_scatter_args,
                                               launch_scatter)
 from repro_torch.obs import hooks as _obs
 
@@ -38,7 +40,6 @@ SIGNATURES = {
     "repro_fused_addto": (_P, _I, _P, _I, _F, _P),
     "repro_fused_read": (_P, _I, _I, _F, _P, _P, _P),
     "repro_fused_scatter": (_P, _I, _P, _P, _I, _F, _P, _P, _P),
-    "repro_fused_scatter_ready": (_P,),
     "repro_fused_fold": (_P, _I, _I, _F, _P),
 }
 
@@ -129,9 +130,9 @@ def fused_scatter(regs: torch.Tensor, idx: torch.Tensor,
         return regs
     t0 = time.perf_counter() if _obs.METRICS else 0.0
     launch_scatter(fused_scatter, "fused_gpv", SIGNATURES,
-                   "repro_fused_scatter", "repro_fused_scatter_ready", regs,
-                   k, regs.data_ptr(), regs.numel(), idx.data_ptr(),
-                   fvals.data_ptr(), k, _f32(scale))
+                   "repro_fused_scatter", regs, k, regs.data_ptr(),
+                   regs.numel(), idx.data_ptr(), fvals.data_ptr(), k,
+                   _f32(scale))
     if _obs.METRICS:
         _obs.kernel_launch("fused_scatter", k, t0)
     return regs
@@ -192,4 +193,4 @@ for _fn in (fused_addto, fused_scatter, fused_read, fused_fold):
     _fn.launches = 0        # kernel launches on the card
     _fn.plain_calls = 0     # CPU tensors sent to the plain version
 fused_scatter.lanes = dict.fromkeys(LANES, 0)   # launches per scatter lane
-fused_scatter.ks = []                           # k of each launch
+fused_scatter.ks = collections.deque(maxlen=KS_KEPT)  # k of each launch

@@ -72,7 +72,8 @@ def lane_counts() -> dict[str, dict[str, int]]:
 
 
 def launch_ks() -> dict[str, list[int]]:
-    """The k (updates) of each scatter launch since the last reset."""
+    """The k (updates) of each scatter launch since the last reset (the
+    latest ``sparse_addto.KS_KEPT`` of them)."""
     return {k: list(KERNELS[k].ks) for k in SCATTERS}
 
 
@@ -82,7 +83,7 @@ def reset_counts() -> None:
         fn.plain_calls = 0
     for k in SCATTERS:
         KERNELS[k].lanes = dict.fromkeys(KERNELS[k].lanes, 0)
-        KERNELS[k].ks = []
+        KERNELS[k].ks.clear()
 
 
 # -- numpy host kernels (the CPU switch's host segments) ----------------------

@@ -11,11 +11,11 @@ The kernel has two lanes (``csrc/scatter.cuh``): a call within
 ``cluster_limits()`` (every segment of the path) is one launch of
 thread-block clusters whose scratch stays in their shared memory; a
 larger one takes five launches over a scratch that the wrapper
-allocates.
-``launch_scatter`` serves ``fused_gpv.fused_scatter`` too.
+allocates. ``launch_scatter`` serves ``fused_gpv.fused_scatter`` too.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -27,8 +27,8 @@ SIGNATURES = {"repro_sparse_addto": (_P, _I, _P, _P, _I, _P, _P, _P),
               "repro_scatter_limits": (_P,),
               "repro_sparse_addto_ready": (_P,)}
 LANES = ("cluster", "large")
+KS_KEPT = 1 << 16       # the k of this many latest launches is kept
 _LIMITS: dict[str, int] = {}
-_READY: dict[tuple, int] = {}
 
 
 def check_scatter_args(regs: torch.Tensor, idx: torch.Tensor,
@@ -71,23 +71,20 @@ def scatter_lane(n_slots: int, k: int) -> str:
             else "large")
 
 
-def cluster_ready(lib: str, signatures: dict, fn: str,
-                  device: torch.device) -> int:
-    """First use of library ``lib``'s cluster lane on ``device``: lifts the
-    kernel's shared memory limit and returns how many of its clusters can
-    be resident (``cudaOccupancyMaxActiveClusters``); raises if the call
-    fails or none can."""
-    key = (lib, device.index)
-    if key not in _READY:
-        n = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            err = getattr(build.load(lib, signatures), fn)(ctypes.byref(n))
-        if err or n.value < 1:
-            raise RuntimeError(f"{fn}: no cluster of the scatter kernel can "
-                               f"be resident on {device} (CUDA error {err}, "
-                               f"{n.value} clusters)")
-        _READY[key] = n.value
-    return _READY[key]
+def resident_clusters(device: torch.device) -> int:
+    """How many clusters of the scatter kernel ``device`` holds at once
+    (``cudaOccupancyMaxActiveClusters`` at its largest launch, the check
+    the kernel's first launch makes); raises if the query fails or none
+    can be resident."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = build.load("sparse_addto", SIGNATURES).repro_sparse_addto_ready(
+            ctypes.byref(n))
+    if err or n.value < 1:
+        raise RuntimeError(f"no cluster of the scatter kernel can be "
+                           f"resident on {device} (CUDA error {err}, "
+                           f"{n.value} clusters)")
+    return n.value
 
 
 def scatter_scratch(regs: torch.Tensor, k: int):
@@ -101,14 +98,15 @@ def scatter_scratch(regs: torch.Tensor, k: int):
 
 
 def launch_scatter(wrapper, lib: str, signatures: dict, fn: str,
-                   ready_fn: str, regs: torch.Tensor, k: int, *args) -> None:
+                   regs: torch.Tensor, k: int, *args) -> None:
     """Launch the scatter kernel ``fn`` of ``lib`` (its arguments ``args``
     up to the scratch pointers) on the lane its size takes, and count it on
-    ``wrapper``: ``launches``, ``lanes`` and the ``ks`` of its launches."""
+    ``wrapper``: ``launches``, ``lanes`` and the ``ks`` of its launches.
+    The kernel's first cluster launch on a device checks that a cluster
+    can be resident and fails the launch (which raises) if not."""
     lane = scatter_lane(regs.numel(), k)
     with torch.cuda.device(regs.device):
         if lane == "cluster":
-            cluster_ready(lib, signatures, ready_fn, regs.device)
             build.launch(lib, signatures, fn, *args, None, None)
         else:
             words, unsafe = scatter_scratch(regs, k)
@@ -138,13 +136,12 @@ def sparse_addto(regs: torch.Tensor, idx: torch.Tensor,
     if k == 0:
         return regs
     launch_scatter(sparse_addto, "sparse_addto", SIGNATURES,
-                   "repro_sparse_addto", "repro_sparse_addto_ready", regs, k,
-                   regs.data_ptr(), regs.numel(), idx.data_ptr(),
-                   val.data_ptr(), k)
+                   "repro_sparse_addto", regs, k, regs.data_ptr(),
+                   regs.numel(), idx.data_ptr(), val.data_ptr(), k)
     return regs
 
 
 sparse_addto.launches = 0       # kernel launches on the card
 sparse_addto.lanes = dict.fromkeys(LANES, 0)    # launches per lane
-sparse_addto.ks = []            # k of each launch
+sparse_addto.ks = collections.deque(maxlen=KS_KEPT)   # k of each launch
 sparse_addto.plain_calls = 0    # CPU tensors sent to the plain version
