@@ -24,12 +24,21 @@
    takes; one slot past it; the largest k it takes and one past), each
    launch counted on the lane its size takes. Prints the limits, the
    resident clusters, and ``index_add_`` of the same int32 stream as a
-   yardstick of an unsaturated scatter (not the same function).
+   yardstick of an unsaturated scatter (not the same function). Kernel 1
+   over several runs (the multi-segment transmit) is held bitwise against
+   its plain version at phase b's shape (7 runs, 262 144 values), at
+   unaligned starts and past one launch's run table, each in one launch
+   per table; at phase b's shape it is timed beside the same work as 7
+   single-run launches (CUPTI, and per call with the stream's host copies,
+   CUDA events). Kernel 6b is held at B = 2, 3, 16, 17 x n = 40 000 and
+   40 001 with a sentinel mid-fold, and timed on phase h's updates.
 3. Path, phases a-e: the typed INC RPC round trip through ``IncRuntime()``
    on the default device, at the paper's switch geometry (32 x 40 000
    int32), two workers over four rounds of five services; replies checked
    against a numpy fixed-point oracle, and replies and register state
-   held bitwise against the same run with ``device="cpu"``.
+   held bitwise against the same run with ``device="cpu"``. Phase b (7
+   segments) must launch fused_addto once a transmit, as phase a (one
+   segment) does.
 4. Path, phase f: ``Agg[FPArray](device=True, local_accum=8)`` on a
    262 144-slot partition, two workers of 16 calls each, through the fused
    fold; replies and register state bitwise equal to the CPU run.
@@ -94,8 +103,9 @@ scatters also record the lane and the k of each launch: every path launch
 must take the cluster lane. After the path, both are timed again at the
 median k of their path launches, in both cases.
 
-Prints the card's name and power limit, one JSON line of kernel results,
-and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
+Prints the card's name and power limit beside the kernel times and
+before the last line, one JSON line of kernel results, and last
+``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, at the first failure or when no CUDA device is present.
 """
 import copy
@@ -327,7 +337,7 @@ def stream_cases(torch, dev, rng) -> dict:
     }
 
 
-def check_kernels(torch) -> list[dict]:
+def check_kernels(torch, smi: str) -> list[dict]:
     from repro_torch.kernels import fused_gpv, sparse_addto
     dev = torch.device("cuda")
     rng = np.random.RandomState(1234)
@@ -391,7 +401,7 @@ def check_kernels(torch) -> list[dict]:
         plain_ms = event_ms(torch, plain, reset_fn, 5)
         nbytes = nbytes if nbytes is not None else scatter_bytes
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        print(f"kernel {name}: ok vs plain, ms={ms:.6f} ({timer}) "
+        print(f"kernel {name} on {smi}: ok vs plain, ms={ms:.6f} ({timer}) "
               f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f}", flush=True)
         out.append({"name": name, "route": "cuda", "source": SOURCE[name],
                     "replaces": REPLACES[name], "launches": 0,
@@ -406,6 +416,9 @@ def check_kernels(torch) -> list[dict]:
                        common_event_ms=t["common_event_ms"])
     scatter_yardstick(torch, *common_inputs(*inputs))
     check_scatter_lanes(torch)
+    rows = {row["name"]: row for row in out}
+    rows["fused_addto"].update(check_addto_runs(torch, smi))
+    rows["sat_add_batch"].update(check_sat_add_batch(torch, smi))
     return out
 
 
@@ -555,6 +568,144 @@ def check_scatter_lanes(torch) -> None:
                 ms, timer = device_ms(torch, kernel, reset, 20)
                 timed = f", ms={ms:.6f} ({timer})"
             print(f"kernel {what}: ok vs plain{timed}", flush=True)
+
+
+# -- phase 2, kernels 1 and 6b: one launch a transmit, the batched fold -----
+
+# (first slot, slots) of each run of a multi-segment transmit: phase b's
+# (262 144 values over 7 segments), unaligned starts and lengths, and more
+# runs than one launch table holds
+RUN_CHECKS = (("phase_b", ((0, SEG),) * 6 + ((0, 262_144 - 6 * SEG),)),
+              ("unaligned_starts", ((17, 39_983), (3, 20_000), (1, 1),
+                                    (39_999, 1), (5, 30_027), (12_345, 27_655),
+                                    (7, 39_993))),
+              ("past_run_table", tuple((r % 7, 997) for r in range(41))))
+# (rows, n) of the batched fold: the clear policies' n and one more, row
+# counts on both sides of the kernel's batch of 16 loads
+BATCH_CHECKS = tuple((b, n) for b in (2, 3, 16, 17) for n in (SEG, SEG + 1))
+
+
+def runs_inputs(torch, layout, seed):
+    """(registers a run on the card, the fp32 stream the runs read in
+    order as numpy, (run, start, foff, n) a run): gradient-sized values,
+    sentinel registers and values that saturate at precision 8."""
+    rng = np.random.RandomState(seed)
+    regs = rng.randint(-10 ** 7, 10 ** 7, (len(layout), SEG)).astype(np.int32)
+    regs[0, :8] = [2 ** 31 - 1, -(2 ** 31 - 1), 2 ** 31 - 2, -(2 ** 31 - 2),
+                   -2 ** 31, 0, 2 ** 30, -2 ** 30]
+    n = sum(k for _, k in layout)
+    f = (rng.randn(n) * 0.05).astype(np.float32)
+    f[rng.choice(n, 8, replace=False)] = [2.0 ** 31 / 1e8, -2.0 ** 31 / 1e8,
+                                          0.5e-8, 1.5e-8, 12.0, -12.0, 30.0,
+                                          -30.0]
+    offs = np.cumsum((0,) + tuple(k for _, k in layout[:-1]))
+    regs0 = [torch.from_numpy(r).to("cuda") for r in regs]
+    return regs0, f, [(i, a, int(o), k)
+                      for i, ((a, k), o) in enumerate(zip(layout, offs))]
+
+
+def check_addto_runs(torch, smi: str) -> dict:
+    """Kernel 1 over several runs (``ops.device_addto_dense_runs``, the
+    multi-segment transmit) bitwise against the plain version, in one
+    launch per run table; at phase b's shape timed against the same work
+    as one ``fused_addto`` launch a run (CUPTI, and per call with the host
+    stream's copies, CUDA events), beside the single-run call."""
+    from repro_torch.kernels import fused_gpv, ops
+    scale = 10 ** PRECISION
+    out = {}
+    for seed, (name, layout) in enumerate(RUN_CHECKS):
+        regs0, f, spec = runs_inputs(torch, layout, 200 + seed)
+        regs = [r.clone() for r in regs0]
+        fd = torch.from_numpy(f).to("cuda")
+        runs = [(regs[i], a, o, n) for i, a, o, n in spec]
+
+        def reset():
+            for r, r0 in zip(regs, regs0):
+                r.copy_(r0)
+
+        reset()
+        ops.reset_counts()
+        ops.device_addto_dense_runs(runs, f, scale)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()["fused_addto"]
+        got = [r.clone() for r in regs]
+        reset()
+        fused_gpv.fused_addto_runs_plain(runs, fd, scale)
+        torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(got, regs)):
+            if not torch.equal(g, w):
+                fail(f"fused_addto runs {name}: run {i}: "
+                     f"{int((g != w).sum())} registers differ from the plain "
+                     f"version")
+        tables = -(-len(layout) // fused_gpv.MAX_RUNS)
+        if launches != tables:
+            fail(f"fused_addto runs {name}: {launches} launches for "
+                 f"{len(layout)} runs, not {tables}")
+        print(f"kernel fused_addto runs {name} ({len(layout)} runs, "
+              f"{len(f)} values): ok vs plain in {launches} launches",
+              flush=True)
+        if name != "phase_b":
+            continue
+        ms, timer = device_ms(
+            torch, lambda: fused_gpv.fused_addto_runs(runs, fd, scale),
+            reset, 50)
+        singles_ms, _ = device_ms(
+            torch, lambda: [fused_gpv.fused_addto(r, a, fd[o:o + n], scale)
+                            for r, a, o, n in runs], reset, 50)
+        ev = event_ms(torch, lambda: ops.device_addto_dense_runs(
+            runs, f, scale), reset, 20)
+        singles_ev = event_ms(torch, lambda: [
+            ops.device_addto_dense(r, a, f[o:o + n], scale)
+            for r, a, o, n in runs], reset, 20)
+        single_ev = event_ms(torch, lambda: ops.device_addto_dense(
+            regs[0], 0, f[:SEG], scale), reset, 20)
+        plain_ms = event_ms(torch, lambda: fused_gpv.fused_addto_runs_plain(
+            runs, fd, scale), reset, 5)
+        bound_ms = 12 * len(f) / HBM_BYTES_PER_S * 1e3
+        print(f"kernel fused_addto runs phase_b on {smi}: ms={ms:.6f} "
+              f"({timer}) in one launch, {singles_ms:.6f} as {len(runs)} "
+              f"fused_addto launches; event_ms={ev:.6f} a call with one copy "
+              f"of the stream ({singles_ev:.6f} as {len(runs)} calls and "
+              f"copies; one run of {SEG}: {single_ev:.6f}); "
+              f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f}", flush=True)
+        out.update(phase_b_ms=ms, phase_b_as_single_launches_ms=singles_ms,
+                   phase_b_event_ms=ev,
+                   phase_b_as_single_launches_event_ms=singles_ev,
+                   single_run_event_ms=single_ev, phase_b_plain_ms=plain_ms,
+                   phase_b_bound_ms=bound_ms)
+    return out
+
+
+def check_sat_add_batch(torch, smi: str) -> dict:
+    """Kernel 6b at BATCH_CHECKS bitwise against the plain version, with
+    saturating lanes and both sentinels mid-fold; timed on phase h's
+    updates (CUPTI)."""
+    from repro_torch.kernels import inc_agg
+    for i, (b, n) in enumerate(BATCH_CHECKS):
+        rng = np.random.RandomState(300 + i)
+        qs = int_stream(rng, (b, n))
+        qs[:, :64] = 2 ** 29                     # saturates at the 4th row
+        qs[b // 2, 64:72] = [2 ** 31 - 1, -(2 ** 31 - 1)] * 4
+        acc = torch.from_numpy(int_stream(rng, n)).to("cuda")
+        qs = torch.from_numpy(qs).to("cuda")
+        got = inc_agg.sat_add_batch(acc, qs)
+        want = inc_agg.sat_add_batch_plain(acc, qs)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"sat_add_batch B={b} n={n}: {int((got != want).sum())} "
+                 f"lanes differ from the plain version")
+        print(f"kernel sat_add_batch B={b} n={n}: ok vs plain", flush=True)
+    rng = np.random.RandomState(8)                # drive_clear_policies'
+    qs = rng.randint(-10 ** 6, 10 ** 6, (BATCH_ROWS, SEG)).astype(np.int32)
+    qs[:, :64] = 2 ** 29
+    qs[5, 64:72] = [2 ** 31 - 1, -(2 ** 31 - 1)] * 4
+    qs = torch.from_numpy(qs).to("cuda")
+    acc = torch.zeros(SEG, dtype=torch.int32, device="cuda")
+    ms, timer = device_ms(torch, lambda: inc_agg.sat_add_batch(acc, qs),
+                          lambda: None, 50)
+    print(f"kernel sat_add_batch B={BATCH_ROWS} n={SEG} on phase h's "
+          f"updates on {smi}: ms={ms:.6f} ({timer})", flush=True)
+    return {"phase_h_inputs_ms": ms}
 
 
 def report_path_scatters(torch, kernels) -> None:
@@ -909,6 +1060,16 @@ def check_path(torch) -> dict:
         print(f"path {label}: {secs[label]:.3f} s for {ROUNDS} rounds of "
               f"{WORKERS} calls, launches {c}", flush=True)
     print(f"path on the card: {card_s:.3f} s, launches {counts}", flush=True)
+    # phases a and b make the same transmits (2 workers, ROUNDS rounds), a
+    # into one segment and b over 7: one fused_addto launch a transmit
+    a = per_phase["a_dense_one_segment"]["fused_addto"]
+    b = per_phase["b_dense_seven_segments"]["fused_addto"]
+    if a == 0 or b != a:
+        fail(f"phase b launched fused_addto {b} times for the {a} transmits "
+             f"of phase a: not once a transmit")
+    print(f"path: fused_addto launched {counts['fused_addto']} times in "
+          f"phases a-e, once a transmit ({a} in a, {b} in b over 7 "
+          f"segments)", flush=True)
     t0 = time.perf_counter()
     ref_replies, ref_state, _, _ = drive_path("cpu")
     print(f"path on the CPU (reference): {time.perf_counter() - t0:.3f} s",
@@ -1633,7 +1794,8 @@ def main() -> int:
     phase_s = {"build": time.perf_counter() - t0}
     sass_counts(build)
     t0 = time.perf_counter()
-    kernels = check_kernels(torch) + [check_flash(torch)] + check_int8(torch)
+    kernels = (check_kernels(torch, smi) + [check_flash(torch)]
+               + check_int8(torch))
     phase_s["kernels"] = time.perf_counter() - t0
     counts = {}
     for label, check in (("a-e", check_path), ("f", check_local_accum),
@@ -1650,7 +1812,7 @@ def main() -> int:
     phase_s["scatters at the path's k"] = time.perf_counter() - t0
     for k in kernels:
         k["launches"] = counts[k["name"]]
-        print(f"kernel {k['name']}: ms={k['ms']:.6f} "
+        print(f"kernel {k['name']} on {smi}: ms={k['ms']:.6f} "
               f"plain_ms={k['plain_ms']:.6f} bound_ms={k['bound_ms']:.6f} "
               f"launches={k['launches']}", flush=True)
     print("phase seconds: " + ", ".join(f"{k} {v:.3f}"

@@ -32,6 +32,7 @@ lookup per element.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import zlib
 from collections import Counter
@@ -380,12 +381,21 @@ class SwitchMemory:
 
     @staticmethod
     def _seg_groups(seg_ix: np.ndarray):
-        """(segment, selector) pairs for a batch — a range scan between the
-        min and max touched segment instead of an O(n log n) np.unique
-        sort; a partition spans a handful of adjacent segments at most."""
+        """(segment, selector) pairs for a batch, in ascending segment
+        order — a range scan between the min and max touched segment
+        instead of an O(n log n) np.unique sort; a partition spans a
+        handful of adjacent segments at most. A batch sorted by segment
+        (a contiguous run of slots) gets one slice a segment."""
         mn, mx = int(seg_ix.min()), int(seg_ix.max())
         if mn == mx:
             yield mn, slice(None)
+            return
+        if bool((np.diff(seg_ix) >= 0).all()):
+            cuts = np.searchsorted(seg_ix, np.arange(mn, mx + 2))
+            for s in range(mn, mx + 1):
+                lo, hi = int(cuts[s - mn]), int(cuts[s - mn + 1])
+                if hi > lo:
+                    yield s, slice(lo, hi)
             return
         for s in range(mn, mx + 1):
             m = seg_ix == s
@@ -443,25 +453,50 @@ class SwitchMemory:
         kernel; anything else (gaps, duplicates) to the fused serial
         scatter, which matches the sequential oracle exactly. Non-device
         segments quantize on host and take the int path (robustness only;
-        the agent routes f32 streams here just for device partitions)."""
+        the agent routes f32 streams here just for device partitions).
+
+        The contiguous runs of several device segments go down together:
+        one copy of their values and one launch (``ops.device_addto_dense_
+        runs``), under the locks of all their segments, taken in ascending
+        segment order (so two transmits cannot deadlock) and released in
+        reverse. Every other segment takes only its own lock."""
         seg_ix, off = self._locate(np.asarray(phys))
         if not len(seg_ix):
             return
         fvals = np.asarray(fvals, np.float32)
+        runs = []       # (segment, first slot, slots, selector): dense runs
         for s, m in self._seg_groups(seg_ix):
             seg = self.segments[s]
             o = np.asarray(off[m], np.int32)
+            if seg.device and (len(o) == 1 or bool((np.diff(o) == 1).all())):
+                runs.append((seg, int(o[0]), len(o), m))
+                continue
             with seg.lock:
                 if not seg.device:
                     seg.regs = ops.sparse_addto_bucketed(
                         seg.regs, o,
                         quantize_stream(fvals[m], scale).astype(np.int32))
-                elif len(o) and (len(o) == 1 or bool((np.diff(o) == 1).all())):
-                    seg.regs = ops.device_addto_dense(
-                        seg.regs, int(o[0]), fvals[m], scale)
                 else:
                     seg.regs = ops.device_addto_scatter(
                         seg.regs, o, fvals[m], scale)
+        if len(runs) == 1:
+            seg, start, _, m = runs[0]
+            with seg.lock:
+                seg.regs = ops.device_addto_dense(seg.regs, start, fvals[m],
+                                                  scale)
+        elif runs:
+            if all(isinstance(r[3], slice) for r in runs):
+                stream, offs = fvals, [r[3].start for r in runs]
+            else:       # a stream not sorted by segment: gather the runs
+                stream = np.concatenate([fvals[r[3]] for r in runs])
+                offs = np.cumsum([0] + [r[2] for r in runs[:-1]])
+            with contextlib.ExitStack() as held:
+                for r in runs:
+                    held.enter_context(r[0].lock)
+                ops.device_addto_dense_runs(
+                    [(seg.regs, start, int(foff), n)
+                     for (seg, start, n, _), foff in zip(runs, offs)],
+                    stream, scale)
 
     def read_f32(self, phys: np.ndarray, scale, need_raw: bool = False
                  ) -> tuple[torch.Tensor, np.ndarray | None]:

@@ -13,6 +13,18 @@
 // threads on neighbouring addresses, and updates the segment in place (the
 // Pallas kernel copies the whole segment to its output).
 //
+// repro_fused_addto_runs is the same function over several runs at once,
+// the multi-segment transmit (core/inc_map.py:SwitchMemory.addto_f32): run
+// r adds fvals[foff_r, foff_r + n_r) into its own segment's slots
+// [start_r, start_r + n_r). A 262 144-element stream over 7 segments was 7
+// launches, each at the ~1.4 us launch floor for 0.14 us of traffic; it is
+// now one. The run table (at most INC_MAX_RUNS runs) is a kernel parameter,
+// passed by value, with a prefix of block counts: each block belongs to one
+// run, found by a uniform scan of the table, so the pass stays one element
+// a thread with neighbouring threads on neighbouring addresses, whatever
+// slot a run starts at. Runs write disjoint segments, so their order does
+// not matter. A single run keeps inc_k_fused_addto above.
+//
 // repro_fused_scatter replaces fused_scatter_pallas: the same quantize, then
 // the ordered saturating scatter-add of scatter.cuh (one cluster launch with
 // its scratch in distributed shared memory at the path's segments).
@@ -36,6 +48,38 @@ __global__ void inc_k_fused_addto(int32_t* regs, const float* fvals,
     for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
          i += (int64_t)gridDim.x * blockDim.x)
         regs[i] = inc_sat_add(regs[i], inc_quantize(fvals[i], scale));
+}
+
+#define INC_MAX_RUNS 32
+#define INC_RUN_THREADS 256
+
+// one run of repro_fused_addto_runs, as the host passes it
+struct IncRun {
+    int32_t* regs;      // the segment's registers
+    int64_t start;      // first slot
+    int64_t n;          // slots
+    int64_t foff;       // offset of the run's values in fvals
+};
+
+// the table of one launch: block b works on the run r with
+// block0[r] <= b < block0[r + 1]
+struct IncRunTable {
+    int32_t* regs[INC_MAX_RUNS];     // regs + start
+    const float* fvals[INC_MAX_RUNS];  // fvals + foff
+    int64_t n[INC_MAX_RUNS];
+    int32_t block0[INC_MAX_RUNS + 1];
+    int32_t n_runs;
+};
+
+__global__ void inc_k_fused_addto_runs(const IncRunTable t, float scale) {
+    int r = 0;
+    while (r + 1 < t.n_runs && (int32_t)blockIdx.x >= t.block0[r + 1]) ++r;
+    int64_t i = (int64_t)(blockIdx.x - t.block0[r]) * INC_RUN_THREADS +
+                threadIdx.x;
+    if (i < t.n[r]) {
+        int32_t* regs = t.regs[r];
+        regs[i] = inc_sat_add(regs[i], inc_quantize(t.fvals[r][i], scale));
+    }
 }
 
 __global__ void inc_k_fused_read(const int32_t* regs, int64_t n, float inv,
@@ -65,6 +109,32 @@ extern "C" int repro_fused_addto(int32_t* regs, int64_t start,
     if (n <= 0) return 0;
     inc_k_fused_addto<<<inc_blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(
         regs + start, fvals, n, scale);
+    return (int)cudaGetLastError();
+}
+
+// runs: n_runs <= INC_MAX_RUNS runs of one launch (a call with more runs
+// is split by the caller, one launch each); empty runs are skipped
+extern "C" int repro_fused_addto_runs(const IncRun* runs, int64_t n_runs,
+                                      const float* fvals, float scale,
+                                      void* stream) {
+    if (n_runs < 0 || n_runs > INC_MAX_RUNS) return (int)cudaErrorInvalidValue;
+    IncRunTable t;
+    int64_t blocks = 0;
+    t.n_runs = 0;
+    for (int64_t r = 0; r < n_runs; ++r) {
+        if (runs[r].n <= 0) continue;
+        int k = t.n_runs++;
+        t.regs[k] = runs[r].regs + runs[r].start;
+        t.fvals[k] = fvals + runs[r].foff;
+        t.n[k] = runs[r].n;
+        t.block0[k] = (int32_t)blocks;
+        blocks += (runs[r].n + INC_RUN_THREADS - 1) / INC_RUN_THREADS;
+        if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    }
+    if (t.n_runs == 0) return 0;
+    t.block0[t.n_runs] = (int32_t)blocks;
+    inc_k_fused_addto_runs<<<(unsigned)blocks, INC_RUN_THREADS, 0,
+                             (cudaStream_t)stream>>>(t, scale);
     return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,9 @@ registers as an int32 tensor and runs its fp32 verbs as one kernel each:
 
   - ``fused_addto``: quantize an fp32 update stream and saturating-add it
     into the contiguous slot range [start, start+n) (the dense GPV
-    transmit);
+    transmit); ``fused_addto_runs`` does the same for several runs, each
+    into its own segment, in one launch per ``MAX_RUNS`` runs (a transmit
+    that spans several segments);
   - ``fused_scatter``: the same quantize, then an ordered saturating
     scatter-add, so duplicate slots saturate exactly like the sequential
     oracle (runs that are not contiguous, e.g. after LRU re-grants);
@@ -38,10 +40,22 @@ from repro_torch.obs import hooks as _obs
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
     "repro_fused_addto": (_P, _I, _P, _I, _F, _P),
+    "repro_fused_addto_runs": (_P, _I, _P, _F),
     "repro_fused_read": (_P, _I, _I, _F, _P, _P, _P),
     "repro_fused_scatter": (_P, _I, _P, _P, _I, _F, _P, _P, _P),
     "repro_fused_fold": (_P, _I, _I, _F, _P),
 }
+
+
+# runs in one launch of fused_addto_runs: INC_MAX_RUNS of csrc/fused_gpv.cu,
+# whose entry point refuses a longer table
+MAX_RUNS = 32
+
+
+class _Run(ctypes.Structure):
+    """One run of ``repro_fused_addto_runs`` (``IncRun`` of the source)."""
+    _fields_ = [("regs", ctypes.c_void_p), ("start", ctypes.c_int64),
+                ("n", ctypes.c_int64), ("foff", ctypes.c_int64)]
 
 
 def _f32(scale) -> float:
@@ -72,6 +86,11 @@ def fused_addto_plain(regs, start: int, fvals, scale):
     q = ref.quantize(fvals, scale)
     regs[start:start + n] = ref.sat_add(regs[start:start + n], q)
     return regs
+
+
+def fused_addto_runs_plain(runs, fvals, scale):
+    for regs, start, foff, n in runs:
+        fused_addto_plain(regs, start, fvals[foff:foff + n], scale)
 
 
 def fused_scatter_plain(regs, idx, fvals, scale):
@@ -114,6 +133,48 @@ def fused_addto(regs: torch.Tensor, start: int, fvals: torch.Tensor,
     if _obs.METRICS:
         _obs.kernel_launch("fused_addto", n, t0)
     return regs
+
+
+def fused_addto_runs(runs, fvals: torch.Tensor, scale) -> None:
+    """runs: ``(regs, start, foff, n)`` tuples; fvals: fp32 (m,). For each
+    run, saturating-adds ``quantize(fvals[foff:foff+n], scale)`` over slots
+    [start, start+n) of its ``regs`` IN PLACE. The runs' slot ranges must
+    not overlap. One launch (one count in ``fused_addto.launches``) per
+    ``MAX_RUNS`` non-empty runs."""
+    if fvals.dtype != torch.float32 or fvals.dim() != 1 \
+            or not fvals.is_contiguous():
+        raise TypeError("fvals must be a contiguous 1-D fp32 tensor")
+    runs = [(regs, int(start), int(foff), int(n))
+            for regs, start, foff, n in runs if n]
+    spans = []
+    for regs, start, foff, n in runs:
+        if foff < 0 or n < 0 or foff + n > fvals.numel():
+            raise ValueError(f"values [{foff}, {foff + n}) outside the "
+                             f"{fvals.numel()}-value stream")
+        _check_range(regs, start, n)
+        if regs.device != fvals.device:
+            raise ValueError("every run's regs must lie on fvals' device")
+        base = regs.data_ptr() + 4 * start
+        spans.append((base, base + 4 * n))
+    spans.sort()
+    if any(b[0] < a[1] for a, b in zip(spans, spans[1:])):
+        raise ValueError("runs overlap: each must write its own slots")
+    for c in range(0, len(runs), MAX_RUNS):
+        chunk = runs[c:c + MAX_RUNS]
+        if fvals.device.type == "cpu":
+            fused_addto.plain_calls += 1
+            fused_addto_runs_plain(chunk, fvals, scale)
+            continue
+        t0 = time.perf_counter() if _obs.METRICS else 0.0
+        table = (_Run * len(chunk))(*(
+            _Run(regs.data_ptr(), start, n, foff)
+            for regs, start, foff, n in chunk))
+        with torch.cuda.device(fvals.device):
+            _launch("repro_fused_addto_runs", ctypes.addressof(table),
+                    len(chunk), fvals.data_ptr(), _f32(scale))
+        fused_addto.launches += 1
+        if _obs.METRICS:
+            _obs.kernel_launch("fused_addto", sum(r[3] for r in chunk), t0)
 
 
 def fused_scatter(regs: torch.Tensor, idx: torch.Tensor,

@@ -271,6 +271,23 @@ def device_addto_dense(regs: torch.Tensor, start: int, fvals,
                                  _on(regs, fvals, torch.float32), scale)
 
 
+def device_addto_dense_runs(runs, fvals, scale) -> None:
+    """``device_addto_dense`` of several runs, each ``(regs, start, foff,
+    n)``: slots [start, start+n) of its own segment's ``regs`` take
+    ``fvals[foff:foff+n]``. The part of ``fvals`` (numpy or tensor) that
+    the runs read goes to the device in one copy, and the runs in one
+    launch per ``fused_gpv.MAX_RUNS``; ``regs`` are updated in place."""
+    runs = [r for r in runs if r[3]]
+    if not runs:
+        return
+    lo = min(r[2] for r in runs)
+    hi = max(r[2] + r[3] for r in runs)
+    fdev = _on(runs[0][0], fvals[lo:hi], torch.float32)
+    fused_gpv.fused_addto_runs([(regs, start, foff - lo, n)
+                                for regs, start, foff, n in runs],
+                               fdev, scale)
+
+
 def device_addto_scatter(regs: torch.Tensor, idx, fvals,
                          scale) -> torch.Tensor:
     """Fused quantize + ordered saturating scatter-add of an fp32 stream;

@@ -1,5 +1,6 @@
 """The port's kernels against the JAX package: the four register-file
-kernels, the fused fold of ``local_accum``, the SyncAgtr stream kernels
+kernels (``fused_addto`` also over several runs in one launch), the fused
+fold of ``local_accum``, the SyncAgtr stream kernels
 (``sat_add``, ``sat_add_batch``, ``quantize``, ``dequantize``) and flash
 attention.
 
@@ -221,6 +222,66 @@ def test_fused_fold_matches_pallas(rounds, n, scale):
         assert got[0] == INT32_MAX and got[1] == INT32_MIN
 
 
+# (first slot, length) of each run of a fused_addto_runs call, one segment
+# of N_SLOTS slots a run: phase b's layout (whole segments, the last one
+# cut), unaligned starts and lengths, and more runs than one launch holds
+RUN_CASES = {
+    "seven_segments": [(0, N_SLOTS)] * 6 + [(0, 77)],
+    "unaligned_starts": [(17, 160), (3, 253), (255, 1), (1, 1), (100, 99)],
+    "past_run_table": [(r % 7, 37) for r in range(fused_gpv.MAX_RUNS + 9)],
+}
+
+
+def _runs(rng, layout, n_slots, scale):
+    """(numpy registers a run, (run index, start, foff, n) a run, the fp32
+    stream the runs read in order)."""
+    regs = [_regs(rng, n_slots) for _ in layout]
+    foffs = np.cumsum([0] + [n for _, n in layout[:-1]])
+    f = _fvals(rng, sum(n for _, n in layout), scale)
+    return regs, [(i, a, int(o), n)
+                  for i, ((a, n), o) in enumerate(zip(layout, foffs))], f
+
+
+@pytest.mark.parametrize("case", list(RUN_CASES))
+def test_fused_addto_runs_matches_pallas_run_by_run(case):
+    jnp, fused_addto_pallas, *_ = _jax()
+    rng = np.random.RandomState(len(case))
+    scale = 10 ** 4
+    regs, runs, f = _runs(rng, RUN_CASES[case], N_SLOTS, scale)
+    tregs = [_t(r) for r in regs]
+    ops.reset_counts()
+    fused_gpv.fused_addto_runs([(tregs[i], a, o, n) for i, a, o, n in runs],
+                               _t(f), scale)
+    assert ops.plain_counts()["fused_addto"] == \
+        -(-len(runs) // fused_gpv.MAX_RUNS)       # one a launch table
+    for i, a, o, n in runs:
+        want = np.asarray(fused_addto_pallas(
+            jnp.asarray(regs[i]), a, jnp.asarray(f[o:o + n]), scale,
+            interpret=True))
+        np.testing.assert_array_equal(tregs[i].numpy(), want)
+
+
+def test_fused_addto_runs_rejects_bad_arguments():
+    a = torch.zeros(8, dtype=torch.int32)
+    b = torch.zeros(8, dtype=torch.int32)
+    f = torch.ones(6)
+    with pytest.raises(ValueError, match="overlap"):
+        fused_gpv.fused_addto_runs([(a, 0, 0, 3), (a, 2, 3, 3)], f, 1)
+    with pytest.raises(ValueError):             # values past the stream
+        fused_gpv.fused_addto_runs([(a, 0, 4, 3)], f, 1)
+    with pytest.raises(ValueError):             # slots past the segment
+        fused_gpv.fused_addto_runs([(b, 6, 0, 3)], f, 1)
+    with pytest.raises(TypeError):
+        fused_gpv.fused_addto_runs([(a, 0, 0, 3)], f.double(), 1)
+    # runs on one tensor that do not overlap, and an empty run
+    ops.reset_counts()
+    fused_gpv.fused_addto_runs([(a, 0, 0, 3), (a, 3, 3, 3), (b, 0, 0, 0)],
+                               f, 1)
+    assert a.tolist() == [1] * 6 + [0, 0] and b.tolist() == [0] * 8
+    ops.device_addto_dense_runs([(b, 0, 0, 0)], np.ones(2, np.float32), 1)
+    assert ops.plain_counts()["fused_addto"] == 1
+
+
 def _int_stream(rng, n):
     """int32 stream: ordinary values, both sentinels, the SAT edges,
     -2**31 and half-range values that overflow when added."""
@@ -269,6 +330,33 @@ def test_sat_add_batch_matches_sequential_pallas_fold(rows):
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(ops.sat_add_batch(_t(acc), _t(qs)).numpy(),
                                   want)
+
+
+def _batch_case(rng, rows, n):
+    """acc and B rows at the clear policies' n: saturating lanes (the
+    third row saturates) and both sentinels mid-fold."""
+    acc = _int_stream(rng, n)
+    qs = np.stack([_int_stream(rng, n) for _ in range(rows)])
+    qs[:, :8] = SAT_MAX // 3
+    qs[rows // 2, 8:12] = [INT32_MAX, INT32_MIN, INT32_MAX, INT32_MIN]
+    return acc, qs
+
+
+@pytest.mark.parametrize("n", [40_000, 40_001])
+@pytest.mark.parametrize("rows", [2, 3, 16, 17])
+def test_sat_add_batch_matches_jax_sequential_fold(rows, n):
+    """The batched fold against the JAX package's sequential fold of its
+    ``ref.sat_add``, at the shapes of the card's row batches (16 rows in
+    flight: B = 16 one batch, B = 17 one more row)."""
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    acc, qs = _batch_case(np.random.RandomState(rows + n), rows, n)
+    want = jnp.asarray(acc)
+    for q in qs:
+        want = jref.sat_add(want, jnp.asarray(q))
+    got = inc_agg.sat_add_batch(_t(acc), _t(qs))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got[8:12] == torch.tensor(qs[rows // 2, 8:12])).all()
 
 
 @pytest.mark.parametrize("scale", [1, 10 ** 4, 10 ** 8])
@@ -419,6 +507,50 @@ def test_cuda_fused_addto_and_read_match_plain(cuda, seed):
         wv, wm = fused_gpv.fused_read_plain(got, 3, 39_000, scale)
         assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
         assert torch.equal(gm, wm)
+
+
+# fused_addto_runs at the path's segments (40 000 slots): phase b's layout
+# (7 runs, 262 144 values), unaligned starts and lengths, more runs than one
+# launch table holds, and a single run
+CUDA_RUN_CASES = {
+    "phase_b": [(0, 40_000)] * 6 + [(0, 22_144)],
+    "unaligned_starts": [(17, 39_983), (3, 20_000), (1, 1), (39_999, 1),
+                         (5, 30_027)],
+    "past_run_table": [(r % 7, 997) for r in range(fused_gpv.MAX_RUNS + 9)],
+    "one_run": [(123, 39_000)],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CUDA_RUN_CASES))
+def test_cuda_fused_addto_runs_match_plain(cuda, case):
+    rng = np.random.RandomState(len(case))
+    regs, runs, f = _runs(rng, CUDA_RUN_CASES[case], 40_000, 10 ** 8)
+    got = [_t(r).to(cuda) for r in regs]
+    want = [_t(r).to(cuda) for r in regs]
+    fd = _t(f).to(cuda)
+    ops.reset_counts()
+    fused_gpv.fused_addto_runs([(got[i], a, o, n) for i, a, o, n in runs],
+                               fd, 10 ** 8)
+    assert ops.launch_counts()["fused_addto"] == \
+        -(-len(runs) // fused_gpv.MAX_RUNS)
+    fused_gpv.fused_addto_runs_plain(
+        [(want[i], a, o, n) for i, a, o, n in runs], fd, 10 ** 8)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [40_000, 40_001])
+@pytest.mark.parametrize("rows", [2, 3, 16, 17])
+def test_cuda_sat_add_batch_matches_plain(cuda, rows, n):
+    acc, qs = _batch_case(np.random.RandomState(rows + n), rows, n)
+    acc, qs = _t(acc).to(cuda), _t(qs).to(cuda)
+    got = inc_agg.sat_add_batch(acc, qs)
+    want = inc_agg.sat_add_batch_plain(acc, qs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 # the edges of the scatter's two lanes (csrc/scatter.cuh): a case names its
