@@ -9,16 +9,21 @@
 #define INC_SENT_NEG (-2147483647)       // -overflow sentinel, -(2**31 - 1)
 #define INC_SAT_MAX 2147483646LL         // largest non-sentinel magnitude
 
+__device__ __forceinline__ bool inc_is_sentinel(int32_t q) {
+    return q == INC_SENT_POS || q == INC_SENT_NEG;
+}
+
 // _sat_add_block of the reference: a's sentinel wins, then b's, then the
 // wrapped sum's overflow reconstruction. The add runs in uint32, since
 // signed overflow is undefined in C++; a sum of exactly -2**31 is kept.
+// Written as selects: early returns compiled to branches (four a call),
+// which serialised a fold of many adds (sat_add_batch) on the card.
 __device__ __forceinline__ int32_t inc_sat_add(int32_t a, int32_t b) {
-    if (a == INC_SENT_POS || a == INC_SENT_NEG) return a;
-    if (b == INC_SENT_POS || b == INC_SENT_NEG) return b;
     int32_t s = (int32_t)((uint32_t)a + (uint32_t)b);
-    if (a > 0 && b > 0 && s < a) return INC_SENT_POS;
-    if (a < 0 && b < 0 && s > a) return INC_SENT_NEG;
-    return s;
+    int32_t r = (a > 0 && b > 0 && s < a) ? INC_SENT_POS : s;
+    r = (a < 0 && b < 0 && s > a) ? INC_SENT_NEG : r;
+    r = inc_is_sentinel(b) ? b : r;
+    return inc_is_sentinel(a) ? a : r;
 }
 
 // round-half-even(x * scale) in fp32. The thresholds compare in fp32,
@@ -30,10 +35,6 @@ __device__ __forceinline__ int32_t inc_quantize(float x, float scale) {
     if (y >= 2147483648.0f) return INC_SENT_POS;
     if (y < -2147483648.0f) return INC_SENT_NEG;
     return __float2int_rn(y);
-}
-
-__device__ __forceinline__ bool inc_is_sentinel(int32_t q) {
-    return q == INC_SENT_POS || q == INC_SENT_NEG;
 }
 
 inline int inc_blocks(int64_t n, int threads) {

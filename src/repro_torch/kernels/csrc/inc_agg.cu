@@ -24,11 +24,13 @@
 // batches of INC_BATCH_ROWS into registers, every load of a batch issued
 // before the first fold (a row past B reads as 0, which sat_add leaves
 // unchanged), so a fold of up to INC_BATCH_ROWS rows waits about once.
-// CTAs of 128 threads spread n = 40 000 over more SMs than 256 did. (On
-// the card, batches of 8 and 32 rows, 32 to 256 threads and an exact int64
-// prefix-sum form of the fold were no faster; int2 and int4 loads were
-// slower; the lane-safe plain sum of the reference's _sat_add_batch_fast
-// won where few lanes saturate and lost where many warps hold one.)
+// The fold itself was then the cost, not its loads: on the card a plain sum
+// of the same 16 loads took well under the saturating fold's time, until
+// inc_sat_add (inc.cuh) became branch-free selects. CTAs of 128 threads
+// spread n = 40 000 over more SMs than 256 did. (Batches of 8 and 32 rows, 32 to 256 threads and an exact
+// int64 prefix-sum form of the fold were no faster; int2 and int4 loads were
+// slower; the lane-safe plain sum of the reference's _sat_add_batch_fast won
+// where few lanes saturate and lost where many warps hold one.)
 #include "inc.cuh"
 
 #define INC_BATCH_ROWS 16
