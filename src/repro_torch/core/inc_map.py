@@ -455,9 +455,9 @@ class SwitchMemory:
         segments quantize on host and take the int path (robustness only;
         the agent routes f32 streams here just for device partitions).
 
-        The contiguous runs of several device segments go down together:
-        one copy of their values and one launch (``ops.device_addto_dense_
-        runs``), under the locks of all their segments, taken in ascending
+        The contiguous runs of several device segments go down together
+        (``ops.device_addto_dense_runs``): one copy of their values and one
+        launch, under the locks of all their segments, taken in ascending
         segment order (so two transmits cannot deadlock) and released in
         reverse. Every other segment takes only its own lock."""
         seg_ix, off = self._locate(np.asarray(phys))

@@ -18,19 +18,19 @@
 // keeping the running value in a register; row b is read coalesced across
 // threads. It moves 4B + 8 bytes an element (each row read once, acc read
 // and written once), where B launches of sat_add would move 12B. At the
-// clear policies' n = 40 000 that is about one CTA an SM, so the time is
-// the latency of the loads, not their bytes: a loop that loaded a row and
-// folded it before the next load waited B times. The rows are read in
-// batches of INC_BATCH_ROWS into registers, every load of a batch issued
-// before the first fold (a row past B reads as 0, which sat_add leaves
-// unchanged), so a fold of up to INC_BATCH_ROWS rows waits about once.
-// The fold itself was then the cost, not its loads: on the card a plain sum
-// of the same 16 loads took well under the saturating fold's time, until
-// inc_sat_add (inc.cuh) became branch-free selects. CTAs of 128 threads
-// spread n = 40 000 over more SMs than 256 did. (Batches of 8 and 32 rows, 32 to 256 threads and an exact
-// int64 prefix-sum form of the fold were no faster; int2 and int4 loads were
-// slower; the lane-safe plain sum of the reference's _sat_add_batch_fast won
-// where few lanes saturate and lost where many warps hold one.)
+// clear policies' n = 40 000 that is about one CTA an SM, so the loads'
+// latency, not their bytes, sets the time if each row is folded before the
+// next is loaded. So the rows are read in batches of INC_BATCH_ROWS into
+// registers, every load of a batch issued before the first fold (a row
+// past B reads as 0, which sat_add leaves unchanged): a fold of up to
+// INC_BATCH_ROWS rows waits about once. The fold itself was then the cost:
+// on the card a plain sum of the same 16 loads took well under the
+// saturating fold's time, until inc_sat_add (inc.cuh) became branch-free
+// selects. CTAs of 128 threads spread n = 40 000 over more SMs than 256
+// did. (Batches of 8 and 32 rows, 32 to 256 threads and an exact int64
+// prefix-sum form of the fold were no faster; int2 and int4 loads were
+// slower; the lane-safe plain sum of the reference's _sat_add_batch_fast
+// won where few lanes saturate and lost where many warps hold one.)
 #include "inc.cuh"
 
 #define INC_BATCH_ROWS 16
