@@ -14,7 +14,9 @@
    R=8 x n=262 144; sat_add, quantize and dequantize over a 25 MiB fp32
    gradient bucket, n=6 553 600; sat_add_batch at B=16 x n=40 000), with
    sentinels and saturating lanes; exact for ints and masks, bitwise for
-   fp32. Times each one and its bound. Kernels 9-10 (the int8 pack) are
+   fp32. Times each one (CUPTI, where the profiler kept every launch of
+   the timed calls, else CUDA events) and its bound; fails on any time
+   below its bound, which no card reaches. Kernels 9-10 (the int8 pack) are
    only timed here; phase k checks them. The two scatters (sparse_addto,
    fused_scatter) are timed a second time with nothing to flag (no
    saturating value, no sentinel register), the common case on the path,
@@ -199,18 +201,21 @@ def fail(msg: str) -> None:
 
 # -- timing -------------------------------------------------------------------
 
-def device_ms(torch, fn, reset, iters: int,
-              match: str = "inc_k_") -> tuple[float, str]:
+def device_ms(torch, fn, reset, iters: int, match: str = "inc_k_",
+              launches: int | None = 1) -> tuple[float, str]:
     """Mean device time of ``fn`` per call: the CUDA time of the kernels
     whose names hold ``match`` (this package's INC kernels by default;
-    "" takes every kernel) under the profiler, or, if the profiler records
-    no device time, CUDA events around each call."""
+    "" takes every kernel) under the profiler, where it kept every launch:
+    ``launches`` matched launches a call (None: the same unknown number a
+    call, so a whole multiple of ``iters``). If the profiler records no
+    device time, or another count of launches, CUDA events around each
+    call time it instead, and the timer says why."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         reset()
         fn()
     torch.cuda.synchronize()
-    us = 0.0
+    us, seen = 0.0, 0
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -221,12 +226,40 @@ def device_ms(torch, fn, reset, iters: int,
             if match in ev.key:
                 us += getattr(ev, "device_time_total",
                               getattr(ev, "cuda_time_total", 0.0))
+                seen += ev.count
     except RuntimeError as e:         # no CUPTI in this sandbox: use events
         print(f"profiler unavailable ({e}); timing with CUDA events",
               flush=True)
-    if us > 0:
+        return event_ms(torch, fn, reset, iters), "events"
+    want = iters * launches if launches is not None else None
+    if us > 0 and (seen == want if want is not None
+                   else seen > 0 and seen % iters == 0):
         return us / iters / 1e3, "cupti"
-    return event_ms(torch, fn, reset, iters), "events"
+    kept = f"cupti kept {seen} of " + (str(want) if want is not None
+                                        else f"a multiple of {iters}")
+    print(f"device_ms: {kept}; timing with CUDA events", flush=True)
+    return event_ms(torch, fn, reset, iters), f"events ({kept})"
+
+
+def check_bounds(kernels) -> None:
+    """Fails on any time of ``kernels`` below its bound: a row's key X_ms
+    is held to P + "bound_ms" for the longest prefix P of X that has one
+    (the row's own ``bound_ms`` at the end). No card beats its bound, so
+    such a time means the timer failed."""
+    for row in kernels:
+        for key, ms in row.items():
+            if ms is None or key.endswith("bound_ms") or not (
+                    key == "ms" or key.endswith("_ms")):
+                continue
+            parts = key.split("_")
+            bound = next(b for b in ("_".join(parts[:i] + ["bound_ms"])
+                                     for i in range(len(parts) - 1, -1, -1))
+                         if b in row)
+            if ms < row[bound]:
+                fail(f"kernel {row['name']}: {key}={ms:.6f} is below "
+                     f"{bound}={row[bound]:.6f} ({row.get('timer')}): the "
+                     f"timer failed")
+    print("kernel times: none below its bound", flush=True)
 
 
 def loop_ms(torch, fn, iters: int) -> float:
@@ -376,8 +409,6 @@ def check_kernels(torch, smi: str) -> list[dict]:
                          lambda: sparse_addto.sparse_addto_plain(
                              regs, idx, ivals), None),
     }
-    touched = len(np.unique(idx_np))
-    scatter_bytes = SCATTER_K * 8 + touched * 8
     cases = {k: (*v, reset) for k, v in cases.items()}
     cases.update({k: (*v, lambda: None)
                   for k, v in stream_cases(torch, dev, rng).items()})
@@ -399,7 +430,8 @@ def check_kernels(torch, smi: str) -> list[dict]:
             err = float((got.long() - want.long()).abs().max())
         ms, timer = device_ms(torch, kernel, reset_fn, 50)
         plain_ms = event_ms(torch, plain, reset_fn, 5)
-        nbytes = nbytes if nbytes is not None else scatter_bytes
+        nbytes = nbytes if nbytes is not None else scatter_bytes(idx_np,
+                                                                 SCATTER_K)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         print(f"kernel {name} on {smi}: ok vs plain, ms={ms:.6f} ({timer}) "
               f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f}", flush=True)
@@ -425,6 +457,14 @@ def check_kernels(torch, smi: str) -> list[dict]:
 # -- phase 2, kernels 2 and 4: the ordered scatter ----------------------------
 
 SCATTERS = ("sparse_addto", "fused_scatter")
+# kernel launches of one scatter call on each lane (scatter.cuh)
+LANE_LAUNCHES = {"cluster": 1, "large": 5}
+
+
+def scatter_bytes(idx_np, k) -> int:
+    """Bytes the first k updates of a scatter must move: idx and values
+    read once, each slot they touch read and written once."""
+    return k * 8 + len(np.unique(idx_np[:k])) * 8
 
 
 def common_inputs(regs_np, idx_np, ivals_np, fvals_np):
@@ -511,7 +551,8 @@ def scatter_yardstick(torch, regs_np, idx_np, ivals_np, fvals_np) -> None:
     vals = torch.from_numpy(ivals_np).to(dev)
     regs = regs0.clone()
     ms, timer = device_ms(torch, lambda: regs.index_add_(0, idx, vals),
-                          lambda: regs.copy_(regs0), 50, match="index")
+                          lambda: regs.copy_(regs0), 50, match="index",
+                          launches=None)
     print(f"yardstick index_add_ (int32, {len(regs_np)} slots, k="
           f"{len(idx_np)}, no saturation): ms={ms:.6f} ({timer})",
           flush=True)
@@ -565,8 +606,13 @@ def check_scatter_lanes(torch) -> None:
                 fail(f"{what}: the launch was not counted on its lane")
             timed = ""
             if n == SEG and k >= lim["max_k"]:
-                ms, timer = device_ms(torch, kernel, reset, 20)
-                timed = f", ms={ms:.6f} ({timer})"
+                ms, timer = device_ms(torch, kernel, reset, 20,
+                                      launches=LANE_LAUNCHES[lane])
+                bound_ms = scatter_bytes(inputs[1], k) \
+                    / HBM_BYTES_PER_S * 1e3
+                timed = f", ms={ms:.6f} ({timer}) bound_ms={bound_ms:.6f}"
+                if ms < bound_ms:
+                    fail(f"{what}: ms below bound_ms: the timer failed")
             print(f"kernel {what}: ok vs plain{timed}", flush=True)
 
 
@@ -651,7 +697,8 @@ def check_addto_runs(torch, smi: str) -> dict:
             reset, 50)
         singles_ms, _ = device_ms(
             torch, lambda: [fused_gpv.fused_addto(r, a, fd[o:o + n], scale)
-                            for r, a, o, n in runs], reset, 50)
+                            for r, a, o, n in runs], reset, 50,
+            launches=len(runs))
         ev = event_ms(torch, lambda: ops.device_addto_dense_runs(
             runs, f, scale), reset, 20)
         singles_ev = event_ms(torch, lambda: [
@@ -730,7 +777,9 @@ def report_path_scatters(torch, kernels) -> None:
         t = time_scatter(torch, name, regs_np, idx_np, ivals_np, fvals_np, k)
         row = next(r for r in kernels if r["name"] == name)
         row["median_k"] = median
-        row.update({f"{key}_at_median_k": v for key, v in t.items()})
+        row["median_k_bound_ms"] = scatter_bytes(idx_np, k) \
+            / HBM_BYTES_PER_S * 1e3
+        row.update({f"median_k_{key}": v for key, v in t.items()})
     print("path scatters: every launch took the cluster lane", flush=True)
 
 
@@ -799,7 +848,8 @@ def check_flash(torch) -> dict:
         del got, want
         ms, timer = device_ms(torch, kernel, lambda: None, 20,
                               match="flash_k_")
-        library_ms, _ = device_ms(torch, library, lambda: None, 20, match="")
+        library_ms, _ = device_ms(torch, library, lambda: None, 20, match="",
+                                  launches=None)
         flops, nbytes = flash_work(*case)
         bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
         bound_by = "operations" if flops / BF16_FLOPS \
@@ -811,6 +861,9 @@ def check_flash(torch) -> dict:
               f"bound_ms={bound_ms:.6f} ({bound_by}: {flops / 1e9:.2f} "
               f"GFLOP, {nbytes / 1e6:.1f} MB); library_ms={library_ms:.6f} "
               f"({flops / library_ms / 1e9:.1f} TFLOP/s)", flush=True)
+        if min(ms, library_ms) < bound_ms:
+            fail(f"flash_attention {case}: a time below bound_ms: the timer "
+                 f"failed")
         if i == 0:                  # the prefill's shape: the JSON row
             plain_ms = event_ms(torch, plain, lambda: None, 5)
             print(f"kernel flash_attention {case}: plain_ms={plain_ms:.6f}; "
@@ -892,7 +945,8 @@ def check_int8(torch) -> list[dict]:
         library_ms = lib_timer = None
         if lib is not None:
             library_ms, lib_timer = device_ms(
-                torch, lib, lambda: flush.fill_(1), 50, match="MulFunctor")
+                torch, lib, lambda: flush.fill_(1), 50, match="MulFunctor",
+                launches=None)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         print(f"kernel {name}: ms={ms:.6f} ({timer}, L2 flushed; "
               f"{warm:.6f} with the bucket in L2) plain_ms={plain_ms:.6f} "
@@ -1810,6 +1864,7 @@ def main() -> int:
     t0 = time.perf_counter()
     report_path_scatters(torch, kernels)
     phase_s["scatters at the path's k"] = time.perf_counter() - t0
+    check_bounds(kernels)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         print(f"kernel {k['name']} on {smi}: ms={k['ms']:.6f} "
