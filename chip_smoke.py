@@ -32,15 +32,22 @@
    unaligned starts and past one launch's run table, each in one launch
    per table; at phase b's shape it is timed beside the same work as 7
    single-run launches (CUPTI, and per call with the stream's host copies,
-   CUDA events). Kernel 6b is held at B = 2, 3, 16, 17 x n = 40 000 and
+   CUDA events). Kernel 3 over several runs (the multi-segment reply) is
+   held bitwise against its plain version at the same layouts, with and
+   without the raw registers, in one launch per table; at phase b's shape
+   it is timed with and without raw beside the same work as 7 single-run
+   launches (CUPTI), and ``SwitchMemory.read_f32`` of one such reply is
+   timed by this route against the ``get`` route it replaces, with and
+   without ``need_raw`` (CUDA events a call, the two bitwise equal).
+   Kernel 6b is held at B = 2, 3, 16, 17 x n = 40 000 and
    40 001 with a sentinel mid-fold, and timed on phase h's updates.
 3. Path, phases a-e: the typed INC RPC round trip through ``IncRuntime()``
    on the default device, at the paper's switch geometry (32 x 40 000
    int32), two workers over four rounds of five services; replies checked
    against a numpy fixed-point oracle, and replies and register state
    held bitwise against the same run with ``device="cpu"``. Phase b (7
-   segments) must launch fused_addto once a transmit, as phase a (one
-   segment) does.
+   segments) must launch fused_addto once a transmit and fused_read once
+   a reply, as phase a (one segment) does.
 4. Path, phase f: ``Agg[FPArray](device=True, local_accum=8)`` on a
    262 144-slot partition, two workers of 16 calls each, through the fused
    fold; replies and register state bitwise equal to the CPU run.
@@ -153,6 +160,7 @@ MASTER_FLIP_FRAC = 0.02   # card vs CPU masters more than lr/100 apart
 MV_RTOL = 3e-2         # card vs CPU m and v, per leaf, relative norm
 RAGGED = BUCKET - 1000    # phase k: a stream that pads to whole tiles
 SEED = 0
+PROFILE_TRIES = 3      # profiles of one timing before it falls back to events
 LANES_TOL = 6e-2       # flash vs plain lane, 36 layers (max|d| / max|ref|)
 CPU_TOL = 2e-2         # card vs CPU, 2 layers
 FLASH_ATOL, FLASH_RTOL = 2e-2, 5e-2
@@ -206,38 +214,44 @@ def device_ms(torch, fn, reset, iters: int, match: str = "inc_k_",
     """Mean device time of ``fn`` per call: the CUDA time of the kernels
     whose names hold ``match`` (this package's INC kernels by default;
     "" takes every kernel) under the profiler, where it kept every launch:
-    ``launches`` matched launches a call (None: the same unknown number a
-    call, so a whole multiple of ``iters``). If the profiler records no
-    device time, or another count of launches, CUDA events around each
-    call time it instead, and the timer says why."""
+    ``launches`` matched kernels a call (None: the same unknown number a
+    call, so a whole multiple of ``iters``). Events with no device time
+    (the runtime's API calls) are not launches. A profile that kept
+    another count is taken again, PROFILE_TRIES times in all; then CUDA
+    events around each call time it instead, and the timer says why."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         reset()
         fn()
     torch.cuda.synchronize()
-    us, seen = 0.0, 0
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                reset()
-                fn()
-            torch.cuda.synchronize()
-        for ev in prof.key_averages():
-            if match in ev.key:
-                us += getattr(ev, "device_time_total",
-                              getattr(ev, "cuda_time_total", 0.0))
-                seen += ev.count
-    except RuntimeError as e:         # no CUPTI in this sandbox: use events
-        print(f"profiler unavailable ({e}); timing with CUDA events",
-              flush=True)
-        return event_ms(torch, fn, reset, iters), "events"
     want = iters * launches if launches is not None else None
-    if us > 0 and (seen == want if want is not None
-                   else seen > 0 and seen % iters == 0):
-        return us / iters / 1e3, "cupti"
+    for attempt in range(PROFILE_TRIES):
+        us, seen, keys = 0.0, 0, {}
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    reset()
+                    fn()
+                torch.cuda.synchronize()
+        except RuntimeError as e:     # no CUPTI in this sandbox: use events
+            print(f"profiler unavailable ({e}); timing with CUDA events",
+                  flush=True)
+            return event_ms(torch, fn, reset, iters), "events"
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total",
+                        getattr(ev, "cuda_time_total", 0.0))
+            if match in ev.key and t > 0:
+                us += t
+                seen += ev.count
+                keys[ev.key[:48]] = ev.count
+        if us > 0 and (seen == want if want is not None
+                       else seen % iters == 0):
+            return us / iters / 1e3, "cupti" + (
+                f" (try {attempt + 1})" if attempt else "")
     kept = f"cupti kept {seen} of " + (str(want) if want is not None
                                         else f"a multiple of {iters}")
-    print(f"device_ms: {kept}; timing with CUDA events", flush=True)
+    print(f"device_ms: {kept} in {PROFILE_TRIES} tries (last: {keys}); "
+          f"timing with CUDA events", flush=True)
     return event_ms(torch, fn, reset, iters), f"events ({kept})"
 
 
@@ -450,6 +464,7 @@ def check_kernels(torch, smi: str) -> list[dict]:
     check_scatter_lanes(torch)
     rows = {row["name"]: row for row in out}
     rows["fused_addto"].update(check_addto_runs(torch, smi))
+    rows["fused_read"].update(check_read_runs(torch, smi))
     rows["sat_add_batch"].update(check_sat_add_batch(torch, smi))
     return out
 
@@ -720,6 +735,127 @@ def check_addto_runs(torch, smi: str) -> dict:
                    phase_b_as_single_launches_event_ms=singles_ev,
                    single_run_event_ms=single_ev, phase_b_plain_ms=plain_ms,
                    phase_b_bound_ms=bound_ms)
+    return out
+
+
+def read_runs_same(torch, what, got, want, want_raw) -> None:
+    """``fused_read_runs``' (values, mask, raw) bitwise equal to the plain
+    version's."""
+    torch.cuda.synchronize()
+    for part, g, w in zip(("values", "mask", "raw"), got, want):
+        if part == "raw" and not want_raw:
+            if g is not None:
+                fail(f"{what}: raw registers nobody asked for")
+            continue
+        if part == "values":
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if not torch.equal(g, w):
+            fail(f"{what}: {int((g != w).sum())} {part} differ from the "
+                 f"plain version")
+
+
+def check_read_runs(torch, smi: str) -> dict:
+    """Kernel 3 over several runs (``ops.device_read_dense_runs``, the
+    multi-segment reply) bitwise against the plain version at RUN_CHECKS'
+    layouts, with and without the raw registers, in one launch per run
+    table. At phase b's shape: timed (CUPTI) with raw, as the path calls
+    it, and without, beside the same work as one ``fused_read`` launch a
+    run; and ``SwitchMemory.read_f32`` of one 262 144-value reply over 7
+    device segments by this route against the ``get`` route it replaces
+    (``get``, the host dequantize, the copy to the card), CUDA events a
+    call, with and without ``need_raw``, the two bitwise equal."""
+    from repro_torch.core.inc_map import SwitchMemory
+    from repro_torch.kernels import fused_gpv, ops
+    scale = 10 ** PRECISION
+    out = {}
+    for seed, (name, layout) in enumerate(RUN_CHECKS):
+        regs, _, spec = runs_inputs(torch, layout, 400 + seed)
+        m = sum(n for _, n in layout)
+        runs = [(regs[i], a, o, n) for i, a, o, n in spec]
+        for r, a, _, n in runs:             # a sentinel at each run's ends
+            r[a], r[a + n - 1] = 2 ** 31 - 1, -(2 ** 31 - 1)
+        tables = -(-len(layout) // fused_gpv.MAX_RUNS)
+        for want_raw in (False, True):
+            what = f"fused_read runs {name} ({len(layout)} runs, {m} " \
+                f"values{', raw' if want_raw else ''})"
+            ops.reset_counts()
+            got = ops.device_read_dense_runs(runs, m, scale, want_raw)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()["fused_read"]
+            want = fused_gpv.fused_read_runs_plain(runs, m, scale, want_raw)
+            read_runs_same(torch, what, got, want, want_raw)
+            if launches != tables:
+                fail(f"{what}: {launches} launches, not {tables}")
+            print(f"kernel {what}: ok vs plain in {launches} launches",
+                  flush=True)
+        if name != "phase_b":
+            continue
+        ms, timer = device_ms(torch, lambda: fused_gpv.fused_read_runs(
+            runs, m, scale, want_raw=True), lambda: None, 50)
+        no_raw_ms, _ = device_ms(torch, lambda: fused_gpv.fused_read_runs(
+            runs, m, scale), lambda: None, 50)
+        singles_ms, _ = device_ms(
+            torch, lambda: [fused_gpv.fused_read(r, a, n, scale)
+                            for r, a, _, n in runs], lambda: None, 50,
+            launches=len(runs))
+        plain_ms = event_ms(torch, lambda: fused_gpv.fused_read_runs_plain(
+            runs, m, scale, True), lambda: None, 5)
+        out.update(phase_b_ms=ms, phase_b_no_raw_ms=no_raw_ms,
+                   phase_b_no_raw_as_single_launches_ms=singles_ms,
+                   phase_b_plain_ms=plain_ms,
+                   phase_b_bound_ms=13 * m / HBM_BYTES_PER_S * 1e3,
+                   phase_b_no_raw_bound_ms=9 * m / HBM_BYTES_PER_S * 1e3)
+        sw = SwitchMemory(8, SEG, device="cuda")
+        if not sw.reserve(1, m, device=True):
+            fail("fused_read runs: no room for phase b's partition")
+        for seg, r in zip(sw.segments, regs):
+            seg.regs.copy_(r)
+        phys = np.arange(m)
+        inv = np.float32(1.0) / np.float32(scale)
+
+        def get_route(need_raw):
+            raw = sw.get(phys)
+            vals = torch.from_numpy(raw.astype(np.float32) * inv).to("cuda")
+            return vals, (raw if need_raw else None)
+
+        for need_raw in (True, False):
+            v, r = sw.read_f32(phys, scale, need_raw=need_raw)
+            wv, wr = get_route(need_raw)
+            if not torch.equal(v.view(torch.int32), wv.view(torch.int32)) \
+                    or (need_raw and not np.array_equal(r, wr)):
+                fail("SwitchMemory.read_f32 over 7 segments differs from "
+                     "the get route")
+            key = "phase_b_" if need_raw else "phase_b_no_raw_"
+            out[key + "read_f32_event_ms"] = event_ms(
+                torch, lambda: sw.read_f32(phys, scale, need_raw=need_raw),
+                lambda: None, 20)
+            out[key + "get_route_event_ms"] = event_ms(
+                torch, lambda: get_route(need_raw), lambda: None, 20)
+        host = {}
+        for what, fn in (("_locate", lambda: sw._locate(phys)),
+                         ("_read_runs", lambda: sw._read_runs(
+                             *sw._locate(phys)))):
+            took = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                fn()
+                took.append((time.perf_counter() - t0) * 1e3)
+            host[what] = statistics.median(took)
+        print(f"SwitchMemory.read_f32 over 7 segments, its host index math "
+              f"(host clock, median of 20): _locate {host['_locate']:.6f} "
+              f"ms, _locate + _read_runs {host['_read_runs']:.6f} ms",
+              flush=True)
+        print(f"kernel fused_read runs phase_b on {smi}: ms={ms:.6f} "
+              f"({timer}) in one launch with raw, {no_raw_ms:.6f} without, "
+              f"{singles_ms:.6f} as {len(runs)} fused_read launches; "
+              f"plain_ms={plain_ms:.6f} bound_ms="
+              f"{out['phase_b_bound_ms']:.6f} (without raw "
+              f"{out['phase_b_no_raw_bound_ms']:.6f}); SwitchMemory.read_f32 "
+              f"of one reply, event_ms a call: need_raw "
+              f"{out['phase_b_read_f32_event_ms']:.6f} (get route "
+              f"{out['phase_b_get_route_event_ms']:.6f}), without "
+              f"{out['phase_b_no_raw_read_f32_event_ms']:.6f} (get route "
+              f"{out['phase_b_no_raw_get_route_event_ms']:.6f})", flush=True)
     return out
 
 
@@ -1039,16 +1175,18 @@ def runtime(inc, device, seg_slots):
 def drive_path(device, *, seg_slots=SEG, scale_down=1):
     """Phases a-e through the port's public entry points on ``device``;
     returns (replies, switch state_dict, launches, seconds), the last
-    three per phase."""
+    three per phase; on the CPU the launches are the plain calls that
+    stand in for them."""
     import repro_torch.api as inc
     from repro_torch.kernels import ops
+    count = ops.plain_counts if device == "cpu" else ops.launch_counts
     svcs = services(inc)
     rt = runtime(inc, device, seg_slots)
     replies, launches, seconds = {}, {}, {}
     try:
         for label, slots, n, dev_lane, kind in PHASES:
             slots, n = slots // scale_down, n // scale_down
-            before = ops.launch_counts()
+            before = count()
             t0 = time.perf_counter()
             stubs = [rt.make_stub(svcs[label], n_slots=slots)
                      for _ in range(WORKERS)]
@@ -1068,12 +1206,26 @@ def drive_path(device, *, seg_slots=SEG, scale_down=1):
                     fail(f"{label}: reply {i} on {device} disagrees with the "
                          f"fixed-point oracle")
             replies[label] = got
-            after = ops.launch_counts()
+            after = count()
             launches[label] = {k: after[k] - before[k] for k in after}
         state = rt.controller.switch.state_dict()
     finally:
         rt.close()
     return replies, state, launches, seconds
+
+
+def once_a_call(per_phase, verb: str) -> None:
+    """Phases a and b make the same transmits and replies (2 workers,
+    ROUNDS rounds), a in one segment and b over 7: fails unless b takes
+    fused_addto once a transmit and fused_read once a reply, as a does."""
+    for name, call in (("fused_addto", "transmit"), ("fused_read", "reply")):
+        a = per_phase["a_dense_one_segment"][name]
+        b = per_phase["b_dense_seven_segments"][name]
+        if a == 0 or b != a:
+            fail(f"phase b {verb} {name} {b} times for the {a} of phase a: "
+                 f"not once a {call}")
+        print(f"path: {name} {verb} once a {call}, {a} times in phase a "
+              f"(one segment) and {b} in phase b (7 segments)", flush=True)
 
 
 def same_state(torch, state, ref_state, what: str) -> None:
@@ -1114,16 +1266,7 @@ def check_path(torch) -> dict:
         print(f"path {label}: {secs[label]:.3f} s for {ROUNDS} rounds of "
               f"{WORKERS} calls, launches {c}", flush=True)
     print(f"path on the card: {card_s:.3f} s, launches {counts}", flush=True)
-    # phases a and b make the same transmits (2 workers, ROUNDS rounds), a
-    # into one segment and b over 7: one fused_addto launch a transmit
-    a = per_phase["a_dense_one_segment"]["fused_addto"]
-    b = per_phase["b_dense_seven_segments"]["fused_addto"]
-    if a == 0 or b != a:
-        fail(f"phase b launched fused_addto {b} times for the {a} transmits "
-             f"of phase a: not once a transmit")
-    print(f"path: fused_addto launched {counts['fused_addto']} times in "
-          f"phases a-e, once a transmit ({a} in a, {b} in b over 7 "
-          f"segments)", flush=True)
+    once_a_call(per_phase, "launched")
     t0 = time.perf_counter()
     ref_replies, ref_state, _, _ = drive_path("cpu")
     print(f"path on the CPU (reference): {time.perf_counter() - t0:.3f} s",
@@ -1785,7 +1928,8 @@ def rehearse(scale_down: int = 64) -> None:
 
     from repro_torch import compat
     seg = SEG // scale_down
-    drive_path("cpu", seg_slots=seg, scale_down=scale_down)
+    once_a_call(drive_path("cpu", seg_slots=seg, scale_down=scale_down)[2],
+                "took the plain version of")
     g, replies, _ = drive_local_accum("cpu", seg_slots=seg,
                                       scale_down=scale_down)
     local_accum_oracle(g, replies)

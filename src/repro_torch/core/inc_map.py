@@ -503,9 +503,14 @@ class SwitchMemory:
         """Fused gather + dequantize read -> (fp32 values as a tensor on
         the switch's device, raw int registers as numpy when
         ``need_raw``). The single-segment contiguous case (a dense GPV
-        tensor reply) is one fused kernel; the general case gathers via
-        ``get`` and dequantizes with the same reciprocal formula, so both
-        flavors are bit-identical."""
+        tensor reply) is one fused kernel. A reply over several device
+        segments, sorted by segment and contiguous within each, is one
+        launch of the runs kernel (``ops.device_read_dense_runs``) and one
+        copy of its raw registers to the host when ``need_raw``, under the
+        locks of all its segments, taken in ascending segment order (as
+        ``addto_f32`` takes them) and released in reverse. The general
+        case gathers via ``get`` and dequantizes with the same reciprocal
+        formula, so all flavors are bit-identical."""
         n = len(phys)
         if n == 0:
             empty_raw = np.zeros(0, np.int32) if need_raw else None
@@ -524,10 +529,38 @@ class SwitchMemory:
                         raw = seg.regs[int(o[0]):int(o[0]) + n].to(
                             "cpu", copy=True).numpy()
                 return vals, raw
+        else:
+            runs = self._read_runs(seg_ix, off)
+            if runs:
+                with contextlib.ExitStack() as held:
+                    for seg, *_ in runs:
+                        held.enter_context(seg.lock)
+                    vals, _, raw = ops.device_read_dense_runs(
+                        [(seg.regs, start, pos, k)
+                         for seg, start, pos, k in runs],
+                        n, scale, want_raw=need_raw)
+                    if need_raw:
+                        raw = raw.cpu().numpy()
+                return vals, raw
         raw = self.get(phys)
         inv = np.float32(1.0) / np.float32(scale)
         vals = torch.from_numpy(raw.astype(np.float32) * inv).to(self.device)
         return vals, (raw if need_raw else None)
+
+    def _read_runs(self, seg_ix: np.ndarray, off: np.ndarray):
+        """(segment, first slot, first position in the reply, slots) of
+        each segment of a reply, in ascending segment order, when every
+        segment is a device segment read in one contiguous run of slots
+        and the reply is sorted by segment; else None."""
+        runs = []
+        for s, m in self._seg_groups(seg_ix):
+            seg = self.segments[s]
+            o = off[m]
+            if not (seg.device and isinstance(m, slice)
+                    and (len(o) == 1 or bool((np.diff(o) == 1).all()))):
+                return None
+            runs.append((seg, int(o[0]), m.start, len(o)))
+        return runs
 
     def get(self, phys: np.ndarray) -> np.ndarray:
         # reads take the segment lock too: the host-path kernel updates

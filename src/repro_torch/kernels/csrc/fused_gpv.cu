@@ -25,6 +25,16 @@
 // slot a run starts at. Runs write disjoint segments, so their order does
 // not matter. A single run keeps inc_k_fused_addto above.
 //
+// repro_fused_read_runs is fused_read over several runs, the reply that
+// spans several segments (core/inc_map.py:SwitchMemory.read_f32): run r
+// reads slots [start_r, start_r + n_r) of its own segment and writes
+// out[off_r, off_r + n_r) and the mask there, and, when the caller passes
+// raw, the int32 registers too (the copy a clear policy writes back). The
+// same run table, one launch a table. It moves 9 bytes an element (13 with
+// raw): a 262 144-value reply is about 1 us of traffic at 3.35 TB/s, so
+// replacing 7 per-segment gathers and host copies with one launch is the
+// gain. A reply in one segment keeps inc_k_fused_read below.
+//
 // repro_fused_scatter replaces fused_scatter_pallas: the same quantize, then
 // the ordered saturating scatter-add of scatter.cuh (one cluster launch with
 // its scratch in distributed shared memory at the path's segments).
@@ -53,33 +63,79 @@ __global__ void inc_k_fused_addto(int32_t* regs, const float* fvals,
 #define INC_MAX_RUNS 32
 #define INC_RUN_THREADS 256
 
-// one run of repro_fused_addto_runs, as the host passes it
+// one run of repro_fused_addto_runs or repro_fused_read_runs, as the
+// host passes it
 struct IncRun {
     int32_t* regs;      // the segment's registers
     int64_t start;      // first slot
     int64_t n;          // slots
-    int64_t foff;       // offset of the run's values in fvals
+    int64_t off;        // offset of the run in the stream (values read by
+                        // fused_addto, outputs written by fused_read)
 };
 
 // the table of one launch: block b works on the run r with
 // block0[r] <= b < block0[r + 1]
 struct IncRunTable {
     int32_t* regs[INC_MAX_RUNS];     // regs + start
-    const float* fvals[INC_MAX_RUNS];  // fvals + foff
+    int64_t off[INC_MAX_RUNS];
     int64_t n[INC_MAX_RUNS];
     int32_t block0[INC_MAX_RUNS + 1];
     int32_t n_runs;
 };
 
-__global__ void inc_k_fused_addto_runs(const IncRunTable t, float scale) {
+// the run of this block (a scan of the table, uniform in the block) and
+// the element of its thread in that run
+__device__ __forceinline__ int inc_run_of(const IncRunTable& t, int64_t* i) {
     int r = 0;
     while (r + 1 < t.n_runs && (int32_t)blockIdx.x >= t.block0[r + 1]) ++r;
-    int64_t i = (int64_t)(blockIdx.x - t.block0[r]) * INC_RUN_THREADS +
-                threadIdx.x;
+    *i = (int64_t)(blockIdx.x - t.block0[r]) * INC_RUN_THREADS + threadIdx.x;
+    return r;
+}
+
+__global__ void inc_k_fused_addto_runs(const __grid_constant__ IncRunTable t,
+                                       const float* fvals, float scale) {
+    int64_t i;
+    int r = inc_run_of(t, &i);
     if (i < t.n[r]) {
         int32_t* regs = t.regs[r];
-        regs[i] = inc_sat_add(regs[i], inc_quantize(t.fvals[r][i], scale));
+        regs[i] = inc_sat_add(regs[i],
+                              inc_quantize(fvals[t.off[r] + i], scale));
     }
+}
+
+__global__ void inc_k_fused_read_runs(const __grid_constant__ IncRunTable t,
+                                      float inv, float* out, uint8_t* mask,
+                                      int32_t* raw) {
+    int64_t i;
+    int r = inc_run_of(t, &i);
+    if (i < t.n[r]) {
+        int32_t q = t.regs[r][i];
+        int64_t o = t.off[r] + i;
+        out[o] = __fmul_rn(__int2float_rn(q), inv);
+        mask[o] = inc_is_sentinel(q);
+        if (raw != nullptr) raw[o] = q;
+    }
+}
+
+// fills t from runs (empty runs skipped); returns the blocks of its
+// launch (0: nothing to do), or -1 for a table the kernels refuse
+static int64_t inc_run_table(const IncRun* runs, int64_t n_runs,
+                             IncRunTable* t) {
+    if (n_runs < 0 || n_runs > INC_MAX_RUNS) return -1;
+    int64_t blocks = 0;
+    t->n_runs = 0;
+    for (int64_t r = 0; r < n_runs; ++r) {
+        if (runs[r].n <= 0) continue;
+        int k = t->n_runs++;
+        t->regs[k] = runs[r].regs + runs[r].start;
+        t->off[k] = runs[r].off;
+        t->n[k] = runs[r].n;
+        t->block0[k] = (int32_t)blocks;
+        blocks += (runs[r].n + INC_RUN_THREADS - 1) / INC_RUN_THREADS;
+        if (blocks > 0x7fffffff) return -1;
+    }
+    t->block0[t->n_runs] = (int32_t)blocks;
+    return blocks;
 }
 
 __global__ void inc_k_fused_read(const int32_t* regs, int64_t n, float inv,
@@ -117,24 +173,12 @@ extern "C" int repro_fused_addto(int32_t* regs, int64_t start,
 extern "C" int repro_fused_addto_runs(const IncRun* runs, int64_t n_runs,
                                       const float* fvals, float scale,
                                       void* stream) {
-    if (n_runs < 0 || n_runs > INC_MAX_RUNS) return (int)cudaErrorInvalidValue;
     IncRunTable t;
-    int64_t blocks = 0;
-    t.n_runs = 0;
-    for (int64_t r = 0; r < n_runs; ++r) {
-        if (runs[r].n <= 0) continue;
-        int k = t.n_runs++;
-        t.regs[k] = runs[r].regs + runs[r].start;
-        t.fvals[k] = fvals + runs[r].foff;
-        t.n[k] = runs[r].n;
-        t.block0[k] = (int32_t)blocks;
-        blocks += (runs[r].n + INC_RUN_THREADS - 1) / INC_RUN_THREADS;
-        if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    }
-    if (t.n_runs == 0) return 0;
-    t.block0[t.n_runs] = (int32_t)blocks;
+    int64_t blocks = inc_run_table(runs, n_runs, &t);
+    if (blocks < 0) return (int)cudaErrorInvalidValue;
+    if (blocks == 0) return 0;
     inc_k_fused_addto_runs<<<(unsigned)blocks, INC_RUN_THREADS, 0,
-                             (cudaStream_t)stream>>>(t, scale);
+                             (cudaStream_t)stream>>>(t, fvals, scale);
     return (int)cudaGetLastError();
 }
 
@@ -144,6 +188,19 @@ extern "C" int repro_fused_read(const int32_t* regs, int64_t start,
     if (n <= 0) return 0;
     inc_k_fused_read<<<inc_blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(
         regs + start, n, inv, out, mask);
+    return (int)cudaGetLastError();
+}
+
+// the same limits as repro_fused_addto_runs; raw may be null
+extern "C" int repro_fused_read_runs(const IncRun* runs, int64_t n_runs,
+                                     float inv, float* out, uint8_t* mask,
+                                     int32_t* raw, void* stream) {
+    IncRunTable t;
+    int64_t blocks = inc_run_table(runs, n_runs, &t);
+    if (blocks < 0) return (int)cudaErrorInvalidValue;
+    if (blocks == 0) return 0;
+    inc_k_fused_read_runs<<<(unsigned)blocks, INC_RUN_THREADS, 0,
+                            (cudaStream_t)stream>>>(t, inv, out, mask, raw);
     return (int)cudaGetLastError();
 }
 

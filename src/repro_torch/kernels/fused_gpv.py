@@ -13,6 +13,9 @@ registers as an int32 tensor and runs its fp32 verbs as one kernel each:
     oracle (runs that are not contiguous, e.g. after LRU re-grants);
   - ``fused_read``: gather [start, start+n) and dequantize by the fp32
     reciprocal, with the overflow-sentinel mask (the device Get reply);
+    ``fused_read_runs`` does the same for several runs, each from its own
+    segment, into one output, in one launch per ``MAX_RUNS`` runs (a reply
+    that spans several segments), with the raw registers if asked;
   - ``fused_fold``: quantize R fp32 rounds and fold them in round order
     with the saturating add (the device lane of ``local_accum``).
 
@@ -42,20 +45,44 @@ SIGNATURES = {
     "repro_fused_addto": (_P, _I, _P, _I, _F, _P),
     "repro_fused_addto_runs": (_P, _I, _P, _F),
     "repro_fused_read": (_P, _I, _I, _F, _P, _P, _P),
+    "repro_fused_read_runs": (_P, _I, _F, _P, _P, _P),
     "repro_fused_scatter": (_P, _I, _P, _P, _I, _F, _P, _P, _P),
     "repro_fused_fold": (_P, _I, _I, _F, _P),
 }
 
 
-# runs in one launch of fused_addto_runs: INC_MAX_RUNS of csrc/fused_gpv.cu,
-# whose entry point refuses a longer table
+# runs in one launch of fused_addto_runs and fused_read_runs: INC_MAX_RUNS
+# of csrc/fused_gpv.cu, whose entry points refuse a longer table
 MAX_RUNS = 32
 
 
 class _Run(ctypes.Structure):
-    """One run of ``repro_fused_addto_runs`` (``IncRun`` of the source)."""
+    """One run of ``repro_fused_addto_runs`` or ``repro_fused_read_runs``
+    (``IncRun`` of the source)."""
     _fields_ = [("regs", ctypes.c_void_p), ("start", ctypes.c_int64),
-                ("n", ctypes.c_int64), ("foff", ctypes.c_int64)]
+                ("n", ctypes.c_int64), ("off", ctypes.c_int64)]
+
+
+def _run_table(chunk):
+    """``(regs, start, off, n)`` runs as the C array of their table."""
+    return (_Run * len(chunk))(*(_Run(regs.data_ptr(), start, n, off)
+                                 for regs, start, off, n in chunk))
+
+
+def _check_runs(runs, m: int, device, what: str) -> list:
+    """The non-empty runs of a runs call, as ints, after checking each
+    run's slots, its span [off, off+n) of an ``m``-long stream, and that
+    its regs lie on ``device``."""
+    runs = [(regs, int(start), int(off), int(n))
+            for regs, start, off, n in runs if n]
+    for regs, start, off, n in runs:
+        if off < 0 or n < 0 or off + n > m:
+            raise ValueError(f"{what} [{off}, {off + n}) outside the "
+                             f"{m}-value stream")
+        _check_range(regs, start, n)
+        if regs.device != device:
+            raise ValueError(f"every run's regs must lie on {device}")
+    return runs
 
 
 def _f32(scale) -> float:
@@ -89,8 +116,8 @@ def fused_addto_plain(regs, start: int, fvals, scale):
 
 
 def fused_addto_runs_plain(runs, fvals, scale):
-    for regs, start, foff, n in runs:
-        fused_addto_plain(regs, start, fvals[foff:foff + n], scale)
+    for regs, start, off, n in runs:
+        fused_addto_plain(regs, start, fvals[off:off + n], scale)
 
 
 def fused_scatter_plain(regs, idx, fvals, scale):
@@ -99,6 +126,19 @@ def fused_scatter_plain(regs, idx, fvals, scale):
 
 def fused_read_plain(regs, start: int, n: int, scale):
     return ref.dequantize(regs[start:start + n], scale)
+
+
+def fused_read_runs_plain(runs, m: int, scale, want_raw: bool = False):
+    dev = runs[0][0].device
+    out = torch.empty(m, dtype=torch.float32, device=dev)
+    mask = torch.empty(m, dtype=torch.bool, device=dev)
+    raw = torch.empty(m, dtype=torch.int32, device=dev) if want_raw else None
+    for regs, start, off, n in runs:
+        out[off:off + n], mask[off:off + n] = fused_read_plain(
+            regs, start, n, scale)
+        if want_raw:
+            raw[off:off + n] = regs[start:start + n]
+    return out, mask, raw
 
 
 def fused_fold_plain(fstack, scale):
@@ -136,27 +176,18 @@ def fused_addto(regs: torch.Tensor, start: int, fvals: torch.Tensor,
 
 
 def fused_addto_runs(runs, fvals: torch.Tensor, scale) -> None:
-    """runs: ``(regs, start, foff, n)`` tuples; fvals: fp32 (m,). For each
-    run, saturating-adds ``quantize(fvals[foff:foff+n], scale)`` over slots
+    """runs: ``(regs, start, off, n)`` tuples; fvals: fp32 (m,). For each
+    run, saturating-adds ``quantize(fvals[off:off+n], scale)`` over slots
     [start, start+n) of its ``regs`` IN PLACE. The runs' slot ranges must
     not overlap. One launch (one count in ``fused_addto.launches``) per
     ``MAX_RUNS`` non-empty runs."""
     if fvals.dtype != torch.float32 or fvals.dim() != 1 \
             or not fvals.is_contiguous():
         raise TypeError("fvals must be a contiguous 1-D fp32 tensor")
-    runs = [(regs, int(start), int(foff), int(n))
-            for regs, start, foff, n in runs if n]
-    spans = []
-    for regs, start, foff, n in runs:
-        if foff < 0 or n < 0 or foff + n > fvals.numel():
-            raise ValueError(f"values [{foff}, {foff + n}) outside the "
-                             f"{fvals.numel()}-value stream")
-        _check_range(regs, start, n)
-        if regs.device != fvals.device:
-            raise ValueError("every run's regs must lie on fvals' device")
-        base = regs.data_ptr() + 4 * start
-        spans.append((base, base + 4 * n))
-    spans.sort()
+    runs = _check_runs(runs, fvals.numel(), fvals.device, "values")
+    spans = sorted((regs.data_ptr() + 4 * start,
+                    regs.data_ptr() + 4 * (start + n))
+                   for regs, start, _, n in runs)
     if any(b[0] < a[1] for a, b in zip(spans, spans[1:])):
         raise ValueError("runs overlap: each must write its own slots")
     for c in range(0, len(runs), MAX_RUNS):
@@ -166,9 +197,7 @@ def fused_addto_runs(runs, fvals: torch.Tensor, scale) -> None:
             fused_addto_runs_plain(chunk, fvals, scale)
             continue
         t0 = time.perf_counter() if _obs.METRICS else 0.0
-        table = (_Run * len(chunk))(*(
-            _Run(regs.data_ptr(), start, n, foff)
-            for regs, start, foff, n in chunk))
+        table = _run_table(chunk)
         with torch.cuda.device(fvals.device):
             _launch("repro_fused_addto_runs", ctypes.addressof(table),
                     len(chunk), fvals.data_ptr(), _f32(scale))
@@ -221,6 +250,47 @@ def fused_read(regs: torch.Tensor, start: int, n: int, scale
     if _obs.METRICS:
         _obs.kernel_launch("fused_read", n, t0)
     return out, mask
+
+
+def fused_read_runs(runs, m: int, scale, *, want_raw: bool = False
+                    ) -> tuple[torch.Tensor, torch.Tensor,
+                               torch.Tensor | None]:
+    """runs: ``(regs, start, off, n)`` tuples, every regs int32 on one
+    device; their output ranges [off, off+n) must cover [0, m) without
+    overlap. Returns (fp32 values (m,), bool sentinel mask (m,), int32 raw
+    registers (m,) when ``want_raw`` else None), on the regs' device: run
+    r's part is ``fused_read(regs, start, n, scale)`` (and ``regs[start:
+    start+n]``) at [off, off+n). One launch (one count in
+    ``fused_read.launches``) per ``MAX_RUNS`` non-empty runs."""
+    if not runs:
+        raise ValueError("fused_read_runs needs at least one run")
+    given, dev = runs, runs[0][0].device
+    runs = _check_runs(runs, m, dev, "outputs")
+    end = 0
+    # each run starts where the one before ends, and m where the last ends
+    for _, _, off, n in sorted(runs, key=lambda r: r[2]) + [(0, 0, m, 0)]:
+        if off != end:
+            raise ValueError(f"the runs' outputs do not tile [0, {m})")
+        end += n
+    if dev.type == "cpu":
+        fused_read.plain_calls += -(-len(runs) // MAX_RUNS)
+        return fused_read_runs_plain(given, m, scale, want_raw)
+    out = torch.empty(m, dtype=torch.float32, device=dev)
+    mask = torch.empty(m, dtype=torch.bool, device=dev)
+    raw = torch.empty(m, dtype=torch.int32, device=dev) if want_raw else None
+    inv = float(np.float32(1.0) / np.float32(scale))
+    for c in range(0, len(runs), MAX_RUNS):
+        chunk = runs[c:c + MAX_RUNS]
+        t0 = time.perf_counter() if _obs.METRICS else 0.0
+        table = _run_table(chunk)
+        with torch.cuda.device(dev):
+            _launch("repro_fused_read_runs", ctypes.addressof(table),
+                    len(chunk), inv, out.data_ptr(), mask.data_ptr(),
+                    raw.data_ptr() if want_raw else None)
+        fused_read.launches += 1
+        if _obs.METRICS:
+            _obs.kernel_launch("fused_read", sum(r[3] for r in chunk), t0)
+    return out, mask, raw
 
 
 def fused_fold(fstack: torch.Tensor, scale) -> torch.Tensor:

@@ -314,6 +314,17 @@ def device_read_dense(regs: torch.Tensor, start: int, n: int, scale
     return fused_gpv.fused_read(regs, start, n, scale)
 
 
+def device_read_dense_runs(runs, m: int, scale, want_raw: bool = False
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor | None]:
+    """The fused gather + dequantize of several runs ``(regs, start, off,
+    n)``, each from its own device register file, into one reply of ``m``
+    values (run r at [off, off+n)): (fp32 values, bool overflow-sentinel
+    mask, int32 raw registers when ``want_raw``), on the regs' device; one
+    launch per run table."""
+    return fused_gpv.fused_read_runs(runs, m, scale, want_raw=want_raw)
+
+
 # -- stream verbs of the SyncAgtr path and the clear policies -----------------
 
 def quantize(x: torch.Tensor, scale) -> torch.Tensor:
