@@ -233,7 +233,7 @@ def device_ms(torch, fn, reset, iters: int, match: str = "inc_k_",
                     reset()
                     fn()
                 torch.cuda.synchronize()
-        except RuntimeError as e:     # no CUPTI in this sandbox: use events
+        except RuntimeError as e:     # a profiler without CUPTI: use events
             print(f"profiler unavailable ({e}); timing with CUDA events",
                   flush=True)
             return event_ms(torch, fn, reset, iters), "events"
