@@ -5,13 +5,19 @@
 
 The port of ``repro/launch/serve.py`` on one card (``--device cpu`` for
 the CPU, with ``--reduced`` for the tiny same-family config): prefill
-builds the KV cache, the cache grows with zeros to prompt + decode
-positions, and greedy decode steps consume and update it, each pushing
-its token count and step time to the serve telemetry on the port's
-``IncRuntime``. Prefill attention runs through the flash kernel
-(``--no-flash`` for the dense lane). Weights are random, from a seed.
-``--layers N`` cuts the depth, for checks that compare the card with the
-CPU at full width.
+builds the cache (K/V of the attention layers, a ring of the window for
+a ``local`` layer, the state and conv tail of an ``rglru`` layer), the
+global K/V grow with zeros to prompt + decode positions, and greedy
+decode steps consume and update it, each pushing its token count and
+step time to the serve telemetry on the port's ``IncRuntime``. Prefill
+attention runs through the flash kernel (``--no-flash`` for the dense
+lane); a local layer takes it when the prompt is longer than its window.
+Weights are random, from a seed. ``--layers N`` cuts the depth to the
+first N layers, for checks that compare the card with the CPU at full
+width. gemma3-27b and recurrentgemma-9b serve the same way:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \
+        --prompt-len 2048 --decode 32 --batch 4
 """
 from __future__ import annotations
 
@@ -29,31 +35,61 @@ from repro_torch.models import api
 
 
 def with_layers(cfg: ArchConfig, n: int) -> ArchConfig:
-    """``cfg`` cut to its first ``n`` layers (one repeating pattern)."""
-    if len(cfg.pattern_groups) != 1 or len(cfg.pattern_groups[0][0]) != 1:
-        raise ValueError(f"{cfg.name}: --layers needs a stack of one block "
-                         f"type")
-    (pat, _), = cfg.pattern_groups
-    return replace(cfg, n_layers=n, pattern_groups=((pat, n),))
+    """``cfg`` cut to its first ``n`` layers in stack order: whole repeats
+    of each pattern unit while they fit, then the first layers of the
+    next unit as a group of one repeat (gemma3-27b at 6: five ``local``
+    and one ``global``). Past the stack's depth, more repeats of its last
+    unit (the reduced qwen2.5-3b, one layer, at 2)."""
+    if n < 1:
+        raise ValueError(f"{cfg.name}: {n} layers")
+    groups, left = [], n
+    for pat, r in cfg.pattern_groups:
+        whole = min(r, left // len(pat))
+        if whole:
+            groups.append((pat, whole))
+            left -= whole * len(pat)
+        if left and whole < r:
+            groups.append((pat[:left], 1))
+            left = 0
+        if not left:
+            break
+    if left:
+        pat, r = groups[-1]
+        groups[-1] = (pat, r + left // len(pat))
+        if left % len(pat):
+            groups.append((pat[:left % len(pat)], 1))
+    return replace(cfg, n_layers=n, pattern_groups=tuple(groups))
 
 
-def model_config(arch: str, reduced: bool = False,
+def model_config(arch: str | ArchConfig, reduced: bool = False,
                  layers: int | None = None) -> ArchConfig:
-    cfg = get_arch(arch)
+    """The config of an arch name (or an ``ArchConfig`` as it is), then
+    reduced and cut as asked."""
+    cfg = arch if isinstance(arch, ArchConfig) else get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
     return with_layers(cfg, layers) if layers else cfg
 
 
-def grow_cache(cache: tuple, total: int) -> tuple:
-    """The prefill cache, its sequence dim padded with zeros to ``total``
-    positions (dim 2 of each stacked (n, B, S, KV, hd) leaf)."""
-    def grow(t):
-        out = t.new_zeros(t.shape[:2] + (total,) + t.shape[3:])
-        out[:, :, :t.shape[2]] = t
+def grow_cache(cache: tuple, cfg: ArchConfig, batch: int,
+               total: int) -> tuple:
+    """The prefill cache grown to its decode shape, ``api.cache_specs(cfg,
+    batch, total)``: a leaf of another shape is padded with zeros at the
+    end of each dim (a global K/V's sequence), a leaf of that shape is
+    kept as it is (a local ring, a recurrent state and conv tail)."""
+    def grow(t, like):
+        if t.shape == like.shape:
+            return t
+        if t.dim() != like.dim() or any(a > b for a, b in
+                                        zip(t.shape, like.shape)):
+            raise ValueError(f"a cache leaf of shape {tuple(t.shape)} does "
+                             f"not grow to {tuple(like.shape)}")
+        out = t.new_zeros(like.shape)
+        out[tuple(slice(0, n) for n in t.shape)] = t
         return out
-    return tuple({s: {k: grow(t) for k, t in e.items()} for s, e in g.items()}
-                 for g in cache)
+    specs = api.cache_specs(cfg, batch, total)
+    return tuple({s: {k: grow(t, sg[s][k]) for k, t in e.items()}
+                  for s, e in g.items()} for g, sg in zip(cache, specs))
 
 
 def _sync(dev: torch.device) -> None:
@@ -61,9 +97,9 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve(*, arch: str, prompt_len: int, decode_n: int, batch: int,
-          reduced: bool = False, flash: bool = True, device=None,
-          layers: int | None = None, params=None, tokens=None,
+def serve(*, arch: str | ArchConfig, prompt_len: int, decode_n: int,
+          batch: int, reduced: bool = False, flash: bool = True,
+          device=None, layers: int | None = None, params=None, tokens=None,
           feed=None, seed: int = 0) -> dict:
     """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
     ``decode_n`` tokens greedily. ``params`` and ``tokens`` (B, prompt_len)
@@ -92,7 +128,7 @@ def serve(*, arch: str, prompt_len: int, decode_n: int, batch: int,
     t0 = time.perf_counter()
     logits, cache = api.prefill(params, cfg, {"tokens": tokens},
                                 flash=flash)
-    cache = grow_cache(cache, total)
+    cache = grow_cache(cache, cfg, tokens.shape[0], total)
     _sync(dev)
     t1 = time.perf_counter()
     toks = [logits.argmax(-1)]

@@ -1,5 +1,6 @@
 """Uniform model API: the port of ``repro/models/api.py`` for stacks of
-``global`` blocks.
+the block types ``models/blocks.py`` ports (``global``, ``local`` and
+``rglru``), in any pattern of groups.
 
   init_params(seed, cfg, device)           -> Tree (bf16 leaves)
   forward(params, cfg, batch, remat)       -> (logits, aux)
@@ -16,8 +17,9 @@ Parameters keep the reference's stacked layout, ``groups[gi]["s{i}"]``
 with the layer dim first, held in an ``nn.Module`` whose ``state_dict``
 keys spell the reference's tree path (``groups.0.s0.attn.wq``). A Python
 loop over the layers replaces ``lax.scan``. The cache is a tuple per
-pattern group of ``{"s{i}": {"k", "v"}}`` stacked over the layers, and
-``decode_step`` updates it in place.
+pattern group of ``{"s{i}": entry}`` stacked over the layers (an entry is
+``{"k", "v"}`` for an attention block, ``{"state", "conv"}`` for
+``rglru``), and ``decode_step`` updates it in place.
 
 ``train_loss`` runs the stack under autograd; ``remat=True`` wraps each
 layer in ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint``
@@ -310,23 +312,24 @@ def _not_text(cfg: ArchConfig):
 # the JAX package's trees, as numpy, across
 # ---------------------------------------------------------------------------
 
-def _tensor(a, device: torch.device) -> torch.Tensor:
+def _tensor(a, device: torch.device, copy: bool = False) -> torch.Tensor:
     """numpy -> tensor, bit for bit. A JAX bf16 array arrives as an
     ``ml_dtypes`` bfloat16 array, which ``torch.from_numpy`` refuses: its
-    bits are viewed as int16 and then as bf16."""
+    bits are viewed as int16 and then as bf16. On the CPU the tensor
+    shares the array's memory unless ``copy``."""
     a = np.require(np.asarray(a), requirements=("C", "W"))
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(
-            torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
+            torch.bfloat16).to(device, copy=copy)
+    return torch.from_numpy(a).to(device, copy=copy)
 
 
-def _from_numpy(tree, device: torch.device):
+def _from_numpy(tree, device: torch.device, copy: bool = False):
     if isinstance(tree, dict):
-        return {k: _from_numpy(v, device) for k, v in tree.items()}
+        return {k: _from_numpy(v, device, copy) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return tuple(_from_numpy(v, device) for v in tree)
-    return _tensor(tree, device)
+        return tuple(_from_numpy(v, device, copy) for v in tree)
+    return _tensor(tree, device, copy)
 
 
 def params_from_jax(np_tree: dict, device=None) -> Tree:
@@ -343,8 +346,10 @@ def opt_from_jax(np_opt: dict, device=None) -> dict:
 
 
 def cache_from_jax(np_cache: tuple, device=None) -> tuple:
-    """The reference's decode cache (numpy leaves) as the port's."""
-    return _from_numpy(np_cache, resolve_device(device))
+    """The reference's decode cache (numpy leaves) as the port's, a copy:
+    ``decode_step`` writes the cache in place, and the caller's arrays
+    stay as they were."""
+    return _from_numpy(np_cache, resolve_device(device), copy=True)
 
 
 def cache_to_numpy(cache: tuple) -> tuple:

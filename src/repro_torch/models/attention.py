@@ -1,5 +1,6 @@
 """GQA attention: train/prefill over a full sequence and decode against a
-KV cache, for the ``global`` (causal full-attention) block.
+KV cache, for the ``global`` (causal full attention) and ``local``
+(causal sliding-window attention) kinds.
 
 The port of ``repro/models/attention.py``. Einsums run in bf16 and return
 bf16, as the reference's do; scores and softmax are fp32. Prefill has two
@@ -7,21 +8,26 @@ lanes, chosen by the caller's ``flash`` flag (the reference's
 ``REPRO_FLASH_ATTN`` switch, carried explicitly on ``blocks.Ctx``):
 
   - ``flash=True``: ``ops.flash_attention``, the hand-written Hopper kernel
-    on the card (kernel 11), its plain version on the CPU;
+    on the card (kernel 11), its plain version on the CPU. A ``local``
+    layer takes it, with its window, only when S > window, as in the
+    reference;
   - ``flash=False``: dense masked attention (``attn_full``), or query
-    chunks above ``CHUNKED_THRESHOLD`` (``attn_causal_chunked``).
+    chunks above ``CHUNKED_THRESHOLD`` (``attn_causal_chunked``); a
+    ``local`` layer the banded ``attn_local``.
 
-Decode has no kernel in the reference and stays einsums. One card holds
-the whole cache, so the reference's sequence-sharded decode (its
-pmax/psum partial-softmax combine) has no counterpart here. The ``local``,
-``bidir`` and ``cross`` kinds come with the other block types, in a later
-slice of the port (ROADMAP).
+Decode has no kernel in the reference and stays einsums; a ``local``
+layer's cache is a ring of ``window`` slots. One card holds the whole
+cache, so the reference's sequence-sharded decode (its pmax/psum
+partial-softmax combine) has no counterpart here. The ``bidir`` and
+``cross`` kinds and the rope-free decode of ``selfcross`` come with their
+block types, in a later slice of the port (ROADMAP).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import COMPUTE_DTYPE, apply_rope, dense_init
@@ -35,8 +41,9 @@ Q_CHUNK = 1_024
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet: only the 'global' block runs in "
-        f"repro_torch (ROADMAP: the other block types come in a later slice)")
+        f"{what} is not ported yet: only the 'global', 'local' and 'rglru' "
+        f"blocks run in repro_torch (ROADMAP: the other block types come in "
+        f"a later slice)")
 
 
 # ---------------------------------------------------------------------------
@@ -143,27 +150,63 @@ def attn_causal_chunked(q, k, v, n_kv: int, q_chunk: int = Q_CHUNK
     return _merge(torch.cat(outs, dim=1))
 
 
+def attn_local(q, k, v, n_kv: int, window: int) -> torch.Tensor:
+    """Exact sliding-window causal attention, O(S*W): query chunk i (chunk
+    size == window) attends KV chunks i-1 and i with a band mask. Ragged
+    tails are padded to a window multiple (padded keys sit at positions
+    beyond every real query, so the causal band masks them out)."""
+    s, w = q.shape[1], window
+    if s <= w:
+        return attn_full(q, k, v, n_kv, causal=True)
+    pad = (-s) % w
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        return attn_local(q, k, v, n_kv, window)[:, :s]
+    qg = _group(q, n_kv)
+    outs = []
+    for i in range(s // w):
+        start = max(i - 1, 0) * w              # i=0 re-reads chunk 0
+        qpos = i * w + torch.arange(w, device=q.device)
+        kpos = start + torch.arange(2 * w, device=q.device)
+        mask = ((kpos[None, :] <= qpos[:, None])
+                & (kpos[None, :] > qpos[:, None] - w))
+        outs.append(_attend(qg[:, i * w:(i + 1) * w],
+                            k[:, start:start + 2 * w],
+                            v[:, start:start + 2 * w], mask))
+    return _merge(torch.cat(outs, dim=1))
+
+
 def attn_train(p: dict, x: torch.Tensor, *, n_kv: int, kind: str,
                theta: float, positions: torch.Tensor,
+               window: int | None = None,
                flash: bool = False) -> torch.Tensor:
-    """One attention sub-layer over a full sequence (``kind="global"``).
-    ``flash`` routes it through ``ops.flash_attention`` (kernel 11)."""
+    """One attention sub-layer over a full sequence (``kind`` "global" or
+    "local"; ``window`` is the local kind's). ``flash`` routes it through
+    ``ops.flash_attention`` (kernel 11)."""
     return attn_prefill(p, x, n_kv=n_kv, kind=kind, theta=theta,
-                        positions=positions, flash=flash)[0]
+                        positions=positions, window=window, flash=flash)[0]
 
 
 def attn_prefill(p: dict, x: torch.Tensor, *, n_kv: int, kind: str,
                  theta: float, positions: torch.Tensor,
-                 flash: bool = False):
+                 window: int | None = None, flash: bool = False):
     """``attn_train`` that also returns the roped K and V it attended to:
     the decode cache entry, which the reference projects a second time
     (``blocks._roped_kv``) from the same normed input."""
-    if kind != "global":
+    if kind not in ("global", "local"):
         raise _not_ported(f"attention kind {kind!r}")
+    if kind == "local" and not window:
+        raise ValueError("local attention needs a window")
     q, k, v = qkv(p, x)
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
-    if flash:
+    if kind == "local":
+        # the reference's routing: the kernel only when the window bites
+        if flash and x.shape[1] > window:
+            o = ops.flash_attention(q, k, v, causal=True, window=window)
+        else:
+            o = attn_local(q, k, v, n_kv, window)
+    elif flash:
         o = ops.flash_attention(q, k, v, causal=True)
     elif x.shape[1] > CHUNKED_THRESHOLD:
         o = attn_causal_chunked(q, k, v, n_kv)
@@ -186,17 +229,34 @@ class KVLayout:
 
 def decode_attn(p: dict, x1: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, pos: int, *, n_kv: int, theta: float,
-                layout: KVLayout):
+                layout: KVLayout, window: int | None = None):
     """x1: (B,1,d); caches (B,L,KV,hd). Returns (out (B,1,d), k_cache,
-    v_cache). The new token's roped K/V are written into slot ``pos`` of
-    the caches IN PLACE (the reference returns updated copies), when
-    ``0 <= pos < L``. (The reference's ring-buffer cache of a window and
-    its rope-free lane come with the local and selfcross blocks.)"""
+    v_cache). The new token's roped K/V are written into the caches IN
+    PLACE (the reference returns updated copies):
+
+      window=None: a global cache, slot ``pos``, when ``0 <= pos < L``;
+      window=W: a ring of W slots (L == W), slot ``pos % W``; slot j then
+      holds position ``pos - ((pos - j) % W)``, valid when that is >= 0
+      and within the window.
+
+    (The reference's rope-free lane comes with the selfcross block.)"""
     pos = int(pos)
     q, k, v = qkv(p, x1)
     posb = torch.full((x1.shape[0], 1), pos, device=x1.device)
     q = apply_rope(q, posb, theta)
     k = apply_rope(k, posb, theta)
+    if window is not None:
+        if k_cache.shape[1] != window:
+            raise ValueError(f"a ring cache of {k_cache.shape[1]} slots for "
+                             f"a window of {window}")
+        slot = pos % window
+        k_cache[:, slot] = k[:, 0]
+        v_cache[:, slot] = v[:, 0]
+        idx = torch.arange(window, device=x1.device)
+        p_j = pos - torch.remainder(pos - idx, window)
+        valid = (p_j >= 0) & (p_j > pos - window)
+        out = _decode_attend(q, k_cache, v_cache, valid, n_kv)
+        return out_proj(p, out), k_cache, v_cache
     if 0 <= pos < layout.length:
         k_cache[:, pos] = k[:, 0]
         v_cache[:, pos] = v[:, 0]

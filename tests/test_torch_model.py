@@ -134,7 +134,8 @@ def test_configs_are_the_reference_configs():
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "phi4-mini-3.8b",
-                                  "stablelm-1.6b"])
+                                  "stablelm-1.6b", "gemma3-27b",
+                                  "recurrentgemma-9b"])
 def test_count_params_matches_reference(arch):
     from repro.configs.base import get_arch as jget
     from repro_torch.configs.base import get_arch
@@ -144,12 +145,18 @@ def test_count_params_matches_reference(arch):
     assert get_arch(arch).n_params() == want
     if arch == "qwen2.5-3b":
         assert 3.08e9 < want < 3.10e9
+    if arch == "gemma3-27b":
+        assert want == 27_008_319_744
+    if arch == "recurrentgemma-9b":
+        assert want == 8_578_519_040
 
 
-def test_other_block_types_raise():
+@pytest.mark.parametrize("arch", ["mamba2-780m", "moonshot-v1-16b-a3b"])
+def test_other_block_types_raise(arch):
+    """The block types still to come (ssd, moe) raise."""
     from repro_torch.configs.base import get_arch
     with pytest.raises(NotImplementedError, match="not ported"):
-        api.count_params(get_arch("gemma3-27b"))
+        api.count_params(get_arch(arch))
 
 
 def test_params_carry_across_bit_for_bit(weights):

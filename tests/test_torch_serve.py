@@ -27,18 +27,21 @@ from repro_torch.models import api
 ROOT = Path(__file__).resolve().parents[1]
 LOGIT_TOL = 2e-2               # as tests/test_torch_model.py
 PROMPT, DECODE, BATCH = 32, 4, 2
+# the prompt of each served arch: longer than the reduced window (32) where
+# the arch has local layers, so they take the band, the ring and the kernel
+PROMPTS = {"qwen2.5-3b": PROMPT, "gemma3-27b": 64, "recurrentgemma-9b": 64}
 
 
-def _reference_inputs():
+def _reference_inputs(arch="qwen2.5-3b", prompt=PROMPT):
     """The weights and prompt the reference's serve builds for itself."""
     import jax
     from repro.configs.base import get_arch
     from repro.data import pipeline as jpipeline
     from repro.models import api as japi
-    cfg = get_arch("qwen2.5-3b").reduced()
+    cfg = get_arch(arch).reduced()
     params = jax.jit(lambda k: japi.init_params(k, cfg))(jax.random.key(0))
     dcfg = jpipeline.DataConfig(vocab=cfg.vocab, batch=BATCH,
-                                seq_len=PROMPT - 1, kind="uniform")
+                                seq_len=prompt - 1, kind="uniform")
     tokens = jpipeline.make_batch(dcfg, 0)["tokens"]
     return jax.tree.map(np.asarray, params), np.asarray(tokens)
 
@@ -59,23 +62,24 @@ def _held_equal(got, want, logits):
     return checked
 
 
+@pytest.mark.parametrize("arch", list(PROMPTS))
 @pytest.mark.parametrize("flash", [False, True])
-def test_serve_matches_reference(flash, monkeypatch, capsys):
+def test_serve_matches_reference(arch, flash, monkeypatch, capsys):
     from repro.launch import serve as jserve
     if flash:
         monkeypatch.setenv("REPRO_FLASH_ATTN", "1")
     else:
         monkeypatch.delenv("REPRO_FLASH_ATTN", raising=False)
-    want = jserve.serve(arch="qwen2.5-3b", prompt_len=PROMPT,
-                        decode_n=DECODE, batch=BATCH, reduced=True)
-    np_params, tokens = _reference_inputs()
-    got = tserve.serve(arch="qwen2.5-3b", prompt_len=PROMPT,
-                       decode_n=DECODE, batch=BATCH, reduced=True,
-                       flash=flash, device="cpu",
+    prompt = PROMPTS[arch]
+    want = jserve.serve(arch=arch, prompt_len=prompt, decode_n=DECODE,
+                        batch=BATCH, reduced=True)
+    np_params, tokens = _reference_inputs(arch, prompt)
+    got = tserve.serve(arch=arch, prompt_len=prompt, decode_n=DECODE,
+                       batch=BATCH, reduced=True, flash=flash, device="cpu",
                        params=api.params_from_jax(np_params, "cpu"),
                        tokens=torch.from_numpy(tokens.copy()))
     out = capsys.readouterr().out.splitlines()
-    assert out[-3].startswith(f"prefill {PROMPT} tokens x{BATCH}: ")
+    assert out[-3].startswith(f"prefill {prompt} tokens x{BATCH}: ")
     assert out[-2].startswith(f"inc telemetry: tokens={BATCH * DECODE} ")
     assert out[-1].startswith("sampled token ids[0]: [")
     assert got["tokens"].shape == (BATCH, DECODE + 1)
@@ -107,12 +111,55 @@ def test_grow_cache_pads_with_zeros():
     params = api.init_params(0, cfg, device="cpu")
     toks = torch.randint(0, cfg.vocab, (BATCH, 8))
     _, cache = api.prefill(params, cfg, {"tokens": toks})
-    grown = tserve.grow_cache(cache, 12)
+    grown = tserve.grow_cache(cache, cfg, BATCH, 12)
     k = grown[0]["s0"]["k"]
     assert tuple(k.shape) == tuple(api.cache_specs(cfg, BATCH, 12)[0]["s0"]
                                    ["k"].shape)
     assert torch.equal(k[:, :, :8], cache[0]["s0"]["k"])
     assert not k[:, :, 8:].any()
+
+
+@pytest.mark.parametrize("arch", ["gemma3-27b", "recurrentgemma-9b"])
+def test_grow_cache_matches_reference(arch):
+    """The reference's rule (pad what differs from cache_specs): a local
+    ring and a recurrent state and conv tail keep their shape and values
+    (the same tensors), a global K/V pads with zeros; leaf for leaf equal
+    to the reference's ``grow`` of the same cache."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.base import get_arch as jget
+    from repro.models import api as japi
+    cfg = tserve.model_config(arch, reduced=True)
+    params = api.init_params(1, cfg, device="cpu")
+    prompt, total = PROMPTS[arch], PROMPTS[arch] + DECODE
+    toks = torch.randint(0, cfg.vocab, (BATCH, prompt),
+                         generator=torch.Generator().manual_seed(2))
+    _, cache = api.prefill(params, cfg, {"tokens": toks})
+    grown = tserve.grow_cache(cache, cfg, BATCH, total)
+
+    def grow(leaf, like):                   # the reference's serve
+        if leaf.shape == like.shape:
+            return leaf
+        return jnp.pad(leaf, [(0, l - s) for s, l in zip(leaf.shape,
+                                                         like.shape)])
+    want = jax.tree.map(grow, jax.tree.map(jnp.asarray,
+                                           api.cache_to_numpy(cache)),
+                        japi.cache_specs(jget(arch).reduced(), BATCH, total))
+    kinds = set()
+    for g, c, w in zip(grown, cache, want):
+        for slot, entry in g.items():
+            for key, t in entry.items():
+                np.testing.assert_array_equal(
+                    api.cache_to_numpy(t), np.asarray(w[slot][key]))
+                kinds.add((key, t is c[slot][key]))
+    if arch == "gemma3-27b":       # local rings kept, global K/V grown
+        assert kinds == {("k", True), ("v", True), ("k", False),
+                         ("v", False)}
+    else:                          # every entry kept: rings and states
+        assert kinds == {("k", True), ("v", True), ("state", True),
+                         ("conv", True)}
+    with pytest.raises(ValueError, match="does not grow"):
+        tserve.grow_cache(cache, cfg, BATCH, 16)     # a ring past W = 32
 
 
 def test_make_batch_is_a_function_of_seed_and_step():
@@ -178,22 +225,32 @@ def cuda():
     return torch.device("cuda")
 
 
+# (arch, layers, flash launches a prefill): the reduced qwen2.5-3b at two
+# layers, gemma3-27b (8) and recurrentgemma-9b (5) at their full pattern
+# depth, where every gemma3 layer and recurrentgemma's one local layer
+# take the kernel at the prompt of PROMPTS
+CUDA_SERVE = [("qwen2.5-3b", 2, 2), ("gemma3-27b", None, 8),
+              ("recurrentgemma-9b", None, 1)]
+
+
 @pytest.mark.cuda
-def test_cuda_serve_matches_cpu(cuda):
-    """The reduced config at two layers on the card (prefill through the
-    flash kernel, telemetry through sparse_addto) against the same
-    weights and tokens on the CPU, teacher forced."""
+@pytest.mark.parametrize("arch,layers,launches", CUDA_SERVE)
+def test_cuda_serve_matches_cpu(cuda, arch, layers, launches):
+    """The reduced config on the card (prefill through the flash kernel,
+    telemetry through sparse_addto) against the same weights and tokens
+    on the CPU, teacher forced."""
     import copy
     from repro_torch.kernels import ops
-    cfg = tserve.model_config("qwen2.5-3b", reduced=True, layers=2)
+    cfg = tserve.model_config(arch, reduced=True, layers=layers)
     p_cpu = api.init_params(5, cfg, device="cpu")
-    kw = dict(arch="qwen2.5-3b", prompt_len=PROMPT, decode_n=DECODE,
-              batch=BATCH, reduced=True, layers=2)
+    kw = dict(arch=arch, prompt_len=PROMPTS[arch], decode_n=DECODE,
+              batch=BATCH, reduced=True, layers=layers)
     ops.reset_counts()
     card = tserve.serve(device=None, params=copy.deepcopy(p_cpu).to(cuda),
                         **kw)
     counts = ops.launch_counts()
-    assert counts["flash_attention"] == 2 and counts["sparse_addto"] > 0
+    assert counts["flash_attention"] == launches
+    assert counts["sparse_addto"] > 0
     cpu = tserve.serve(device="cpu", params=p_cpu,
                        feed=card["tokens"][:, :-1].cpu(), **kw)
     for t in range(DECODE + 1):
