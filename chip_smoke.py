@@ -70,7 +70,8 @@
    the card within 2e-2 of the same run on the CPU. Flash attention joins
    the kernel check at the prefill's shape (B=4, H=16, KV=2, S=2 048,
    D=128), gemma3's window of 1 024, a ragged S and recurrentgemma-9b's
-   local layer (B=1, H=16, KV=1, S=4 096, D=256, window 2 048), within
+   local layer (B=1, H=16, KV=1, S=4 096, D=256, window 2 048), and the
+   shapes of phases l and m (item 10), within
    atol 2e-2, rtol 5e-2 of its plain version (bf16: the kernel rounds p
    to bf16 before p.V, the plain version keeps fp32); each case is timed
    beside ``scaled_dot_product_attention`` on the same tensors, with its
@@ -105,6 +106,29 @@
    on the CPU (the plain versions) and within half an int8 step of the
    input. The kernel phase times both on the bucket, unpack also beside
    ``q * scale[:, None]``.
+10. Path, phases l and m: serving gemma3-27b (62 layers: 52 sliding-window
+   layers of window 1 024 and 10 global ones, H = 32, KV = 16, D = 128;
+   27.008 B parameters) on 4 prompts of 2 048 tokens, and
+   recurrentgemma-9b (38 layers: 26 RG-LRU and 12 local MQA layers of
+   D = 256 and window 2 048; 8.579 B parameters) on 2 prompts of 4 096
+   tokens, each at full width and depth with random weights from a seed
+   and 32 greedy decode steps, as phase i does (phase j's memory freed
+   first). Checks: one flash launch a prefill for each layer that takes
+   the kernel at its prompt (62 and 12: a local layer takes it when the
+   prompt is longer than its window), telemetry pushes through
+   sparse_addto and every decode token counted; the flash lane against
+   the plain one (``attn_local``, the band of two window-sized chunks),
+   teacher forced, within the arch's tolerance (``SERVES``: twice the
+   drift of the two lanes at the reduced width and full depth on the
+   CPU); and the first 6 (gemma3: five local layers and a global one)
+   and 3 (recurrentgemma: two RG-LRU layers and a local one) layers at
+   full width on the card against the CPU within 2e-2, at a prompt just
+   past the window (1 040 and 2 064 tokens, B = 1), so the band, the
+   ring pack and the kernel's window run. Kernel 11 joins the kernel
+   check at both phases' shapes, (4, 32, 16, 2 048, 128, window 1 024)
+   and (2, 16, 1, 4 096, 256, window 2 048). Each phase prints its
+   prefill seconds, decode tokens/s, peak memory and the card's busy
+   share of a profiled prefill and decode step.
 
 Launch counts are set to 0 just before each path run on the card and read
 just after it; every kernel must have launched in the path. The two
@@ -147,8 +171,27 @@ LOCAL_ACCUM, LA_SLOTS, LA_CALLS = 8, 262_144, 16     # phase f
 BUCKET = 6_553_600     # 25 MiB fp32: PyTorch DDP's default bucket_cap_mb
 FOLD_ROUNDS, BATCH_ROWS = 8, 16
 MODES = ("xla-psum", "fp32-ring", "netrpc", "netrpc-opt")
-ARCH, PROMPT, DECODE, SERVE_BATCH = "qwen2.5-3b", 2048, 32, 4     # phase i
-SMALL_LAYERS, SMALL_PROMPT, SMALL_BATCH, SMALL_DECODE = 2, 256, 2, 8
+ARCH = "qwen2.5-3b"     # phases i and j
+# the serve phases at full width and depth: prompt x batch, greedy decode
+# steps, the flash vs plain lane tolerance at full depth (max|d| / max|ref|
+# of the logits over the steps, teacher forced: about twice the drift of
+# the two lanes at the reduced width and the model's full depth on the
+# CPU, at the same batch, 32 decode steps and a prompt of twice the
+# window, three weight draws: qwen2.5-3b 3.0e-2 (2.7e-2 to 3.5e-2 in a
+# later run), gemma3-27b 3.4e-2 to 4.4e-2, recurrentgemma-9b 2.9e-2 to
+# 4.2e-2), and the cut that runs on the card and on the CPU (layers,
+# prompt, batch, decode steps): for l and m a prompt just past the window,
+# so the band, the ring pack and the kernel's window run
+SERVES = {
+    "i": dict(arch=ARCH, prompt=2048, decode=32, batch=4, lanes_tol=6e-2,
+              cut=2, cut_prompt=256, cut_batch=2, cut_decode=8),
+    "l": dict(arch="gemma3-27b", prompt=2048, decode=32, batch=4,
+              lanes_tol=9e-2, cut=6, cut_prompt=1040, cut_batch=1,
+              cut_decode=4),
+    "m": dict(arch="recurrentgemma-9b", prompt=4096, decode=32, batch=2,
+              lanes_tol=9e-2, cut=3, cut_prompt=2064, cut_batch=1,
+              cut_decode=4),
+}
 # phase j: train at full width; the card-vs-CPU step at 2 layers
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 36, 1024, 2, 3
 TRAIN_SMALL_LAYERS, TRAIN_SMALL_SEQ, TRAIN_CPU_STEP = 2, 256, 5
@@ -161,13 +204,15 @@ MV_RTOL = 3e-2         # card vs CPU m and v, per leaf, relative norm
 RAGGED = BUCKET - 1000    # phase k: a stream that pads to whole tiles
 SEED = 0
 PROFILE_TRIES = 3      # profiles of one timing before it falls back to events
-LANES_TOL = 6e-2       # flash vs plain lane, 36 layers (max|d| / max|ref|)
-CPU_TOL = 2e-2         # card vs CPU, 2 layers
+CPU_TOL = 2e-2         # card vs CPU, a serve phase's cut
 FLASH_ATOL, FLASH_RTOL = 2e-2, 5e-2
-# (B, H, KV, S, D, window): the prefill's shape, gemma3's window, ragged S,
-# recurrentgemma-9b's local layer (D = 256, window 2 048) at B = 1
+# (B, H, KV, S, D, window): qwen2.5-3b's prefill (phase i), gemma3's window
+# at qwen's heads, ragged S, recurrentgemma-9b's local layer at B = 1, and
+# the shapes of phases l and m: gemma3-27b's local layers (H = 32, KV = 16)
+# and recurrentgemma-9b's (MQA, D = 256) at their prompts
 FLASH_CHECKS = ((4, 16, 2, 2048, 128, None), (4, 16, 2, 2048, 128, 1024),
-                (2, 16, 2, 1000, 128, None), (1, 16, 1, 4096, 256, 2048))
+                (2, 16, 2, 1000, 128, None), (1, 16, 1, 4096, 256, 2048),
+                (4, 32, 16, 2048, 128, 1024), (2, 16, 1, 4096, 256, 2048))
 REPLACES = {
     "fused_addto": "src/repro/kernels/fused_gpv.py:67",
     "fused_scatter": "src/repro/kernels/fused_gpv.py:113",
@@ -940,8 +985,8 @@ def flash_work(b, h, kv, s, d, window) -> tuple[int, int]:
 def check_flash(torch) -> dict:
     """Kernel 11 against its plain version at FLASH_CHECKS, each case then
     timed beside PyTorch's scaled_dot_product_attention (the yardstick;
-    the port never calls it; a window goes to it as a boolean mask); the
-    prefill's shape also beside the plain version."""
+    the port never calls it; a window goes to it as a boolean mask) and
+    the plain version."""
     from repro_torch.kernels import flash_attn
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for i, (b, h, kv, s, d, window) in enumerate(FLASH_CHECKS):
@@ -986,6 +1031,7 @@ def check_flash(torch) -> dict:
                               match="flash_k_")
         library_ms, _ = device_ms(torch, library, lambda: None, 20, match="",
                                   launches=None)
+        plain_ms = event_ms(torch, plain, lambda: None, 5)
         flops, nbytes = flash_work(*case)
         bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
         bound_by = "operations" if flops / BF16_FLOPS \
@@ -996,12 +1042,12 @@ def check_flash(torch) -> dict:
               f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.4f} of "
               f"bound_ms={bound_ms:.6f} ({bound_by}: {flops / 1e9:.2f} "
               f"GFLOP, {nbytes / 1e6:.1f} MB); library_ms={library_ms:.6f} "
-              f"({flops / library_ms / 1e9:.1f} TFLOP/s)", flush=True)
-        if min(ms, library_ms) < bound_ms:
+              f"({flops / library_ms / 1e9:.1f} TFLOP/s); plain_ms="
+              f"{plain_ms:.6f}", flush=True)
+        if min(ms, library_ms, plain_ms) < bound_ms:
             fail(f"flash_attention {case}: a time below bound_ms: the timer "
                  f"failed")
         if i == 0:                  # the prefill's shape: the JSON row
-            plain_ms = event_ms(torch, plain, lambda: None, 5)
             print(f"kernel flash_attention {case}: plain_ms={plain_ms:.6f}; "
                   f"back-to-back events: kernel "
                   f"{loop_ms(torch, kernel, 20):.6f} ms, library "
@@ -1502,14 +1548,23 @@ def check_clear_policies(torch) -> dict:
     return counts
 
 
-# -- phase i: serving qwen2.5-3b ----------------------------------------------
+# -- phases i, l and m: serving at full width and depth -----------------------
 
 def serve_run(device, params, flash, shape: dict, feed=None) -> dict:
-    """``serve`` of ARCH on ``device`` with ``params``; ``shape`` holds
+    """``serve`` on ``device`` with ``params``; ``shape`` holds arch,
     prompt_len, decode_n, batch and the depth cut (reduced, layers)."""
     from repro_torch.launch.serve import serve
-    return serve(arch=ARCH, device=device, params=params, flash=flash,
-                 feed=feed, **shape)
+    return serve(device=device, params=params, flash=flash, feed=feed,
+                 **shape)
+
+
+def flash_layers(cfg, prompt: int) -> int:
+    """The layers whose prefill takes the flash kernel at ``prompt``
+    tokens: every global layer, and a local one when the prompt is longer
+    than its window (the reference's routing)."""
+    return sum(n * sum(bt == "global" or (bt == "local" and prompt
+                                          > cfg.window) for bt in pat)
+               for pat, n in cfg.pattern_groups)
 
 
 def lanes_err(a: dict, b: dict, vocab: int) -> float:
@@ -1558,93 +1613,119 @@ def busy_share(torch, fn, steps: int = 1) -> tuple[float, float, list]:
         [(k[:60], round(us / 1e3, 3)) for k, us in top]
 
 
-def profile_serve(torch, params, cfg) -> None:
-    """Where the time of phase i goes: one flash prefill and four decode
-    steps of the same shapes, each under the profiler, on warm weights."""
+def profile_serve(torch, params, cfg, sp: dict, label: str) -> None:
+    """Where the time of a serve phase goes: one flash prefill and four
+    decode steps of the same shapes, each under the profiler, on warm
+    weights."""
     from repro_torch.launch.serve import grow_cache
     from repro_torch.data import pipeline
     from repro_torch.models import api
-    dcfg = pipeline.DataConfig(vocab=cfg.vocab, batch=SERVE_BATCH,
-                               seq_len=PROMPT - 1, kind="uniform")
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, batch=sp["batch"],
+                               seq_len=sp["prompt"] - 1, kind="uniform")
     tokens = pipeline.make_batch(dcfg, 0)["tokens"].cuda()
     state = {}
 
     def prefill():
         state["logits"], cache = api.prefill(params, cfg,
                                              {"tokens": tokens}, flash=True)
-        state["cache"] = grow_cache(cache, PROMPT + DECODE)
+        state["cache"] = grow_cache(cache, cfg, sp["batch"],
+                                    sp["prompt"] + sp["decode"])
 
     def decode():
         tok = state["logits"].argmax(-1)
         for i in range(4):
-            logits, _ = api.decode_step(params, cfg, tok, PROMPT + i,
+            logits, _ = api.decode_step(params, cfg, tok, sp["prompt"] + i,
                                         state["cache"])
             tok = logits.argmax(-1)
 
     for name, fn, steps in (("prefill", prefill, 1), ("decode", decode, 4)):
         wall, share, top = busy_share(torch, fn, steps)
-        print(f"path i_serve profile, {name}: {wall * 1e3:.3f} ms a step "
+        print(f"path {label} profile, {name}: {wall * 1e3:.3f} ms a step "
               f"(wall, profiler on), card busy {share:.4f} of it; top "
               f"kernels (ms): {top}", flush=True)
 
 
-def check_serve(torch, smi: str) -> dict:
-    """Phase i on the card, with its three comparisons."""
+def check_serve(torch, smi: str, phase: str) -> dict:
+    """A serve phase (i, l or m of SERVES) on the card, with its three
+    comparisons: the flash launches a prefill, the flash lane against the
+    plain one at full depth, and a cut depth on the card against the
+    CPU."""
+    from repro_torch.kernels import ops
     from repro_torch.launch.serve import model_config
     from repro_torch.models import api
-    cfg = model_config(ARCH)
-    shape = dict(prompt_len=PROMPT, decode_n=DECODE, batch=SERVE_BATCH)
+    sp = SERVES[phase]
+    label = f"{phase}_serve"
+    cfg = model_config(sp["arch"])
+    shape = dict(arch=sp["arch"], prompt_len=sp["prompt"],
+                 decode_n=sp["decode"], batch=sp["batch"])
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params = api.init_params(SEED, cfg, device="cuda")
     torch.cuda.synchronize()
-    print(f"path i_serve: {ARCH}, {cfg.n_layers} layers, d_model "
+    print(f"path {label}: {sp['arch']}, {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {api.count_params(cfg) / 1e9:.3f} B parameters "
-          f"drawn on the card in {time.perf_counter() - t0:.3f} s",
-          flush=True)
+          f"({torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB) drawn on "
+          f"the card in {time.perf_counter() - t0:.3f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
     run, counts, secs = counted(
         torch, lambda: serve_run(None, params, True, shape),
-        "phase i (serve)", ("flash_attention", "sparse_addto"))
+        f"phase {phase} (serve)", ("flash_attention", "sparse_addto"))
     peak = torch.cuda.max_memory_allocated()
-    if counts["flash_attention"] != cfg.n_layers:
-        fail(f"phase i: {counts['flash_attention']} flash launches in one "
-             f"prefill of {cfg.n_layers} layers")
-    serve_oracle(run, shape, cfg.vocab, "phase i")
-    print(f"path i_serve: {secs:.3f} s; prefill {PROMPT} tokens x"
-          f"{SERVE_BATCH}: {run['prefill_s']:.6f} s; decode {DECODE} steps: "
-          f"{run['decode_s']:.6f} s, "
-          f"{SERVE_BATCH * DECODE / run['decode_s']:.3f} tokens/s; peak "
-          f"device memory {peak / 2 ** 30:.3f} GiB; launches {counts}",
+    want = flash_layers(cfg, sp["prompt"])
+    if counts["flash_attention"] != want:
+        fail(f"phase {phase}: {counts['flash_attention']} flash launches in "
+             f"one prefill, not the {want} of its {cfg.n_layers} layers "
+             f"that take the kernel at {sp['prompt']} tokens")
+    serve_oracle(run, shape, cfg.vocab, f"phase {phase}")
+    print(f"path {label}: {secs:.3f} s; prefill {sp['prompt']} tokens x"
+          f"{sp['batch']}: {run['prefill_s']:.6f} s; decode {sp['decode']} "
+          f"steps: {run['decode_s']:.6f} s, "
+          f"{sp['batch'] * sp['decode'] / run['decode_s']:.3f} tokens/s; "
+          f"peak device memory {peak / 2 ** 30:.3f} GiB; launches {counts}",
           flush=True)
-    print(f"path i_serve card: {smi}", flush=True)
-    profile_serve(torch, params, cfg)
+    print(f"path {label} card: {smi}", flush=True)
+    profile_serve(torch, params, cfg, sp, label)
     plain = serve_run(None, params, False, shape,
                       feed=run["tokens"][:, :-1])
     err = lanes_err(run, plain, cfg.vocab)
-    if err > LANES_TOL:
-        fail(f"phase i: the flash and plain lanes differ by {err:.6f} > "
-             f"{LANES_TOL} (max|d| / max|ref| of the logits)")
-    print(f"path i_serve: flash vs plain attention on the card, teacher "
-          f"forced: max|d|/max|ref| {err:.6f} (tolerance {LANES_TOL})",
-          flush=True)
+    if err > sp["lanes_tol"]:
+        fail(f"phase {phase}: the flash and plain lanes differ by "
+             f"{err:.6f} > {sp['lanes_tol']} (max|d| / max|ref| of the "
+             f"logits)")
+    print(f"path {label}: flash vs plain attention on the card, teacher "
+          f"forced: max|d|/max|ref| {err:.6f} (tolerance "
+          f"{sp['lanes_tol']})", flush=True)
     del params, run, plain
-    small_cfg = model_config(ARCH, layers=SMALL_LAYERS)
-    small = dict(prompt_len=SMALL_PROMPT, decode_n=SMALL_DECODE,
-                 batch=SMALL_BATCH, layers=SMALL_LAYERS)
-    p_cpu = api.init_params(SEED, small_cfg, device="cpu")
-    p_card = copy.deepcopy(p_cpu).to("cuda")
+    torch.cuda.empty_cache()
+    small_cfg = model_config(sp["arch"], layers=sp["cut"])
+    small = dict(arch=sp["arch"], prompt_len=sp["cut_prompt"],
+                 decode_n=sp["cut_decode"], batch=sp["cut_batch"],
+                 layers=sp["cut"])
+    # drawn on the card (a CPU draw of billions of values takes minutes),
+    # the same weights copied to the CPU
+    p_card = api.init_params(SEED, small_cfg, device="cuda")
+    p_cpu = api.map_tree(lambda t: t.cpu(), p_card)
+    ops.reset_counts()
     card = serve_run(None, p_card, True, small)
+    got = ops.launch_counts()["flash_attention"]
+    want = flash_layers(small_cfg, sp["cut_prompt"])
+    if got != want:
+        fail(f"phase {phase}: {got} flash launches at {sp['cut']} layers, "
+             f"not {want}")
     t0 = time.perf_counter()
     cpu = serve_run("cpu", p_cpu, True, small, feed=card["tokens"][:, :-1])
-    serve_oracle(card, small, small_cfg.vocab, "phase i (2 layers)")
+    serve_oracle(card, small, small_cfg.vocab, f"phase {phase} "
+                 f"({sp['cut']} layers)")
     err = lanes_err(card, cpu, small_cfg.vocab)
     if err > CPU_TOL:
-        fail(f"phase i: {SMALL_LAYERS} layers on the card differ from the "
-             f"CPU by {err:.6f} > {CPU_TOL}")
-    print(f"path i_serve: {SMALL_LAYERS} layers at full width, S="
-          f"{SMALL_PROMPT}, B={SMALL_BATCH}: card vs CPU ("
+        fail(f"phase {phase}: {sp['cut']} layers on the card differ from "
+             f"the CPU by {err:.6f} > {CPU_TOL}")
+    print(f"path {label}: {sp['cut']} layers at full width, S="
+          f"{sp['cut_prompt']}, B={sp['cut_batch']}: card vs CPU ("
           f"{time.perf_counter() - t0:.3f} s) max|d|/max|ref| {err:.6f} "
           f"(tolerance {CPU_TOL})", flush=True)
+    del p_card, p_cpu, card, cpu
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -1949,17 +2030,26 @@ def rehearse(scale_down: int = 64) -> None:
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import model_config
     from repro_torch.models import api
-    cfg = model_config(ARCH, reduced=True, layers=2)
-    shape = dict(prompt_len=64, decode_n=4, batch=2, reduced=True, layers=2)
-    params = api.init_params(SEED, cfg, device="cpu")
-    ops.reset_counts()
-    run = serve_run("cpu", params, True, shape)
-    if ops.plain_counts()["flash_attention"] != cfg.n_layers:
-        fail("rehearsal: the flash lane did not run once a layer")
-    serve_oracle(run, shape, cfg.vocab, "rehearsal of phase i")
-    plain = serve_run("cpu", params, False, shape, feed=run["tokens"][:, :-1])
-    if lanes_err(run, plain, cfg.vocab) > LANES_TOL:
-        fail("rehearsal: the flash and plain lanes disagree")
+    # the serve phases at the reduced width: i at 2 layers, l and m at
+    # their pattern's reduced depth (8 and 5 layers) and at the cut, each
+    # prompt twice the reduced window
+    for phase, sp in SERVES.items():
+        for layers in ((2,) if phase == "i" else (None, sp["cut"])):
+            cfg = model_config(sp["arch"], reduced=True, layers=layers)
+            shape = dict(arch=sp["arch"], prompt_len=64, decode_n=4,
+                         batch=2, reduced=True, layers=layers)
+            params = api.init_params(SEED, cfg, device="cpu")
+            ops.reset_counts()
+            run = serve_run("cpu", params, True, shape)
+            if ops.plain_counts()["flash_attention"] != flash_layers(cfg, 64):
+                fail(f"rehearsal of phase {phase}: the flash lane did not "
+                     f"run once a layer that takes it")
+            serve_oracle(run, shape, cfg.vocab, f"rehearsal of phase {phase}")
+            plain = serve_run("cpu", params, False, shape,
+                              feed=run["tokens"][:, :-1])
+            if lanes_err(run, plain, cfg.vocab) > sp["lanes_tol"]:
+                fail(f"rehearsal of phase {phase}: the flash and plain lanes "
+                     f"disagree")
     small = dict(device="cpu", reduced=True, layers=2, seq=64)
     ops.reset_counts()
     netrpc = train_run("netrpc", **small)
@@ -1970,7 +2060,36 @@ def rehearse(scale_down: int = 64) -> None:
     modes_oracle(netrpc, train_run("fp32-ring", **small),
                  "rehearsal of phase j")
     int8_wire_oracle(drive_int8_wire(torch, "cpu"))
-    print("rehearsal: phases a-k ran on the CPU and met their oracles")
+    print("rehearsal: phases a-m ran on the CPU and met their oracles")
+
+
+def lane_drift(draws: int = 3) -> None:
+    """The drift behind ``SERVES``' lane tolerances, on the CPU: each serve
+    phase's arch at the reduced width and its full depth, the flash lane
+    against the plain one teacher forced, at the phase's batch, 32 decode
+    steps and a prompt of twice the reduced window, for ``draws`` weight
+    draws (some minutes)."""
+    from dataclasses import replace
+
+    from repro_torch.launch.serve import model_config
+    from repro_torch.models import api
+    for phase, sp in SERVES.items():
+        full = model_config(sp["arch"])
+        cfg = replace(model_config(sp["arch"], reduced=True),
+                      pattern_groups=full.pattern_groups,
+                      n_layers=full.n_layers)
+        errs = []
+        for seed in range(draws):
+            params = api.init_params(seed, cfg, device="cpu")
+            kw = dict(arch=cfg, prompt_len=2 * cfg.window, decode_n=32,
+                      batch=sp["batch"])
+            a = serve_run("cpu", params, True, kw)
+            b = serve_run("cpu", params, False, kw, feed=a["tokens"][:, :-1])
+            errs.append(lanes_err(a, b, cfg.vocab))
+        print(f"lane drift, phase {phase}: {sp['arch']} at the reduced width "
+              f"and {cfg.n_layers} layers: " + ", ".join(
+                  f"{e:.6f}" for e in errs) + f" (tolerance "
+              f"{sp['lanes_tol']})", flush=True)
 
 
 def main() -> int:
@@ -1998,9 +2117,11 @@ def main() -> int:
     counts = {}
     for label, check in (("a-e", check_path), ("f", check_local_accum),
                          ("g", check_syncagtr), ("h", check_clear_policies),
-                         ("i", lambda t: check_serve(t, smi)),
+                         ("i", lambda t: check_serve(t, smi, "i")),
                          ("j", lambda t: check_train(t, smi)),
-                         ("k", lambda t: check_int8_wire(t, kernels))):
+                         ("k", lambda t: check_int8_wire(t, kernels)),
+                         ("l", lambda t: check_serve(t, smi, "l")),
+                         ("m", lambda t: check_serve(t, smi, "m"))):
         t0 = time.perf_counter()
         for name, c in check(torch).items():
             counts[name] = counts.get(name, 0) + c
