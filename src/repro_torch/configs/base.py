@@ -114,10 +114,10 @@ class ArchConfig:
         return count_params(self)
 
     def n_active_params(self) -> int:
-        """Every block the port builds is dense: all parameters are
-        active."""
+        """Parameters a token runs through: an MoE layer's experts count
+        top_k of n_experts."""
         from repro_torch.models.api import count_params
-        return count_params(self)
+        return count_params(self, active_only=True)
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests."""

@@ -5,19 +5,24 @@
 
 The port of ``repro/launch/serve.py`` on one card (``--device cpu`` for
 the CPU, with ``--reduced`` for the tiny same-family config): prefill
-builds the cache (K/V of the attention layers, a ring of the window for
-a ``local`` layer, the state and conv tail of an ``rglru`` layer), the
-global K/V grow with zeros to prompt + decode positions, and greedy
+builds the cache (K/V of the attention layers, ``moe`` ones included, a
+ring of the window for a ``local`` layer, the state and conv tail of an
+``rglru`` or ``ssd`` layer), the global K/V grow with zeros to prompt +
+decode positions, and greedy
 decode steps consume and update it, each pushing its token count and
 step time to the serve telemetry on the port's ``IncRuntime``. Prefill
 attention runs through the flash kernel (``--no-flash`` for the dense
 lane); a local layer takes it when the prompt is longer than its window.
 Weights are random, from a seed. ``--layers N`` cuts the depth to the
 first N layers, for checks that compare the card with the CPU at full
-width. gemma3-27b and recurrentgemma-9b serve the same way:
+width. gemma3-27b, recurrentgemma-9b, moonshot-v1-16b-a3b (MoE) and
+mamba2-780m (SSD) serve the same way; an ``ssd`` prompt longer than
+one SSD chunk (256 tokens) must be a whole number of chunks:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \
         --prompt-len 2048 --decode 32 --batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
+        --prompt-len 4096 --decode 32 --batch 4
 """
 from __future__ import annotations
 

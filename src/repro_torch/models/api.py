@@ -1,6 +1,6 @@
 """Uniform model API: the port of ``repro/models/api.py`` for stacks of
-the block types ``models/blocks.py`` ports (``global``, ``local`` and
-``rglru``), in any pattern of groups.
+the block types ``models/blocks.py`` ports (``global``, ``local``,
+``moe``, ``ssd`` and ``rglru``), in any pattern of groups.
 
   init_params(seed, cfg, device)           -> Tree (bf16 leaves)
   forward(params, cfg, batch, remat)       -> (logits, aux)
@@ -9,7 +9,7 @@ the block types ``models/blocks.py`` ports (``global``, ``local`` and
   decode_step(params, cfg, token, pos, cache) -> (logits, cache)
   cache_specs(cfg, batch, seq_len)         -> cache of meta tensors
   input_specs(cfg, shape)                  -> dict of meta tensors
-  param_shapes(cfg) / count_params(cfg)    -> meta Tree / int
+  param_shapes(cfg) / count_params(cfg, active_only) -> meta Tree / int
   params_from_jax / opt_from_jax / cache_from_jax / cache_to_numpy: the
   JAX package's trees (as numpy) across, for the tests
 
@@ -19,7 +19,7 @@ keys spell the reference's tree path (``groups.0.s0.attn.wq``). A Python
 loop over the layers replaces ``lax.scan``. The cache is a tuple per
 pattern group of ``{"s{i}": entry}`` stacked over the layers (an entry is
 ``{"k", "v"}`` for an attention block, ``{"state", "conv"}`` for
-``rglru``), and ``decode_step`` updates it in place.
+``rglru`` and ``ssd``), and ``decode_step`` updates it in place.
 
 ``train_loss`` runs the stack under autograd; ``remat=True`` wraps each
 layer in ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint``
@@ -129,10 +129,18 @@ def param_shapes(cfg: ArchConfig) -> Tree:
     return Tree(_init_tree(None, cfg, torch.device("meta")))
 
 
-def count_params(cfg: ArchConfig) -> int:
+def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
     """Parameter count from the port's own shapes, built on the meta
-    device."""
-    return sum(t.numel() for t in param_shapes(cfg).parameters())
+    device; ``active_only`` counts top_k of the n_experts of each MoE
+    layer's expert leaves, as the reference does."""
+    total = expert = 0
+    for name, t in param_shapes(cfg).named_parameters():
+        total += t.numel()
+        if "experts" in name.split("."):
+            expert += t.numel()
+    if active_only and cfg.n_experts:
+        total -= expert * (1 - cfg.top_k / cfg.n_experts)
+    return int(total)
 
 
 # ---------------------------------------------------------------------------

@@ -41,9 +41,9 @@ Q_CHUNK = 1_024
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet: only the 'global', 'local' and 'rglru' "
-        f"blocks run in repro_torch (ROADMAP: the other block types come in "
-        f"a later slice)")
+        f"{what} is not ported yet: only the 'global', 'local', 'moe', "
+        f"'ssd' and 'rglru' blocks run in repro_torch (ROADMAP: the other "
+        f"block types come in a later slice)")
 
 
 # ---------------------------------------------------------------------------

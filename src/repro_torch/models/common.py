@@ -11,21 +11,48 @@ Random init takes an explicit ``torch.Generator``. It cannot reproduce
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 PARAM_DTYPE = torch.bfloat16
 COMPUTE_DTYPE = torch.bfloat16
 
 
+# a draw larger than this many fp32 bytes goes a slice of the leading
+# (layer) dim at a time into the finished leaf: moonshot-v1-16b-a3b's
+# expert leaves (48, 64, 2048, 1408) would take 35.4 GB in one fp32 draw
+# and as much again scaled, more than the card holds beside the leaves
+# already drawn. Every leaf of qwen2.5-3b, gemma3-27b and
+# recurrentgemma-9b (the largest, gemma3's embedding, 5.6 GB) stays one
+# draw, so their values do not change.
+DRAW_LIMIT_BYTES = 8 << 30
+
+
+def draw(gen: torch.Generator | None, shape, device, fn) -> torch.Tensor:
+    """fp32 ``fn(shape)`` (``torch.randn``, ``torch.rand``) drawn from
+    ``gen`` on ``device``; shapes only on the meta device."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return fn(shape, generator=gen, dtype=torch.float32, device=device)
+
+
 def dense_init(gen: torch.Generator | None, shape, fan_in: int | None = None,
                dtype=PARAM_DTYPE, device="cpu") -> torch.Tensor:
-    """N(0, fan_in**-1) drawn in fp32 from ``gen`` on ``device``, then cast.
-    On the meta device (shapes only) ``gen`` is not used."""
+    """N(0, fan_in**-1) drawn in fp32 from ``gen`` on ``device``, then cast;
+    past ``DRAW_LIMIT_BYTES`` of fp32 one slice of the leading dim at a
+    time, into the leaf. On the meta device (shapes only) ``gen`` is not
+    used."""
     device = torch.device(device)
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
     fan = fan_in if fan_in is not None else shape[0]
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    if 4 * math.prod(shape) > DRAW_LIMIT_BYTES and len(shape) > 1:
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for i in range(shape[0]):
+            out[i] = dense_init(gen, shape[1:], fan, dtype, device)
+        return out
+    x = draw(gen, shape, device, torch.randn)
     return (x * fan ** -0.5).to(dtype)
 
 

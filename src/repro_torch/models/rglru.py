@@ -20,32 +20,25 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, draw
 from repro_torch.models.ssm import causal_conv1d, conv1d_step
 
 _C = 8.0
 N_GATE_BLOCKS = 16
 
 
-def _draw(gen, shape, device, fn) -> torch.Tensor:
-    """fp32 ``fn(shape)`` drawn from ``gen``; shapes only on meta."""
-    if torch.device(device).type == "meta":
-        return torch.empty(shape, dtype=torch.float32, device="meta")
-    return fn(shape, generator=gen, dtype=torch.float32, device=device)
-
-
 def init_rglru(gen, d_model: int, rnn_width: int, d_conv: int = 4, *,
                lead: tuple = (), device="cpu") -> dict:
     """One mixer's parameters, every leaf with ``lead`` (the layer dim) in
     front."""
-    u = 0.9 + 0.099 * _draw(gen, lead + (rnn_width,), device, torch.rand)
+    u = 0.9 + 0.099 * draw(gen, lead + (rnn_width,), device, torch.rand)
     # Lambda chosen so a = u at r = 1 (softplus^-1 of -log(u)/c)
     lam = torch.log(torch.expm1(-torch.log(u) / _C))
     nb = N_GATE_BLOCKS if rnn_width % N_GATE_BLOCKS == 0 else 1
     c = rnn_width // nb
 
     def bd():
-        return (_draw(gen, lead + (nb, c, c), device, torch.randn)
+        return (draw(gen, lead + (nb, c, c), device, torch.randn)
                 * (c ** -0.5)).to(torch.bfloat16)
 
     def zeros():
@@ -56,7 +49,7 @@ def init_rglru(gen, d_model: int, rnn_width: int, d_conv: int = 4, *,
                              fan_in=d_model, device=device),
         "w_in_b": dense_init(gen, lead + (d_model, rnn_width),
                              fan_in=d_model, device=device),
-        "conv_w": _draw(gen, lead + (d_conv, rnn_width), device,
+        "conv_w": draw(gen, lead + (d_conv, rnn_width), device,
                         torch.randn) * (d_conv ** -0.5),
         "conv_b": zeros(),
         "wr": bd(),

@@ -1,16 +1,26 @@
-"""Causal depthwise convolution of the recurrent mixers.
+"""Mamba-2 mixer with the SSD (state-space duality) chunked algorithm,
+and the causal depthwise convolution it shares with the RG-LRU mixer.
 
-The port of the two helpers of ``repro/models/ssm.py`` that the RG-LRU
-mixer (``models/rglru.py``) uses: ``causal_conv1d`` over a sequence and
-``conv1d_step`` for one decode step. Both compute in fp32. The Mamba-2
-mixer of that module (``ssd_chunked``, ``init_mamba2``, ``mamba2_train``,
-``mamba2_decode``) comes with the ``ssd`` block, in a later slice of the
-port (ROADMAP).
+The port of ``repro/models/ssm.py`` (the minimal SSD formulation of
+arXiv:2405.21060): the sequence is split into chunks; the within-chunk
+terms are masked, decay-weighted matrix products (the "dual" attention
+form), and the chunk states pass through a sequential recurrence, a
+Python loop over the chunks where the reference calls ``lax.scan``. All
+decay arithmetic is fp32. The input projection keeps one leaf per
+component (z, x, B, C, dt), as the reference stores it.
+
+Decode is the recurrent form: an O(1) state update a token,
+h <- exp(dt*A) h + dt * x B^T, y = C h + D x. ``causal_conv1d`` and
+``conv1d_step`` compute in fp32; ``models/rglru.py`` uses them too.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.common import dense_init, draw, rms_norm
+
+SSD_CHUNK = 256
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
@@ -29,3 +39,154 @@ def conv1d_step(window: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
     """window: (B,K,C) (oldest first, newest = current input) -> (B,C)."""
     return torch.einsum("bkc,kc->bc", window.float(), w) + b
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2
+# ---------------------------------------------------------------------------
+
+def init_mamba2(gen, d_model: int, n_heads: int, head_dim: int,
+                d_state: int, d_conv: int, *, lead: tuple = (),
+                device="cpu") -> dict:
+    """One mixer's parameters, every leaf with ``lead`` (the layer dim) in
+    front: the projections bf16, the conv taps N(0, 1/K) and the rest fp32
+    (A = -exp(A_log) = -1, D = 1, zero biases and norm scale)."""
+    d_inner = n_heads * head_dim
+
+    def proj(n_in, n_out):
+        return dense_init(gen, lead + (n_in, n_out), fan_in=n_in,
+                          device=device)
+
+    def taps(c):
+        return draw(gen, lead + (d_conv, c), device, torch.randn) \
+            * (d_conv ** -0.5)
+
+    def const(n, value):
+        return torch.full(lead + (n,), value, dtype=torch.float32,
+                          device=device)
+    return {
+        "w_z": proj(d_model, d_inner),
+        "w_x": proj(d_model, d_inner),
+        "w_B": proj(d_model, d_state),
+        "w_C": proj(d_model, d_state),
+        "w_dt": proj(d_model, n_heads),
+        "conv_x": taps(d_inner),
+        "conv_B": taps(d_state),
+        "conv_C": taps(d_state),
+        "conv_bx": const(d_inner, 0.0),
+        "conv_bB": const(d_state, 0.0),
+        "conv_bC": const(d_state, 0.0),
+        "dt_bias": const(n_heads, 0.0),
+        "A_log": const(n_heads, 0.0),
+        "D": const(n_heads, 1.0),
+        "norm": const(d_inner, 0.0),
+        "w_out": proj(d_inner, d_model),
+    }
+
+
+def ssd_chunked(x_h: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                bmat: torch.Tensor, cmat: torch.Tensor, chunk: int):
+    """SSD over chunks of ``min(chunk, S)`` positions, which must divide S.
+
+    x_h: (B,S,H,P) values; dt: (B,S,H) fp32 step sizes; a: (H,) negative;
+    bmat/cmat: (B,S,N), one group shared by the heads. Returns (y
+    (B,S,H,P) fp32, the final state (B,H,P,N) fp32)."""
+    b, s, h, p = x_h.shape
+    n = bmat.shape[-1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"SSD: a sequence of {s} positions is not a "
+                         f"multiple of the chunk of {chunk}")
+    nc = s // chunk
+
+    x_dt = (x_h.float() * dt[..., None]).reshape(b, nc, chunk, h, p)
+    adt = (a * dt).reshape(b, nc, chunk, h)                  # <= 0
+    cums = torch.cumsum(adt, dim=2)                          # (b,c,l,h)
+    b_c = bmat.float().reshape(b, nc, chunk, n)
+    c_c = cmat.float().reshape(b, nc, chunk, n)
+
+    # within-chunk ("attention-like") term
+    cb = torch.einsum("bcln,bcsn->bcls", c_c, b_c)           # (b,c,l,l)
+    ct = cums.movedim(-1, 2)                                 # (b,c,h,l)
+    diff = ct[..., :, None] - ct[..., None, :]               # (b,c,h,l,l)
+    li = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                               device=x_h.device))
+    decay = torch.where(li, torch.exp(diff), 0.0)
+    y_diag = torch.einsum("bchls,bcls,bcshp->bclhp", decay, cb, x_dt)
+
+    # chunk states, then the sequential inter-chunk recurrence, which
+    # hands each chunk the state from before it
+    decay_states = torch.exp(cums[:, :, -1:, :] - cums)      # (b,c,l,h)
+    states = torch.einsum("bcln,bclh,bclhp->bchpn", b_c, decay_states,
+                          x_dt)
+    chunk_decay = torch.exp(cums[:, :, -1, :])               # (b,c,h)
+    state = torch.zeros((b, h, p, n), dtype=torch.float32,
+                        device=x_h.device)
+    before = []
+    for c in range(nc):
+        before.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + states[:, c]
+    states_prev = torch.stack(before, dim=1)                 # (b,c,h,p,n)
+
+    out_decay = torch.exp(cums)                              # (b,c,l,h)
+    y_off = torch.einsum("bcln,bchpn,bclh->bclhp", c_c, states_prev,
+                         out_decay)
+    return (y_diag + y_off).reshape(b, s, h, p), state
+
+
+def _project(p: dict, x: torch.Tensor):
+    return (x @ p["w_z"], x @ p["w_x"], x @ p["w_B"], x @ p["w_C"],
+            x @ p["w_dt"])
+
+
+def mamba2_train(p: dict, x: torch.Tensor, *, n_heads: int, head_dim: int,
+                 d_state: int, norm_eps: float, chunk: int = SSD_CHUNK):
+    """x: (B,S,d_model) -> (y (B,S,d_model), final state (B,H,P,N) fp32,
+    conv tail (B,K-1,d_inner+2N)): the tail is the pre-conv x|B|C inputs
+    of the last K-1 positions, the decode conv window's start."""
+    d_inner = n_heads * head_dim
+    z, xc_in, b_in, c_in, dt = _project(p, x)
+    xc = F.silu(causal_conv1d(xc_in, p["conv_x"], p["conv_bx"]))
+    bmat = F.silu(causal_conv1d(b_in, p["conv_B"], p["conv_bB"]))
+    cmat = F.silu(causal_conv1d(c_in, p["conv_C"], p["conv_bC"]))
+    dtp = F.softplus(dt.float() + p["dt_bias"])
+    a = -torch.exp(p["A_log"])
+    x_h = xc.reshape(*xc.shape[:2], n_heads, head_dim)
+    y, final = ssd_chunked(x_h, dtp, a, bmat, cmat, chunk)
+    y = y + p["D"][None, None, :, None] * x_h
+    y = y.reshape(*x.shape[:2], d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"], norm_eps)
+    k = p["conv_x"].shape[0]
+    conv_tail = torch.cat([xc_in, b_in, c_in], dim=-1)[:, -(k - 1):, :]
+    return y @ p["w_out"], final, conv_tail
+
+
+def mamba2_decode(p: dict, x1: torch.Tensor, ssm_state: torch.Tensor,
+                  conv_state: torch.Tensor, *, n_heads: int, head_dim: int,
+                  d_state: int, norm_eps: float):
+    """x1: (B,1,d_model); ssm_state: (B,H,P,N) fp32; conv_state:
+    (B,K-1,d_inner+2N), the pre-conv x|B|C inputs. Returns (y
+    (B,1,d_model), new state, new conv_state), new tensors."""
+    d_inner = n_heads * head_dim
+    z, xc_in, b_in, c_in, dt = _project(p, x1[:, 0])
+    new_in = torch.cat([xc_in, b_in, c_in], dim=-1)
+    window = torch.cat([conv_state, new_in[:, None, :].to(conv_state.dtype)],
+                       dim=1)
+    conv_state = window[:, 1:]
+    wx = window[..., :d_inner]
+    wb = window[..., d_inner:d_inner + d_state]
+    wc = window[..., d_inner + d_state:]
+    xc = F.silu(conv1d_step(wx, p["conv_x"], p["conv_bx"]))
+    bvec = F.silu(conv1d_step(wb, p["conv_B"], p["conv_bB"]))
+    cvec = F.silu(conv1d_step(wc, p["conv_C"], p["conv_bC"]))
+    dtp = F.softplus(dt.float() + p["dt_bias"])                  # (B,H)
+    a = -torch.exp(p["A_log"])
+    da = torch.exp(dtp * a)
+    x_h = xc.reshape(-1, n_heads, head_dim).float()
+    ssm_state = (ssm_state * da[..., None, None]
+                 + torch.einsum("bh,bhp,bn->bhpn", dtp, x_h, bvec))
+    y = torch.einsum("bhpn,bn->bhp", ssm_state, cvec)
+    y = y + p["D"][None, :, None] * x_h
+    y = y.reshape(-1, 1, d_inner).to(x1.dtype)
+    y = rms_norm(y * F.silu(z[:, None, :]), p["norm"], norm_eps)
+    return y @ p["w_out"], ssm_state, conv_state

@@ -135,7 +135,8 @@ def test_configs_are_the_reference_configs():
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "phi4-mini-3.8b",
                                   "stablelm-1.6b", "gemma3-27b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "mamba2-780m",
+                                  "moonshot-v1-16b-a3b", "grok-1-314b"])
 def test_count_params_matches_reference(arch):
     from repro.configs.base import get_arch as jget
     from repro_torch.configs.base import get_arch
@@ -143,6 +144,12 @@ def test_count_params_matches_reference(arch):
     want = japi.count_params(jget(arch))
     assert api.count_params(get_arch(arch)) == want
     assert get_arch(arch).n_params() == want
+    active = japi.count_params(jget(arch), active_only=True)
+    assert api.count_params(get_arch(arch), active_only=True) == active
+    assert get_arch(arch).n_active_params() == active
+    assert (active < want) == (get_arch(arch).n_experts > 0)
+    if arch == "moonshot-v1-16b-a3b":
+        assert (want, active) == (27_722_450_944, 3_638_757_376)
     if arch == "qwen2.5-3b":
         assert 3.08e9 < want < 3.10e9
     if arch == "gemma3-27b":
@@ -151,9 +158,9 @@ def test_count_params_matches_reference(arch):
         assert want == 8_578_519_040
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-90b"])
 def test_other_block_types_raise(arch):
-    """The block types still to come (ssd, moe) raise."""
+    """The block types still to come (selfcross, cross) raise."""
     from repro_torch.configs.base import get_arch
     with pytest.raises(NotImplementedError, match="not ported"):
         api.count_params(get_arch(arch))

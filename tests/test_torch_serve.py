@@ -29,7 +29,8 @@ LOGIT_TOL = 2e-2               # as tests/test_torch_model.py
 PROMPT, DECODE, BATCH = 32, 4, 2
 # the prompt of each served arch: longer than the reduced window (32) where
 # the arch has local layers, so they take the band, the ring and the kernel
-PROMPTS = {"qwen2.5-3b": PROMPT, "gemma3-27b": 64, "recurrentgemma-9b": 64}
+PROMPTS = {"qwen2.5-3b": PROMPT, "gemma3-27b": 64, "recurrentgemma-9b": 64,
+           "moonshot-v1-16b-a3b": PROMPT, "mamba2-780m": 64}
 
 
 def _reference_inputs(arch="qwen2.5-3b", prompt=PROMPT):
@@ -119,7 +120,8 @@ def test_grow_cache_pads_with_zeros():
     assert not k[:, :, 8:].any()
 
 
-@pytest.mark.parametrize("arch", ["gemma3-27b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["gemma3-27b", "recurrentgemma-9b",
+                                  "moonshot-v1-16b-a3b", "mamba2-780m"])
 def test_grow_cache_matches_reference(arch):
     """The reference's rule (pad what differs from cache_specs): a local
     ring and a recurrent state and conv tail keep their shape and values
@@ -155,11 +157,16 @@ def test_grow_cache_matches_reference(arch):
     if arch == "gemma3-27b":       # local rings kept, global K/V grown
         assert kinds == {("k", True), ("v", True), ("k", False),
                          ("v", False)}
-    else:                          # every entry kept: rings and states
+    elif arch == "recurrentgemma-9b":   # every entry kept: rings, states
         assert kinds == {("k", True), ("v", True), ("state", True),
                          ("conv", True)}
-    with pytest.raises(ValueError, match="does not grow"):
-        tserve.grow_cache(cache, cfg, BATCH, 16)     # a ring past W = 32
+    elif arch == "moonshot-v1-16b-a3b":     # the moe layer's K/V grown
+        assert kinds == {("k", False), ("v", False)}
+    else:                          # the ssd state and conv tail kept
+        assert kinds == {("state", True), ("conv", True)}
+    if arch in ("gemma3-27b", "recurrentgemma-9b"):
+        with pytest.raises(ValueError, match="does not grow"):
+            tserve.grow_cache(cache, cfg, BATCH, 16)   # a ring past W = 32
 
 
 def test_make_batch_is_a_function_of_seed_and_step():
@@ -226,11 +233,13 @@ def cuda():
 
 
 # (arch, layers, flash launches a prefill): the reduced qwen2.5-3b at two
-# layers, gemma3-27b (8) and recurrentgemma-9b (5) at their full pattern
-# depth, where every gemma3 layer and recurrentgemma's one local layer
-# take the kernel at the prompt of PROMPTS
+# layers, gemma3-27b (8), recurrentgemma-9b (5), moonshot-v1-16b-a3b (1)
+# and mamba2-780m (1) at their full pattern depth, where every gemma3
+# layer, recurrentgemma's one local layer and moonshot's moe layer take
+# the kernel at the prompt of PROMPTS, and mamba2's ssd layer none
 CUDA_SERVE = [("qwen2.5-3b", 2, 2), ("gemma3-27b", None, 8),
-              ("recurrentgemma-9b", None, 1)]
+              ("recurrentgemma-9b", None, 1), ("moonshot-v1-16b-a3b", None, 1),
+              ("mamba2-780m", None, 0)]
 
 
 @pytest.mark.cuda
