@@ -200,6 +200,7 @@ ARCH = "qwen2.5-3b"     # phases i and j
 # 0.069 and 0.152 over three weight draws (the card against the CPU:
 # 0.073, 0.079 and 0.129)
 O_CUT_TOL = 3e-1
+CPU_TOL = 2e-2         # card vs CPU, the other serve phases' cuts
 # the serve phases at full width and depth: prompt x batch, greedy decode
 # steps, the flash vs plain lane tolerance at full depth (max|d| / max|ref|
 # of the logits over the steps, teacher forced: about twice the drift of
@@ -215,20 +216,21 @@ O_CUT_TOL = 3e-1
 # and the cut that runs on the card and on the CPU (layers, prompt, batch,
 # decode steps): for l and m a prompt just past the window, so the band,
 # the ring pack and the kernel's window run; for n four layers; for o
-# every layer (0.78 B parameters) at two SSD chunks. mamba2-780m has no
-# attention, so no lane tolerance
+# every layer (0.78 B parameters) at two SSD chunks; and the cut's
+# tolerance. mamba2-780m has no attention, so no lane tolerance
 SERVES = {
     "i": dict(arch=ARCH, prompt=2048, decode=32, batch=4, lanes_tol=6e-2,
-              cut=2, cut_prompt=256, cut_batch=2, cut_decode=8),
+              cut=2, cut_prompt=256, cut_batch=2, cut_decode=8,
+              cut_tol=CPU_TOL),
     "l": dict(arch="gemma3-27b", prompt=2048, decode=32, batch=4,
               lanes_tol=9e-2, cut=6, cut_prompt=1040, cut_batch=1,
-              cut_decode=4),
+              cut_decode=4, cut_tol=CPU_TOL),
     "m": dict(arch="recurrentgemma-9b", prompt=4096, decode=32, batch=2,
               lanes_tol=9e-2, cut=3, cut_prompt=2064, cut_batch=1,
-              cut_decode=4),
+              cut_decode=4, cut_tol=CPU_TOL),
     "n": dict(arch="moonshot-v1-16b-a3b", prompt=2048, decode=32, batch=4,
               lanes_tol=6e-2, cut=4, cut_prompt=512, cut_batch=1,
-              cut_decode=4),
+              cut_decode=4, cut_tol=CPU_TOL),
     "o": dict(arch="mamba2-780m", prompt=4096, decode=32, batch=4,
               lanes_tol=None, cut=48, cut_prompt=512, cut_batch=1,
               cut_decode=4, cut_tol=O_CUT_TOL),
@@ -245,7 +247,6 @@ MV_RTOL = 3e-2         # card vs CPU m and v, per leaf, relative norm
 RAGGED = BUCKET - 1000    # phase k: a stream that pads to whole tiles
 SEED = 0
 PROFILE_TRIES = 3      # profiles of one timing before it falls back to events
-CPU_TOL = 2e-2         # card vs CPU, a serve phase's cut (o: O_CUT_TOL)
 FLASH_ATOL, FLASH_RTOL = 2e-2, 5e-2
 # (B, H, KV, S, D, window): qwen2.5-3b's prefill (phase i), gemma3's window
 # at qwen's heads, ragged S, recurrentgemma-9b's local layer at B = 1, and
@@ -1852,7 +1853,7 @@ def check_serve(torch, smi: str, phase: str) -> dict:
             "cpu", p_cpu, True, small, feed=card["tokens"][:, :-1]))
     serve_oracle(card, small, small_cfg.vocab, f"phase {phase} "
                  f"({sp['cut']} layers)")
-    got = lanes_check(card, cpu, small_cfg, sp.get("cut_tol", CPU_TOL),
+    got = lanes_check(card, cpu, small_cfg, sp["cut_tol"],
                       f"phase {phase}: {sp['cut']} layers on the card "
                       f"against the CPU", forced)
     print(f"path {label}: {sp['cut']} layers at full width, S="
