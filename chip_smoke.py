@@ -148,6 +148,26 @@
    within 0.3 (``O_CUT_TOL``: a deep random SSD stack amplifies
    rounding). Kernel 11 joins the kernel check at n's prefill shape (4,
    16, 16, 2 048, 128).
+12. Path, phases p and q: serving whisper-medium (an encoder of 24
+   ``bidir`` layers over 1 500 stub frames, dense non-causal attention,
+   and a decoder of 24 ``selfcross`` layers: causal self-attention at H =
+   KV = 16, D = 64, then cross-attention to the encoder's output, then a
+   GELU MLP; 0.758 B parameters) on 4 prompts of 416 tokens (416 + 32 =
+   448, its decoder's context) at full width and depth, and
+   llama-3.2-vision-90b (d_model 8 192, 64 heads and 8 KV heads of 128,
+   d_ff 28 672) at full width cut to 10 layers, two repeats of its unit
+   of 4 ``global`` layers and a ``cross`` layer (attention to 1 024 stub
+   patches through ``mproj``), on 4 prompts of 2 048 tokens, each cross
+   layer's gate set to 0.5 (it starts at 0, where the layer adds none of
+   its attention); 32 greedy decode steps each. Checks: 24 and 8 flash
+   launches a prefill, telemetry through sparse_addto, every decode token
+   counted; the flash lane against the plain one, teacher forced, within
+   the arch's tolerance; for p the whole model (1 x 64 tokens, the 1 500
+   frames, 4 decode steps) and for q one unit of 5 layers (1 x 256
+   tokens, 4 decode steps) on the card against the CPU within its
+   ``cut_tol``. p prints the encoder's share of its prefill. Kernel 11
+   joins the kernel check at both prefill shapes, (4, 16, 16, 416, 64)
+   and (4, 64, 8, 2 048, 128).
 
 Launch counts are set to 0 just before each path run on the card and read
 just after it; every kernel must have launched in the path. The two
@@ -200,7 +220,17 @@ ARCH = "qwen2.5-3b"     # phases i and j
 # 0.069 and 0.152 over three weight draws (the card against the CPU:
 # 0.073, 0.079 and 0.129)
 O_CUT_TOL = 3e-1
-CPU_TOL = 2e-2         # card vs CPU, the other serve phases' cuts
+# card vs CPU, the other serve phases' cuts; whisper-medium's 48 layers
+# hold it too (0.0128 and 0.0111 over two draws on an H100, where the
+# plain attention against the flash kernel on the card alone moves them
+# 0.0120: ``cut_drift('p')``)
+CPU_TOL = 2e-2
+# whisper-medium and llama-3.2-vision-90b (10 layers, gates 0.5): the flash
+# vs plain lane drift at the reduced width and the phase's depth on the
+# CPU (``lane_drift``, three draws) was 1.1e-2 to 1.4e-2 and 2.1e-2 to
+# 3.5e-2; each tolerance is twice the largest
+P_LANES_TOL = 3e-2
+Q_LANES_TOL = 7e-2
 # the serve phases at full width and depth: prompt x batch, greedy decode
 # steps, the flash vs plain lane tolerance at full depth (max|d| / max|ref|
 # of the logits over the steps, teacher forced: about twice the drift of
@@ -216,8 +246,14 @@ CPU_TOL = 2e-2         # card vs CPU, the other serve phases' cuts
 # and the cut that runs on the card and on the CPU (layers, prompt, batch,
 # decode steps): for l and m a prompt just past the window, so the band,
 # the ring pack and the kernel's window run; for n four layers; for o
-# every layer (0.78 B parameters) at two SSD chunks; and the cut's
-# tolerance. mamba2-780m has no attention, so no lane tolerance
+# every layer (0.78 B parameters) at two SSD chunks; for p every layer of
+# whisper-medium, encoder and decoder, over the full 1 500 frames; for q
+# one pattern unit; and the cut's tolerance. mamba2-780m has no
+# attention, so no lane tolerance. ``layers`` cuts a phase's own depth
+# (llama-3.2-vision-90b's 100 layers hold 88 B parameters, more than one
+# card: 10 are two repeats of its unit) and ``gate`` sets every cross
+# layer's gate after the draw (it starts at 0, where tanh(0) adds none of
+# the layer's attention)
 SERVES = {
     "i": dict(arch=ARCH, prompt=2048, decode=32, batch=4, lanes_tol=6e-2,
               cut=2, cut_prompt=256, cut_batch=2, cut_decode=8,
@@ -234,6 +270,12 @@ SERVES = {
     "o": dict(arch="mamba2-780m", prompt=4096, decode=32, batch=4,
               lanes_tol=None, cut=48, cut_prompt=512, cut_batch=1,
               cut_decode=4, cut_tol=O_CUT_TOL),
+    "p": dict(arch="whisper-medium", prompt=416, decode=32, batch=4,
+              lanes_tol=P_LANES_TOL, cut=24, cut_prompt=64, cut_batch=1,
+              cut_decode=4, cut_tol=CPU_TOL),
+    "q": dict(arch="llama-3.2-vision-90b", layers=10, gate=0.5, prompt=2048,
+              decode=32, batch=4, lanes_tol=Q_LANES_TOL, cut=5,
+              cut_prompt=256, cut_batch=1, cut_decode=4, cut_tol=CPU_TOL),
 }
 # phase j: train at full width; the card-vs-CPU step at 2 layers
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 36, 1024, 2, 3
@@ -251,12 +293,15 @@ FLASH_ATOL, FLASH_RTOL = 2e-2, 5e-2
 # (B, H, KV, S, D, window): qwen2.5-3b's prefill (phase i), gemma3's window
 # at qwen's heads, ragged S, recurrentgemma-9b's local layer at B = 1, and
 # the shapes of phases l and m: gemma3-27b's local layers (H = 32, KV = 16)
-# and recurrentgemma-9b's (MQA, D = 256) at their prompts, and phase n's
-# moonshot-v1-16b-a3b prefill (H = KV = 16)
+# and recurrentgemma-9b's (MQA, D = 256) at their prompts, phase n's
+# moonshot-v1-16b-a3b prefill (H = KV = 16), phase p's whisper-medium
+# decoder (H = KV = 16 at D = 64, S = 416) and phase q's
+# llama-3.2-vision-90b global layers (H = 64, KV = 8)
 FLASH_CHECKS = ((4, 16, 2, 2048, 128, None), (4, 16, 2, 2048, 128, 1024),
                 (2, 16, 2, 1000, 128, None), (1, 16, 1, 4096, 256, 2048),
                 (4, 32, 16, 2048, 128, 1024), (2, 16, 1, 4096, 256, 2048),
-                (4, 16, 16, 2048, 128, None))
+                (4, 16, 16, 2048, 128, None), (4, 16, 16, 416, 64, None),
+                (4, 64, 8, 2048, 128, None))
 REPLACES = {
     "fused_addto": "src/repro/kernels/fused_gpv.py:67",
     "fused_scatter": "src/repro/kernels/fused_gpv.py:113",
@@ -1604,9 +1649,10 @@ def serve_run(device, params, flash, shape: dict, feed=None) -> dict:
 
 def flash_layers(cfg, prompt: int) -> int:
     """The layers whose prefill takes the flash kernel at ``prompt``
-    tokens: every global and moe layer, and a local one when the prompt
-    is longer than its window (the reference's routing)."""
-    return sum(n * sum(bt in ("global", "moe")
+    tokens: every global, moe and selfcross layer (its self-attention),
+    and a local one when the prompt is longer than its window (the
+    reference's routing); never a cross layer or the encoder."""
+    return sum(n * sum(bt in ("global", "moe", "selfcross")
                        or (bt == "local" and prompt > cfg.window)
                        for bt in pat)
                for pat, n in cfg.pattern_groups)
@@ -1614,6 +1660,21 @@ def flash_layers(cfg, prompt: int) -> int:
 
 def moe_layers(cfg) -> int:
     return sum(n * pat.count("moe") for pat, n in cfg.pattern_groups)
+
+
+def set_gates(params, cfg, gate) -> str:
+    """Every cross layer's gate set to ``gate`` (None: left as drawn, 0);
+    returns what it did, for the log."""
+    if gate is None:
+        return ""
+    n = 0
+    for gi, (pat, r) in enumerate(cfg.pattern_groups):
+        for i, bt in enumerate(pat):
+            if bt == "cross":
+                params["groups"][gi][f"s{i}"]["gate"].fill_(gate)
+                n += r
+    return (f"; the gate of each of its {n} cross layers set to {gate} "
+            f"(tanh {np.tanh(gate):.4f})")
 
 
 @contextlib.contextmanager
@@ -1716,12 +1777,12 @@ def profile_serve(torch, params, cfg, sp: dict, label: str) -> None:
     from repro_torch.models import api
     dcfg = pipeline.DataConfig(vocab=cfg.vocab, batch=sp["batch"],
                                seq_len=sp["prompt"] - 1, kind="uniform")
-    tokens = pipeline.make_batch(dcfg, 0)["tokens"].cuda()
+    inputs = pipeline.shard_batch(pipeline.add_modality_stubs(
+        pipeline.make_batch(dcfg, 0), cfg, sp["batch"]), "cuda")
     state = {}
 
     def prefill():
-        state["logits"], cache = api.prefill(params, cfg,
-                                             {"tokens": tokens}, flash=True)
+        state["logits"], cache = api.prefill(params, cfg, inputs, flash=True)
         state["cache"] = grow_cache(cache, cfg, sp["batch"],
                                     sp["prompt"] + sp["decode"])
 
@@ -1737,6 +1798,14 @@ def profile_serve(torch, params, cfg, sp: dict, label: str) -> None:
         print(f"path {label} profile, {name}: {wall * 1e3:.3f} ms a step "
               f"(wall, profiler on), card busy {share:.4f} of it; top "
               f"kernels (ms): {top}", flush=True)
+    if cfg.is_encdec:
+        enc_ms = event_ms(torch, lambda: api.encode(params, cfg,
+                                                    inputs["frames"]),
+                          lambda: None, 3)
+        pre_ms = event_ms(torch, prefill, lambda: None, 3)
+        print(f"path {label}: the encoder takes {enc_ms:.3f} ms of a "
+              f"{pre_ms:.3f} ms prefill, {enc_ms / pre_ms:.4f} (CUDA events, "
+              f"median of 3, profiler off)", flush=True)
 
 
 def forced_run(torch, cfg, routes: list, run) -> tuple:
@@ -1773,7 +1842,7 @@ def lanes_check(a: dict, b: dict, cfg, tol: float, what: str,
 
 
 def check_serve(torch, smi: str, phase: str) -> dict:
-    """A serve phase (i, l, m, n or o of SERVES) on the card, with its
+    """A serve phase (i, l, m, n, o, p or q of SERVES) on the card, with its
     comparisons: the flash launches a prefill, the flash lane against the
     plain one at full depth (where the arch has attention), and a cut
     depth on the card against the CPU; with moe layers, each second run's
@@ -1783,19 +1852,22 @@ def check_serve(torch, smi: str, phase: str) -> dict:
     from repro_torch.models import api
     sp = SERVES[phase]
     label = f"{phase}_serve"
-    cfg = model_config(sp["arch"])
+    cfg = model_config(sp["arch"], layers=sp.get("layers"))
     shape = dict(arch=sp["arch"], prompt_len=sp["prompt"],
-                 decode_n=sp["decode"], batch=sp["batch"])
+                 decode_n=sp["decode"], batch=sp["batch"],
+                 layers=sp.get("layers"))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params = api.init_params(SEED, cfg, device="cuda")
+    gates = set_gates(params, cfg, sp.get("gate"))
     torch.cuda.synchronize()
     active = api.count_params(cfg, active_only=True) / 1e9
-    print(f"path {label}: {sp['arch']}, {cfg.n_layers} layers, d_model "
+    enc = f" (and {cfg.enc_layers} encoder layers)" if cfg.is_encdec else ""
+    print(f"path {label}: {sp['arch']}, {cfg.n_layers} layers{enc}, d_model "
           f"{cfg.d_model}, {api.count_params(cfg) / 1e9:.3f} B parameters "
           f"({active:.3f} B active; "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB) drawn on "
-          f"the card in {time.perf_counter() - t0:.3f} s", flush=True)
+          f"the card in {time.perf_counter() - t0:.3f} s{gates}", flush=True)
     want = flash_layers(cfg, sp["prompt"])
     routes = []
     torch.cuda.reset_peak_memory_stats()
@@ -1837,6 +1909,7 @@ def check_serve(torch, smi: str, phase: str) -> dict:
     # drawn on the card (a CPU draw of billions of values takes minutes),
     # the same weights copied to the CPU
     p_card = api.init_params(SEED, small_cfg, device="cuda")
+    set_gates(p_card, small_cfg, sp.get("gate"))
     p_cpu = api.map_tree(lambda t: t.cpu(), p_card)
     routes = []
     ops.reset_counts()
@@ -2165,15 +2238,16 @@ def rehearse(scale_down: int = 64) -> None:
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import model_config
     from repro_torch.models import api
-    # the serve phases at the reduced width: i at 2 layers, l to o at
-    # their pattern's reduced depth (8, 5, 1 and 1 layers) and at the cut,
-    # each prompt twice the reduced window
+    # the serve phases at the reduced width: i at 2 layers, l to q at
+    # their pattern's reduced depth (8, 5, 1, 1, 1 and 5 layers) and at the
+    # cut, each prompt twice the reduced window
     for phase, sp in SERVES.items():
         for layers in ((2,) if phase == "i" else (None, sp["cut"])):
             cfg = model_config(sp["arch"], reduced=True, layers=layers)
             shape = dict(arch=sp["arch"], prompt_len=64, decode_n=4,
                          batch=2, reduced=True, layers=layers)
             params = api.init_params(SEED, cfg, device="cpu")
+            set_gates(params, cfg, sp.get("gate"))
             ops.reset_counts()
             routes = []
             with routes_into(routes):
@@ -2204,13 +2278,14 @@ def rehearse(scale_down: int = 64) -> None:
     modes_oracle(netrpc, train_run("fp32-ring", **small),
                  "rehearsal of phase j")
     int8_wire_oracle(drive_int8_wire(torch, "cpu"))
-    print("rehearsal: phases a-o ran on the CPU and met their oracles")
+    print("rehearsal: phases a-q ran on the CPU and met their oracles")
 
 
-def lane_drift(draws: int = 3) -> None:
+def lane_drift(draws: int = 3, phases: str = "ilmnpq") -> None:
     """The drift behind ``SERVES``' lane tolerances, on the CPU: each serve
-    phase's arch that has attention, at the reduced width and its full
-    depth, the flash lane against the plain one teacher forced, at the
+    phase's arch that has attention, at the reduced width and the phase's
+    full depth (whisper's encoder too), its gates set as the phase sets
+    them, the flash lane against the plain one teacher forced, at the
     phase's batch, 32 decode steps and a prompt of twice the reduced
     window, for ``draws`` weight draws (some minutes)."""
     from dataclasses import replace
@@ -2219,16 +2294,18 @@ def lane_drift(draws: int = 3) -> None:
 
     from repro_torch.launch.serve import model_config
     from repro_torch.models import api
-    for phase, sp in SERVES.items():
+    for phase in phases:
+        sp = SERVES[phase]
         if sp["lanes_tol"] is None:
             continue
-        full = model_config(sp["arch"])
+        full = model_config(sp["arch"], layers=sp.get("layers"))
         cfg = replace(model_config(sp["arch"], reduced=True),
                       pattern_groups=full.pattern_groups,
-                      n_layers=full.n_layers)
+                      n_layers=full.n_layers, enc_layers=full.enc_layers)
         errs = []
         for seed in range(draws):
             params = api.init_params(seed, cfg, device="cpu")
+            set_gates(params, cfg, sp.get("gate"))
             kw = dict(arch=cfg, prompt_len=2 * cfg.window, decode_n=32,
                       batch=sp["batch"])
             routes = []
@@ -2260,9 +2337,11 @@ def ssd_chunk(size: int):
 
 
 def cut_drift(phase: str = "o", draws: int = 3) -> None:
-    """The drift behind phase o's ``cut_tol``, on the card: the phase's cut
-    at full width for ``draws`` weight draws, the SSD chunk 256 against
-    128 (rounding alone) and the card against the CPU, teacher forced."""
+    """The drift behind a phase's ``cut_tol`` (o's), on the card: the
+    phase's cut at full width for ``draws`` weight draws, rounding alone
+    on the card (without attention the SSD chunk 256 against 128, else
+    the plain attention against the flash kernel) and the card against
+    the CPU, teacher forced."""
     import torch
 
     from repro_torch.launch.serve import model_config
@@ -2274,14 +2353,20 @@ def cut_drift(phase: str = "o", draws: int = 3) -> None:
                  layers=sp["cut"])
     for seed in range(draws):
         p_card = api.init_params(seed, cfg, device="cuda")
+        set_gates(p_card, cfg, sp.get("gate"))
         card = serve_run(None, p_card, True, small)
         feed = card["tokens"][:, :-1]
-        with ssd_chunk(128):
-            other = serve_run(None, p_card, True, small, feed=feed)
+        if sp["lanes_tol"] is None:
+            what = "chunk 128 vs 256"
+            with ssd_chunk(128):
+                other = serve_run(None, p_card, True, small, feed=feed)
+        else:
+            what = "plain vs flash attention"
+            other = serve_run(None, p_card, False, small, feed=feed)
         cpu = serve_run("cpu", api.map_tree(lambda t: t.cpu(), p_card), True,
                         small, feed=feed.cpu())
         print(f"cut drift, phase {phase}, draw {seed}: {sp['cut']} layers, "
-              f"S={sp['cut_prompt']}: chunk 128 vs 256 on the card "
+              f"S={sp['cut_prompt']}: {what} on the card "
               f"{lanes_err(other, card, cfg.vocab):.6f}; card vs CPU "
               f"{lanes_err(card, cpu, cfg.vocab):.6f}", flush=True)
         del p_card
@@ -2319,7 +2404,9 @@ def main() -> int:
                          ("l", lambda t: check_serve(t, smi, "l")),
                          ("m", lambda t: check_serve(t, smi, "m")),
                          ("n", lambda t: check_serve(t, smi, "n")),
-                         ("o", lambda t: check_serve(t, smi, "o"))):
+                         ("o", lambda t: check_serve(t, smi, "o")),
+                         ("p", lambda t: check_serve(t, smi, "p")),
+                         ("q", lambda t: check_serve(t, smi, "q"))):
         t0 = time.perf_counter()
         for name, c in check(torch).items():
             counts[name] = counts.get(name, 0) + c

@@ -7,22 +7,34 @@ The port of ``repro/launch/serve.py`` on one card (``--device cpu`` for
 the CPU, with ``--reduced`` for the tiny same-family config): prefill
 builds the cache (K/V of the attention layers, ``moe`` ones included, a
 ring of the window for a ``local`` layer, the state and conv tail of an
-``rglru`` or ``ssd`` layer), the global K/V grow with zeros to prompt +
-decode positions, and greedy
-decode steps consume and update it, each pushing its token count and
-step time to the serve telemetry on the port's ``IncRuntime``. Prefill
-attention runs through the flash kernel (``--no-flash`` for the dense
-lane); a local layer takes it when the prompt is longer than its window.
-Weights are random, from a seed. ``--layers N`` cuts the depth to the
-first N layers, for checks that compare the card with the CPU at full
-width. gemma3-27b, recurrentgemma-9b, moonshot-v1-16b-a3b (MoE) and
-mamba2-780m (SSD) serve the same way; an ``ssd`` prompt longer than
-one SSD chunk (256 tokens) must be a whole number of chunks:
+``rglru`` or ``ssd`` layer, the memory's K/V of a ``cross`` or
+``selfcross`` layer), the global K/V grow with zeros to prompt + decode
+positions, and greedy decode steps consume and update it, each pushing
+its token count and step time to the serve telemetry on the port's
+``IncRuntime``. Prefill attention runs through the flash kernel
+(``--no-flash`` for the dense lane); a local layer takes it when the
+prompt is longer than its window. Weights are random, from a seed; the
+audio frames (whisper) and image patches (the VLM) are the pipeline's
+stubs (``pipeline.add_modality_stubs``). ``--layers N`` cuts the depth
+to the first N layers, for checks that compare the card with the CPU at
+full width; it cuts whisper's decoder and leaves its ``enc_layers``
+encoder layers as they are. gemma3-27b, recurrentgemma-9b,
+moonshot-v1-16b-a3b (MoE), mamba2-780m (SSD), whisper-medium
+(encoder-decoder; 448 = prompt + decode positions is its decoder's
+context) and llama-3.2-vision-90b (cross-attention to the patches; the
+full 100 layers take several cards, 10 fit one) serve the same way; an
+``ssd`` prompt longer than one SSD chunk (256 tokens) must be a whole
+number of chunks:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \
         --prompt-len 2048 --decode 32 --batch 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
         --prompt-len 4096 --decode 32 --batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
+        --prompt-len 416 --decode 32 --batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama-3.2-vision-90b --layers 10 --prompt-len 2048 \
+        --decode 32 --batch 4
 """
 from __future__ import annotations
 
@@ -110,7 +122,9 @@ def serve(*, arch: str | ArchConfig, prompt_len: int, decode_n: int,
     ``decode_n`` tokens greedily. ``params`` and ``tokens`` (B, prompt_len)
     default to random weights from ``seed`` and a uniform batch;
     ``feed`` (B, decode_n) replaces the greedy tokens fed to the decode
-    steps (teacher forcing, to compare two lanes step by step).
+    steps (teacher forcing, to compare two lanes step by step). The
+    frames or patches of an arch with a memory are the pipeline's stubs
+    for ``batch`` rows.
 
     Returns the tokens (B, decode_n + 1), the logits of every step
     (decode_n + 1, B, V), the telemetry summary and the seconds of
@@ -124,15 +138,15 @@ def serve(*, arch: str | ArchConfig, prompt_len: int, decode_n: int,
         dcfg = pipeline.DataConfig(vocab=cfg.vocab, batch=batch,
                                    seq_len=prompt_len - 1, kind="uniform")
         tokens = pipeline.make_batch(dcfg, 0)["tokens"]
-    tokens = tokens.to(dev)
+    inputs = pipeline.shard_batch(pipeline.add_modality_stubs(
+        {"tokens": tokens}, cfg, tokens.shape[0]), dev)
 
     # serve telemetry on the async INC runtime: per-token counters
     # enqueue on the decode path through the generated stubs and coalesce
     # off-thread (never a blocking INC call)
     telemetry = steps.TrainTelemetry(app_prefix="serve", device=dev)
     t0 = time.perf_counter()
-    logits, cache = api.prefill(params, cfg, {"tokens": tokens},
-                                flash=flash)
+    logits, cache = api.prefill(params, cfg, inputs, flash=flash)
     cache = grow_cache(cache, cfg, tokens.shape[0], total)
     _sync(dev)
     t1 = time.perf_counter()

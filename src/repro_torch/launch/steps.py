@@ -370,7 +370,8 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         try:
             for i in range(n_micro):
-                loss, _ = api.train_loss(params, cfg, {"tokens": mb[i]},
+                loss, _ = api.train_loss(params, cfg,
+                                         {k: v[i] for k, v in mb.items()},
                                          remat=True)
                 grads = list(torch.autograd.grad(
                     loss, [p for _, p in leaves]))
@@ -435,9 +436,10 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         clock.marks = []
         leaves = api.named_leaves(params)
         flat_d = [dims[name] for name, _ in leaves]
-        tokens = batch["tokens"].to(dev)
-        mb = tokens.reshape(n_micro, tokens.shape[0] // n_micro,
-                            *tokens.shape[1:])
+        # every input (the tokens, and whisper's frames or a VLM's
+        # patches) split into the microbatches along the batch dim
+        mb = {k: v.to(dev).reshape(n_micro, v.shape[0] // n_micro,
+                                   *v.shape[1:]) for k, v in batch.items()}
         clock.mark()
         gacc, loss = grads_of(params, leaves, mb)      # local grads
         clock.mark()

@@ -1,11 +1,14 @@
 """Uniform model API: the port of ``repro/models/api.py`` for stacks of
-the block types ``models/blocks.py`` ports (``global``, ``local``,
-``moe``, ``ssd`` and ``rglru``), in any pattern of groups.
+any block types of ``models/blocks.py``, in any pattern of groups, with
+the encoder-decoder (whisper: a ``bidir`` encoder over stub frames, its
+output the memory of the ``selfcross`` decoder) and the VLM (stub image
+patches through ``mproj``, the memory of the ``cross`` layers) families.
 
   init_params(seed, cfg, device)           -> Tree (bf16 leaves)
   forward(params, cfg, batch, remat)       -> (logits, aux)
   train_loss(params, cfg, batch, remat)    -> (loss, metrics)
   prefill(params, cfg, batch, flash=...)   -> (last_logits, cache)
+  encode(params, cfg, frames)              -> the encoder's memory
   decode_step(params, cfg, token, pos, cache) -> (logits, cache)
   cache_specs(cfg, batch, seq_len)         -> cache of meta tensors
   input_specs(cfg, shape)                  -> dict of meta tensors
@@ -18,8 +21,12 @@ with the layer dim first, held in an ``nn.Module`` whose ``state_dict``
 keys spell the reference's tree path (``groups.0.s0.attn.wq``). A Python
 loop over the layers replaces ``lax.scan``. The cache is a tuple per
 pattern group of ``{"s{i}": entry}`` stacked over the layers (an entry is
-``{"k", "v"}`` for an attention block, ``{"state", "conv"}`` for
-``rglru`` and ``ssd``), and ``decode_step`` updates it in place.
+``{"k", "v"}`` for an attention block, ``{"mk", "mv"}`` (the memory's
+K/V) for ``cross`` and both for ``selfcross``, ``{"state", "conv"}`` for
+``rglru`` and ``ssd``), and ``decode_step`` updates it in place. A batch
+holds ``tokens`` and, for the two families with a memory, ``frames`` or
+``patches`` (B, frontend_tokens, d_model), the reference's stubs
+(``data/pipeline.py:add_modality_stubs``).
 
 ``train_loss`` runs the stack under autograd; ``remat=True`` wraps each
 layer in ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint``
@@ -38,7 +45,8 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.blocks import Ctx
 from repro_torch.models.common import (COMPUTE_DTYPE, dense_init, rms_norm,
-                                       rms_norm_init)
+                                       rms_norm_init, sinusoid_freqs,
+                                       sinusoidal_positions)
 
 
 AUX_COEF = 0.01
@@ -112,6 +120,14 @@ def _init_tree(gen, cfg: ArchConfig, device) -> dict:
         {f"s{si}": blocks.init_block(gen, bt, cfg, lead=(n,), device=device)
          for si, bt in enumerate(pat)}
         for pat, n in cfg.pattern_groups)
+    if cfg.family == "vlm":
+        p["mproj"] = dense_init(gen, (cfg.d_model, cfg.d_model),
+                                device=device)
+    if cfg.is_encdec:
+        p["enc"] = {"blocks": blocks.init_block(gen, "bidir", cfg,
+                                                lead=(cfg.enc_layers,),
+                                                device=device),
+                    "norm": rms_norm_init(cfg.d_model, device=device)}
     return p
 
 
@@ -144,20 +160,62 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
 
 
 # ---------------------------------------------------------------------------
-# embeddings / logits
+# embeddings / memory / logits
 # ---------------------------------------------------------------------------
 
-def _embed(params: Tree, cfg: ArchConfig,
-           tokens: torch.Tensor) -> torch.Tensor:
+def _scaled_embed(params: Tree, cfg: ArchConfig,
+                  tokens: torch.Tensor) -> torch.Tensor:
     """Embeddings times sqrt(d) rounded to bf16, as the reference's
     bf16 x bf16 product (a Python scalar, so no copy to the card)."""
     x = params["embed"][tokens].to(COMPUTE_DTYPE)
     return x * float(torch.tensor(cfg.d_model ** 0.5, dtype=COMPUTE_DTYPE))
 
 
-def _decode_embed(params: Tree, cfg: ArchConfig,
-                  token: torch.Tensor) -> torch.Tensor:
-    return _embed(params, cfg, token[:, None])
+def _embed(params: Tree, cfg: ArchConfig,
+           tokens: torch.Tensor) -> torch.Tensor:
+    """(B, S) tokens -> (B, S, d); whisper's decoder adds its absolute
+    sinusoidal positions."""
+    x = _scaled_embed(params, cfg, tokens)
+    if cfg.is_encdec:
+        x = x + sinusoidal_positions(tokens.shape[1], cfg.d_model,
+                                     x.device).to(COMPUTE_DTYPE)
+    return x
+
+
+def _decode_embed(params: Tree, cfg: ArchConfig, token: torch.Tensor,
+                  pos: int) -> torch.Tensor:
+    """(B,) tokens at ``pos`` -> (B, 1, d); whisper's position row is
+    computed alone, as the reference does."""
+    x = _scaled_embed(params, cfg, token[:, None])
+    if cfg.is_encdec:
+        ang = float(pos) * sinusoid_freqs(cfg.d_model, x.device)
+        x = x + torch.cat([torch.sin(ang), torch.cos(ang)]).to(COMPUTE_DTYPE)
+    return x
+
+
+def _memory(params: Tree, cfg: ArchConfig,
+            batch: dict) -> torch.Tensor | None:
+    """What the cross-attention attends to: the projected patches (vlm),
+    the encoder's output (whisper), else None."""
+    if cfg.family == "vlm":
+        return (batch["patches"].to(COMPUTE_DTYPE)
+                @ params["mproj"]).to(COMPUTE_DTYPE)
+    if cfg.is_encdec:
+        return encode(params, cfg, batch["frames"])
+    return None
+
+
+def encode(params: Tree, cfg: ArchConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over stub frame embeddings (B, M, d): sinusoidal
+    positions, the ``bidir`` layers, then its own final norm."""
+    m = frames.shape[1]
+    x = frames.to(COMPUTE_DTYPE) + sinusoidal_positions(
+        m, cfg.d_model, frames.device).to(COMPUTE_DTYPE)
+    ctx = Ctx(cfg=cfg, positions=torch.arange(m, device=frames.device))
+    for layer in _unbind(params["enc"]["blocks"]):
+        x, _ = blocks.block_train(layer, "bidir", x, ctx)
+    return rms_norm(x, params["enc"]["norm"], cfg.norm_eps)
 
 
 def logits_of(params: Tree, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -216,7 +274,8 @@ def forward(params: Tree, cfg: ArchConfig, batch: dict, remat: bool = True
     plain attention: the flash kernel has no backward."""
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    ctx = Ctx(cfg=cfg, positions=positions)
+    ctx = Ctx(cfg=cfg, positions=positions,
+              memory=_memory(params, cfg, batch))
     x = _embed(params, cfg, tokens)
     x, aux = _stack_train(params, cfg, x, ctx, remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -241,10 +300,12 @@ def train_loss(params: Tree, cfg: ArchConfig, batch: dict,
 def prefill(params: Tree, cfg: ArchConfig, batch: dict, *,
             flash: bool = False) -> tuple[torch.Tensor, tuple]:
     """batch["tokens"]: (B, S) -> (last-position logits (B, V), cache).
-    ``flash`` runs the attention through the flash kernel (kernel 11)."""
+    ``flash`` runs the causal attention through the flash kernel (kernel
+    11); the encoder and the cross-attention take the dense lane."""
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    ctx = Ctx(cfg=cfg, positions=positions, flash=flash)
+    ctx = Ctx(cfg=cfg, positions=positions,
+              memory=_memory(params, cfg, batch), flash=flash)
     x = _embed(params, cfg, tokens)
     cache = []
     for gi, (pat, n) in enumerate(cfg.pattern_groups):
@@ -266,7 +327,7 @@ def decode_step(params: Tree, cfg: ArchConfig, token: torch.Tensor,
     """token: (B,) int, pos: int -> (logits (B, V), cache). The cache is
     updated in place and returned."""
     ctx = Ctx(cfg=cfg)
-    x1 = _decode_embed(params, cfg, token)
+    x1 = _decode_embed(params, cfg, token, pos)
     for gi, (pat, n) in enumerate(cfg.pattern_groups):
         gp, gc = params["groups"][gi], cache[gi]
         for layer in range(n):
@@ -294,26 +355,26 @@ def cache_specs(cfg: ArchConfig, batch: int, seq_len: int) -> tuple:
 
 
 def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
-    """Meta-tensor stand-ins for the model inputs of a shape cell (text
-    models: the tokens; decode: token, pos and the cache)."""
-    if cfg.family == "vlm" or cfg.is_encdec:
-        raise _not_text(cfg)
+    """Meta-tensor stand-ins for the model inputs of a shape cell: the
+    tokens and the bf16 ``patches`` (vlm) or ``frames`` (whisper); decode:
+    token, pos and the cache."""
     b, s = shape.global_batch, shape.seq_len
 
-    def meta(*sh):
-        return torch.empty(sh, dtype=torch.int32, device="meta")
+    def meta(*sh, dtype=torch.int32):
+        return torch.empty(sh, dtype=dtype, device="meta")
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patches"] = meta(b, cfg.frontend_tokens, cfg.d_model,
+                                dtype=COMPUTE_DTYPE)
+    if cfg.is_encdec:
+        extra["frames"] = meta(b, cfg.frontend_tokens, cfg.d_model,
+                               dtype=COMPUTE_DTYPE)
     if shape.kind == "train":
-        return {"tokens": meta(b, s + 1)}
+        return {"tokens": meta(b, s + 1), **extra}
     if shape.kind == "prefill":
-        return {"tokens": meta(b, s)}
+        return {"tokens": meta(b, s), **extra}
     return {"token": meta(b), "pos": meta(),
             "cache": cache_specs(cfg, b, s)}
-
-
-def _not_text(cfg: ArchConfig):
-    return NotImplementedError(
-        f"{cfg.name}: the {cfg.family} family's inputs are not ported yet "
-        f"(ROADMAP: the other block types come in a later slice)")
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,15 @@
 """GQA attention: train/prefill over a full sequence and decode against a
-KV cache, for the ``global`` (causal full attention) and ``local``
-(causal sliding-window attention) kinds.
+KV cache, for the four kinds of the reference: ``global`` (causal full
+attention), ``local`` (causal sliding-window attention), ``bidir``
+(non-causal, rope-free: whisper's encoder) and ``cross`` (rope-free
+queries of the sequence against the K/V of a memory: the encoder's output
+or the projected image patches).
 
 The port of ``repro/models/attention.py``. Einsums run in bf16 and return
-bf16, as the reference's do; scores and softmax are fp32. Prefill has two
-lanes, chosen by the caller's ``flash`` flag (the reference's
-``REPRO_FLASH_ATTN`` switch, carried explicitly on ``blocks.Ctx``):
+bf16, as the reference's do; scores and softmax are fp32. Prefill of the
+causal kinds has two lanes, chosen by the caller's ``flash`` flag (the
+reference's ``REPRO_FLASH_ATTN`` switch, carried explicitly on
+``blocks.Ctx``):
 
   - ``flash=True``: ``ops.flash_attention``, the hand-written Hopper kernel
     on the card (kernel 11), its plain version on the CPU. A ``local``
@@ -15,12 +19,16 @@ lanes, chosen by the caller's ``flash`` flag (the reference's
     chunks above ``CHUNKED_THRESHOLD`` (``attn_causal_chunked``); a
     ``local`` layer the banded ``attn_local``.
 
-Decode has no kernel in the reference and stays einsums; a ``local``
-layer's cache is a ring of ``window`` slots. One card holds the whole
-cache, so the reference's sequence-sharded decode (its pmax/psum
-partial-softmax combine) has no counterpart here. The ``bidir`` and
-``cross`` kinds and the rope-free decode of ``selfcross`` come with their
-block types, in a later slice of the port (ROADMAP).
+``bidir`` and ``cross`` take the dense non-causal ``attn_full`` on both
+lanes, as in the reference, which has no kernel for them (and kernel 11
+takes no memory longer than the sequence).
+
+Decode has no kernel in the reference and stays einsums: a ``global``
+cache by position, a ``local`` one a ring of ``window`` slots, the
+rope-free lane of ``selfcross``, and the cross-attention against the
+memory's K/V, projected once at prefill (``memory_kv``). One card holds
+the whole cache, so the reference's sequence-sharded decode (its
+pmax/psum partial-softmax combine) has no counterpart here.
 """
 from __future__ import annotations
 
@@ -37,13 +45,6 @@ NEG_INF = -1e30
 # transient (B,H,Cq,S) instead of (B,H,S,S))
 CHUNKED_THRESHOLD = 2_048
 Q_CHUNK = 1_024
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: only the 'global', 'local', 'moe', "
-        f"'ssd' and 'rglru' blocks run in repro_torch (ROADMAP: the other "
-        f"block types come in a later slice)")
 
 
 # ---------------------------------------------------------------------------
@@ -71,16 +72,29 @@ def init_attn(gen, d_model: int, n_heads: int, n_kv: int, head_dim: int,
     return p
 
 
-def qkv(p: dict, x: torch.Tensor):
-    """x: (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd)."""
+def qkv(p: dict, x: torch.Tensor, x_kv: torch.Tensor | None = None):
+    """x: (B,S,d) -> q (B,S,H,hd), k/v (B,Skv,KV,hd) of ``x_kv`` (a
+    memory (B,Skv,d)), or of ``x`` when it is None."""
+    k, v = memory_kv(p, x if x_kv is None else x_kv)
+    return query(p, x), k, v
+
+
+def query(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x: (B,S,d) -> q (B,S,H,hd)."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
-    if "bq" in p:
-        q = q + p["bq"]
+    return q + p["bq"] if "bq" in p else q
+
+
+def memory_kv(p: dict, memory: torch.Tensor):
+    """K/V (B,M,KV,hd) of a memory (B,M,d): a cross-attention layer's,
+    projected once at prefill for the decode cache, or a ``selfcross``
+    layer's un-roped self K/V."""
+    k = torch.einsum("bsd,dhk->bshk", memory, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", memory, p["wv"])
+    if "bk" in p:
         k = k + p["bk"]
         v = v + p["bv"]
-    return q, k, v
+    return k, v
 
 
 def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
@@ -178,26 +192,34 @@ def attn_local(q, k, v, n_kv: int, window: int) -> torch.Tensor:
 
 def attn_train(p: dict, x: torch.Tensor, *, n_kv: int, kind: str,
                theta: float, positions: torch.Tensor,
-               window: int | None = None,
-               flash: bool = False) -> torch.Tensor:
-    """One attention sub-layer over a full sequence (``kind`` "global" or
-    "local"; ``window`` is the local kind's). ``flash`` routes it through
+               window: int | None = None, flash: bool = False,
+               memory: torch.Tensor | None = None) -> torch.Tensor:
+    """One attention sub-layer over a full sequence (``kind`` "global",
+    "local", "bidir" or "cross"; ``window`` is the local kind's, ``memory``
+    (B,M,d) the cross kind's). ``flash`` routes the causal kinds through
     ``ops.flash_attention`` (kernel 11)."""
     return attn_prefill(p, x, n_kv=n_kv, kind=kind, theta=theta,
-                        positions=positions, window=window, flash=flash)[0]
+                        positions=positions, window=window, flash=flash,
+                        memory=memory)[0]
 
 
 def attn_prefill(p: dict, x: torch.Tensor, *, n_kv: int, kind: str,
                  theta: float, positions: torch.Tensor,
-                 window: int | None = None, flash: bool = False):
-    """``attn_train`` that also returns the roped K and V it attended to:
-    the decode cache entry, which the reference projects a second time
-    (``blocks._roped_kv``) from the same normed input."""
-    if kind not in ("global", "local"):
-        raise _not_ported(f"attention kind {kind!r}")
+                 window: int | None = None, flash: bool = False,
+                 memory: torch.Tensor | None = None):
+    """``attn_train`` that also returns the K and V it attended to (roped
+    for the causal kinds, the memory's for ``cross``): the decode cache
+    entry, which the reference projects a second time (``blocks._roped_kv``,
+    ``memory_kv``) from the same input."""
+    if kind not in ("global", "local", "bidir", "cross"):
+        raise ValueError(f"attention kind {kind!r}")
     if kind == "local" and not window:
         raise ValueError("local attention needs a window")
-    q, k, v = qkv(p, x)
+    if kind == "cross" and memory is None:
+        raise ValueError("cross attention needs a memory")
+    q, k, v = qkv(p, x, memory if kind == "cross" else None)
+    if kind in ("bidir", "cross"):
+        return out_proj(p, attn_full(q, k, v, n_kv, causal=False)), k, v
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
     if kind == "local":
@@ -229,22 +251,23 @@ class KVLayout:
 
 def decode_attn(p: dict, x1: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, pos: int, *, n_kv: int, theta: float,
-                layout: KVLayout, window: int | None = None):
+                layout: KVLayout, window: int | None = None,
+                rope: bool = True):
     """x1: (B,1,d); caches (B,L,KV,hd). Returns (out (B,1,d), k_cache,
-    v_cache). The new token's roped K/V are written into the caches IN
-    PLACE (the reference returns updated copies):
+    v_cache). The new token's K/V, roped unless ``rope`` is False (a
+    ``selfcross`` layer), are written into the caches IN PLACE (the
+    reference returns updated copies):
 
       window=None: a global cache, slot ``pos``, when ``0 <= pos < L``;
       window=W: a ring of W slots (L == W), slot ``pos % W``; slot j then
       holds position ``pos - ((pos - j) % W)``, valid when that is >= 0
-      and within the window.
-
-    (The reference's rope-free lane comes with the selfcross block.)"""
+      and within the window."""
     pos = int(pos)
     q, k, v = qkv(p, x1)
-    posb = torch.full((x1.shape[0], 1), pos, device=x1.device)
-    q = apply_rope(q, posb, theta)
-    k = apply_rope(k, posb, theta)
+    if rope:
+        posb = torch.full((x1.shape[0], 1), pos, device=x1.device)
+        q = apply_rope(q, posb, theta)
+        k = apply_rope(k, posb, theta)
     if window is not None:
         if k_cache.shape[1] != window:
             raise ValueError(f"a ring cache of {k_cache.shape[1]} slots for "
@@ -278,3 +301,12 @@ def _decode_attend(q, k_cache, v_cache, valid, n_kv: int) -> torch.Tensor:
     o = torch.einsum("bkgs,bskh->bkgh", e.to(v_cache.dtype), v_cache)
     o = o.float() / den[..., None].clamp(min=1e-30)
     return o.reshape(b, 1, h, hd).to(v_cache.dtype)
+
+
+def decode_cross_attn(p: dict, x1: torch.Tensor, k_mem: torch.Tensor,
+                      v_mem: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """x1: (B,1,d) against the memory's K/V (B,M,KV,hd), every position
+    valid; no rope. Returns (B,1,d)."""
+    valid = torch.ones(k_mem.shape[1], dtype=torch.bool, device=x1.device)
+    return out_proj(p, _decode_attend(query(p, x1), k_mem, v_mem, valid,
+                                      n_kv))

@@ -1,24 +1,32 @@
 """Block-level dispatch: init/train/prefill/decode of one layer.
 
-The port of ``repro/models/blocks.py`` for five block types, each a
+The port of ``repro/models/blocks.py`` for every block type, each a
 pre-norm residual layer:
 
-  global  causal full attention, then SwiGLU;
-          cache {"k", "v"}: (B, S, KV, hd) bf16
-  local   causal sliding-window attention, then SwiGLU;
-          cache {"k", "v"}: (B, min(W, S), KV, hd) bf16, a ring by slot
-  moe     causal full attention (the ``global`` kind), then the
-          capacity-based MoE (``models/ffn.py``); cache as ``global``
-  ssd     the Mamba-2 mixer (``models/ssm.py``) alone, no FFN;
-          cache {"state"}: (B, H, P, N) fp32, {"conv"}: (B, K-1,
-          d_inner + 2N) bf16
-  rglru   the RG-LRU mixer (``models/rglru.py``), then SwiGLU;
-          cache {"state"}: (B, rnn) fp32, {"conv"}: (B, K-1, rnn) bf16
+  global     causal full attention, then SwiGLU;
+             cache {"k", "v"}: (B, S, KV, hd) bf16
+  local      causal sliding-window attention, then SwiGLU;
+             cache {"k", "v"}: (B, min(W, S), KV, hd) bf16, a ring by slot
+  moe        causal full attention (the ``global`` kind), then the
+             capacity-based MoE (``models/ffn.py``); cache as ``global``
+  ssd        the Mamba-2 mixer (``models/ssm.py``) alone, no FFN;
+             cache {"state"}: (B, H, P, N) fp32, {"conv"}: (B, K-1,
+             d_inner + 2N) bf16
+  rglru      the RG-LRU mixer (``models/rglru.py``), then SwiGLU;
+             cache {"state"}: (B, rnn) fp32, {"conv"}: (B, K-1, rnn) bf16
+  cross      cross-attention to the memory (``Ctx.memory``) scaled by
+             tanh of a learned fp32 gate (zero at init), then SwiGLU;
+             cache {"mk", "mv"}: (B, M, KV, hd) bf16, the memory's K/V
+  selfcross  causal self-attention (the ``global`` kind, roped), then
+             cross-attention to the memory, then the GELU MLP (whisper's
+             decoder); cache {"k", "v"} as ``global`` but NOT roped (the
+             reference's prefill stores them before rope and its decode
+             ropes nothing), and {"mk", "mv"}
+  bidir      non-causal rope-free self-attention, then the GELU MLP
+             (whisper's encoder, ``api.encode``); no cache
 
-``block_decode`` updates the cache entry IN PLACE and returns it (the
-reference returns a new one). The other block types (``cross``,
-``selfcross``, ``bidir``) raise ``NotImplementedError`` until a later
-slice of the port brings them (ROADMAP).
+M is ``cfg.frontend_tokens``. ``block_decode`` updates the cache entry IN
+PLACE and returns it (the reference returns a new one).
 """
 from __future__ import annotations
 
@@ -34,8 +42,6 @@ from repro_torch.models.common import COMPUTE_DTYPE, rms_norm, rms_norm_init
 from repro_torch.models.rglru import init_rglru, rglru_decode, rglru_train
 from repro_torch.models.ssm import init_mamba2, mamba2_decode, mamba2_train
 
-PORTED = ("global", "local", "moe", "ssd", "rglru")
-
 
 @dataclass(frozen=True)
 class Ctx:
@@ -46,12 +52,8 @@ class Ctx:
     rather than dense masked attention."""
     cfg: ArchConfig
     positions: torch.Tensor | None = None     # (S,) for train/prefill
+    memory: torch.Tensor | None = None        # (B,M,d) cross-attn memory
     flash: bool = False
-
-
-def _ported(bt: str) -> None:
-    if bt not in PORTED:
-        raise attn._not_ported(f"block type {bt!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -62,28 +64,33 @@ def init_block(gen, bt: str, cfg: ArchConfig, *, lead: tuple = (),
                device="cpu") -> dict:
     """One block's parameters, every leaf with ``lead`` (the layer dim)
     in front."""
-    _ported(bt)
     d = cfg.d_model
-    p = {"n1": rms_norm_init(d, lead=lead, device=device)}
+    kw = dict(lead=lead, device=device)
+    p = {"n1": rms_norm_init(d, **kw)}
     if bt == "ssd":
         p["mix"] = init_mamba2(gen, d, cfg.ssm_heads, cfg.ssm_head_dim,
-                               cfg.ssm_state, cfg.ssm_conv, lead=lead,
-                               device=device)
+                               cfg.ssm_state, cfg.ssm_conv, **kw)
         return p
-    p["n2"] = rms_norm_init(d, lead=lead, device=device)
+    p["n2"] = rms_norm_init(d, **kw)
+    heads = (d, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
     if bt == "rglru":
-        p["mix"] = init_rglru(gen, d, cfg.rnn_width or d, lead=lead,
-                              device=device)
+        p["mix"] = init_rglru(gen, d, cfg.rnn_width or d, **kw)
+    elif bt == "cross":
+        p["xattn"] = attn.init_attn(gen, *heads, **kw)
+        p["gate"] = torch.zeros(lead, dtype=torch.float32, device=device)
+    elif bt in ("selfcross", "bidir"):          # no QKV bias
+        p["attn"] = attn.init_attn(gen, *heads, **kw)
+        if bt == "selfcross":
+            p["n3"] = rms_norm_init(d, **kw)
+            p["xattn"] = attn.init_attn(gen, *heads, **kw)
     else:
-        p["attn"] = attn.init_attn(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                                   cfg.hd, cfg.qkv_bias, lead=lead,
-                                   device=device)
+        p["attn"] = attn.init_attn(gen, *heads, cfg.qkv_bias, **kw)
     if bt == "moe":
-        p["moe"] = ffn.init_moe(gen, d, cfg.d_ff, cfg.n_experts, lead=lead,
-                                device=device)
+        p["moe"] = ffn.init_moe(gen, d, cfg.d_ff, cfg.n_experts, **kw)
+    elif bt in ("selfcross", "bidir"):
+        p["mlp"] = ffn.init_gelu_mlp(gen, d, cfg.d_ff, **kw)
     else:
-        p["mlp"] = ffn.init_swiglu(gen, d, cfg.d_ff, lead=lead,
-                                   device=device)
+        p["mlp"] = ffn.init_swiglu(gen, d, cfg.d_ff, **kw)
     return p
 
 
@@ -92,11 +99,20 @@ def init_block(gen, bt: str, cfg: ArchConfig, *, lead: tuple = (),
 # ---------------------------------------------------------------------------
 
 def _attn_kwargs(bt: str, ctx: Ctx) -> dict:
+    """The self-attention of a block: ``local``'s window, ``bidir``'s own
+    kind, ``global`` for the rest (moe, selfcross)."""
     cfg = ctx.cfg
-    kind = "local" if bt == "local" else "global"     # moe: global
+    kind = bt if bt in ("local", "bidir") else "global"
     return {"n_kv": cfg.n_kv_heads, "kind": kind, "theta": cfg.rope_theta,
             "positions": ctx.positions, "window": cfg.window,
             "flash": ctx.flash}
+
+
+def _cross(p: dict, x: torch.Tensor, ctx: Ctx):
+    """Cross-attention of ``x`` (normed) to the memory: (y, its K/V)."""
+    return attn.attn_prefill(p, x, n_kv=ctx.cfg.n_kv_heads, kind="cross",
+                             theta=ctx.cfg.rope_theta,
+                             positions=ctx.positions, memory=ctx.memory)
 
 
 def _ring_pack(k: torch.Tensor, window: int) -> torch.Tensor:
@@ -120,18 +136,38 @@ def _ssd_kwargs(cfg: ArchConfig) -> dict:
 
 
 def _mixer(p: dict, bt: str, x: torch.Tensor, ctx: Ctx):
-    """The block's first half on the normed input: (y, cache entry)."""
-    xn = rms_norm(x, p["n1"], ctx.cfg.norm_eps)
+    """The block's attention or recurrent half, residual included: (x,
+    cache entry)."""
+    eps = ctx.cfg.norm_eps
+    xn = rms_norm(x, p["n1"], eps)
     if bt == "rglru":
         y, state, conv = rglru_train(p["mix"], xn)
-        return y, {"state": state, "conv": conv}
+        return x + y, {"state": state, "conv": conv}
     if bt == "ssd":
         y, state, conv = mamba2_train(p["mix"], xn, **_ssd_kwargs(ctx.cfg))
-        return y, {"state": state, "conv": conv}
+        return x + y, {"state": state, "conv": conv}
+    if bt == "cross":
+        y, mk, mv = _cross(p["xattn"], xn, ctx)
+        return x + _gated(p, y), {"mk": mk, "mv": mv}
     y, k, v = attn.attn_prefill(p["attn"], xn, **_attn_kwargs(bt, ctx))
+    x = x + y
     if bt == "local":
-        k, v = _ring_pack(k, ctx.cfg.window), _ring_pack(v, ctx.cfg.window)
-    return y, {"k": k, "v": v}
+        return x, {"k": _ring_pack(k, ctx.cfg.window),
+                   "v": _ring_pack(v, ctx.cfg.window)}
+    if bt == "selfcross":
+        # the reference caches the self K before rope (whisper's decoder
+        # has sinusoidal positions), though its prefill attends roped
+        k, v = attn.memory_kv(p["attn"], xn)
+        y, mk, mv = _cross(p["xattn"], rms_norm(x, p["n2"], eps), ctx)
+        return x + y, {"k": k, "v": v, "mk": mk, "mv": mv}
+    if bt == "bidir":
+        return x, {}
+    return x, {"k": k, "v": v}
+
+
+def _gated(p: dict, y: torch.Tensor) -> torch.Tensor:
+    """A ``cross`` block's attention output times tanh(gate), in bf16."""
+    return torch.tanh(p["gate"]).to(y.dtype) * y
 
 
 def _ffn(p: dict, bt: str, x: torch.Tensor, cfg: ArchConfig):
@@ -139,25 +175,27 @@ def _ffn(p: dict, bt: str, x: torch.Tensor, cfg: ArchConfig):
     None for the other types)."""
     if bt == "ssd":
         return x, None
-    xn = rms_norm(x, p["n2"], cfg.norm_eps)
+    xn = rms_norm(x, p["n3" if bt == "selfcross" else "n2"], cfg.norm_eps)
     if bt == "moe":
         y, aux = ffn.moe_apply(p["moe"], xn, top_k=cfg.top_k,
                                capacity_factor=cfg.capacity_factor)
         return x + y, aux
+    if bt in ("selfcross", "bidir"):
+        return x + ffn.gelu_mlp(p["mlp"], xn), None
     return x + ffn.swiglu(p["mlp"], xn), None
 
 
 def _block(p: dict, bt: str, x: torch.Tensor, ctx: Ctx):
-    _ported(bt)
-    y, entry = _mixer(p, bt, x, ctx)
-    x, aux = _ffn(p, bt, x + y, ctx.cfg)
+    x, entry = _mixer(p, bt, x, ctx)
+    x, aux = _ffn(p, bt, x, ctx.cfg)
     return x, entry, aux
 
 
 def block_prefill(p: dict, bt: str, x: torch.Tensor, ctx: Ctx
                   ) -> tuple[torch.Tensor, dict]:
-    """Returns (x_out, cache_entry): the roped K/V of the normed input
-    (a ring for ``local``), or the recurrent state and conv tail."""
+    """Returns (x_out, cache_entry): the roped K/V of the normed input (a
+    ring for ``local``, un-roped for ``selfcross``), the memory's K/V, or
+    the recurrent state and conv tail."""
     x, entry, _ = _block(p, bt, x, ctx)
     return x, entry
 
@@ -179,8 +217,7 @@ def block_train(p: dict, bt: str, x: torch.Tensor, ctx: Ctx
 def block_decode(p: dict, bt: str, x1: torch.Tensor, cache: dict, pos: int,
                  ctx: Ctx) -> tuple[torch.Tensor, dict]:
     """One token through the block; the cache entry is updated in place
-    and returned."""
-    _ported(bt)
+    and returned (a memory's K/V are only read)."""
     cfg = ctx.cfg
     xn = rms_norm(x1, p["n1"], cfg.norm_eps)
     if bt in ("rglru", "ssd"):
@@ -193,13 +230,23 @@ def block_decode(p: dict, bt: str, x1: torch.Tensor, cache: dict, pos: int,
         # new tensors (the window was built by torch.cat): no overlap
         cache["state"].copy_(state)
         cache["conv"].copy_(conv)
+        x1 = x1 + y
+    elif bt == "cross":
+        x1 = x1 + _gated(p, attn.decode_cross_attn(
+            p["xattn"], xn, cache["mk"], cache["mv"], cfg.n_kv_heads))
     else:
         y, _, _ = attn.decode_attn(
             p["attn"], xn, cache["k"], cache["v"], pos,
             n_kv=cfg.n_kv_heads, theta=cfg.rope_theta,
             layout=attn.KVLayout(cache["k"].shape[1]),
-            window=cfg.window if bt == "local" else None)
-    x1, _ = _ffn(p, bt, x1 + y, cfg)
+            window=cfg.window if bt == "local" else None,
+            rope=bt != "selfcross")
+        x1 = x1 + y
+        if bt == "selfcross":
+            x1 = x1 + attn.decode_cross_attn(
+                p["xattn"], rms_norm(x1, p["n2"], cfg.norm_eps),
+                cache["mk"], cache["mv"], cfg.n_kv_heads)
+    x1, _ = _ffn(p, bt, x1, cfg)
     return x1, cache
 
 
@@ -210,8 +257,6 @@ def block_decode(p: dict, bt: str, x1: torch.Tensor, cache: dict, pos: int,
 def cache_entry_shape(bt: str, cfg: ArchConfig, batch: int, seq_len: int
                       ) -> dict:
     """One block's decode cache as meta tensors (shape and dtype only)."""
-    _ported(bt)
-
     def meta(shape, dtype=COMPUTE_DTYPE):
         return torch.empty(shape, dtype=dtype, device="meta")
     if bt == "ssd":
@@ -224,6 +269,12 @@ def cache_entry_shape(bt: str, cfg: ArchConfig, batch: int, seq_len: int
         rnn = cfg.rnn_width or cfg.d_model
         return {"state": meta((batch, rnn), torch.float32),
                 "conv": meta((batch, 3, rnn))}
+    mem = (batch, cfg.frontend_tokens, cfg.n_kv_heads, cfg.hd)
+    if bt == "cross":
+        return {"mk": meta(mem), "mv": meta(mem)}
     length = min(cfg.window, seq_len) if bt == "local" else seq_len
     shape = (batch, length, cfg.n_kv_heads, cfg.hd)
+    if bt == "selfcross":
+        return {"k": meta(shape), "v": meta(shape), "mk": meta(mem),
+                "mv": meta(mem)}
     return {"k": meta(shape), "v": meta(shape)}

@@ -1,4 +1,5 @@
-"""Shared model components: norms, RoPE, initializers, dtype policy.
+"""Shared model components: norms, RoPE, sinusoidal positions,
+initializers, dtype policy.
 
 The port of ``repro/models/common.py``, with its conventions:
   - parameters are bf16 (fp32 for norm scales);
@@ -94,3 +95,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_freqs(d: int, device="cpu") -> torch.Tensor:
+    """(d/2,) fp32 1 / 10000**(2i/d). The power is taken in float64 and
+    rounded once: XLA's fp32 power is correctly rounded at these
+    exponents and PyTorch's CPU one is not at 4 of whisper's 512, which
+    moved a table entry by 3e-5 at position 1 499."""
+    exps = torch.arange(0, d, 2, dtype=torch.float32, device=device) / d
+    return 1.0 / (10_000.0 ** exps.double()).float()
+
+
+def sinusoidal_positions(n: int, d: int, device="cpu") -> torch.Tensor:
+    """Whisper's fixed sinusoidal embeddings, (n, d) fp32: the sines of
+    the angles pos / 10000**(2i/d), then their cosines."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    ang = pos * sinusoid_freqs(d, device)[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

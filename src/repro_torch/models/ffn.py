@@ -1,8 +1,11 @@
-"""Feed-forward layers: the SwiGLU of the dense blocks and the
-capacity-based MoE of the ``moe`` block.
+"""Feed-forward layers: the SwiGLU of the dense blocks, the GELU MLP of
+the ``bidir`` and ``selfcross`` blocks (whisper) and the capacity-based
+MoE of the ``moe`` block.
 
-The port of ``repro/models/ffn.py`` (the GELU MLP comes with the
-encoder/cross block types, ROADMAP). MoE dispatch is sort-based, with
+The port of ``repro/models/ffn.py``. The GELU is the tanh form, the
+default of ``jax.nn.gelu``, and its biases are fp32, added to the bf16
+product in fp32 and rounded back to bf16 as the reference does. MoE
+dispatch is sort-based, with
 static shapes: each token is routed to its top_k experts, the routed
 copies are stably sorted by expert id and written into a per-expert
 capacity buffer (a copy past an expert's capacity goes to an overflow row
@@ -32,6 +35,23 @@ def init_swiglu(gen, d: int, ff: int, *, lead: tuple = (),
 def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["w1"]) * (x @ p["w3"])
     return h @ p["w2"]
+
+
+def init_gelu_mlp(gen, d: int, ff: int, *, lead: tuple = (),
+                  device="cpu") -> dict:
+    """bf16 weights and zero fp32 biases, with ``lead`` (the layer dim)
+    in front."""
+    return {"w1": dense_init(gen, lead + (d, ff), fan_in=d, device=device),
+            "b1": torch.zeros(lead + (ff,), dtype=torch.float32,
+                              device=device),
+            "w2": dense_init(gen, lead + (ff, d), fan_in=ff, device=device),
+            "b2": torch.zeros(lead + (d,), dtype=torch.float32,
+                              device=device)}
+
+
+def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = F.gelu((x @ p["w1"] + p["b1"]).to(x.dtype), approximate="tanh")
+    return (h @ p["w2"] + p["b2"]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -136,7 +136,8 @@ def test_configs_are_the_reference_configs():
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "phi4-mini-3.8b",
                                   "stablelm-1.6b", "gemma3-27b",
                                   "recurrentgemma-9b", "mamba2-780m",
-                                  "moonshot-v1-16b-a3b", "grok-1-314b"])
+                                  "moonshot-v1-16b-a3b", "grok-1-314b",
+                                  "whisper-medium", "llama-3.2-vision-90b"])
 def test_count_params_matches_reference(arch):
     from repro.configs.base import get_arch as jget
     from repro_torch.configs.base import get_arch
@@ -156,14 +157,10 @@ def test_count_params_matches_reference(arch):
         assert want == 27_008_319_744
     if arch == "recurrentgemma-9b":
         assert want == 8_578_519_040
-
-
-@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-90b"])
-def test_other_block_types_raise(arch):
-    """The block types still to come (selfcross, cross) raise."""
-    from repro_torch.configs.base import get_arch
-    with pytest.raises(NotImplementedError, match="not ported"):
-        api.count_params(get_arch(arch))
+    if arch == "whisper-medium":        # encoder and decoder
+        assert want == 758_228_992
+    if arch == "llama-3.2-vision-90b":  # mproj and the untied lm_head
+        assert want == 87_733_903_380
 
 
 def test_params_carry_across_bit_for_bit(weights):

@@ -30,11 +30,13 @@ PROMPT, DECODE, BATCH = 32, 4, 2
 # the prompt of each served arch: longer than the reduced window (32) where
 # the arch has local layers, so they take the band, the ring and the kernel
 PROMPTS = {"qwen2.5-3b": PROMPT, "gemma3-27b": 64, "recurrentgemma-9b": 64,
-           "moonshot-v1-16b-a3b": PROMPT, "mamba2-780m": 64}
+           "moonshot-v1-16b-a3b": PROMPT, "mamba2-780m": 64,
+           "whisper-medium": PROMPT, "llama-3.2-vision-90b": PROMPT}
 
 
 def _reference_inputs(arch="qwen2.5-3b", prompt=PROMPT):
-    """The weights and prompt the reference's serve builds for itself."""
+    """The weights, prompt and modality stubs (frames or patches, none for
+    a text model) the reference's serve builds for itself."""
     import jax
     from repro.configs.base import get_arch
     from repro.data import pipeline as jpipeline
@@ -44,7 +46,9 @@ def _reference_inputs(arch="qwen2.5-3b", prompt=PROMPT):
     dcfg = jpipeline.DataConfig(vocab=cfg.vocab, batch=BATCH,
                                 seq_len=prompt - 1, kind="uniform")
     tokens = jpipeline.make_batch(dcfg, 0)["tokens"]
-    return jax.tree.map(np.asarray, params), np.asarray(tokens)
+    stubs = jpipeline.add_modality_stubs({}, cfg, BATCH)
+    return (jax.tree.map(np.asarray, params), np.asarray(tokens),
+            {k: np.asarray(v) for k, v in stubs.items()})
 
 
 def _held_equal(got, want, logits):
@@ -74,7 +78,12 @@ def test_serve_matches_reference(arch, flash, monkeypatch, capsys):
     prompt = PROMPTS[arch]
     want = jserve.serve(arch=arch, prompt_len=prompt, decode_n=DECODE,
                         batch=BATCH, reduced=True)
-    np_params, tokens = _reference_inputs(arch, prompt)
+    np_params, tokens, stubs = _reference_inputs(arch, prompt)
+    # the reference's frames or patches in place of the port's own draw
+    monkeypatch.setattr(tserve.pipeline, "add_modality_stubs",
+                        lambda batch, *_: {**batch, **{
+                            k: api._tensor(v, torch.device("cpu"))
+                            for k, v in stubs.items()}})
     got = tserve.serve(arch=arch, prompt_len=prompt, decode_n=DECODE,
                        batch=BATCH, reduced=True, flash=flash, device="cpu",
                        params=api.params_from_jax(np_params, "cpu"),
@@ -121,7 +130,8 @@ def test_grow_cache_pads_with_zeros():
 
 
 @pytest.mark.parametrize("arch", ["gemma3-27b", "recurrentgemma-9b",
-                                  "moonshot-v1-16b-a3b", "mamba2-780m"])
+                                  "moonshot-v1-16b-a3b", "mamba2-780m",
+                                  "whisper-medium", "llama-3.2-vision-90b"])
 def test_grow_cache_matches_reference(arch):
     """The reference's rule (pad what differs from cache_specs): a local
     ring and a recurrent state and conv tail keep their shape and values
@@ -136,7 +146,8 @@ def test_grow_cache_matches_reference(arch):
     prompt, total = PROMPTS[arch], PROMPTS[arch] + DECODE
     toks = torch.randint(0, cfg.vocab, (BATCH, prompt),
                          generator=torch.Generator().manual_seed(2))
-    _, cache = api.prefill(params, cfg, {"tokens": toks})
+    _, cache = api.prefill(params, cfg, pipeline.add_modality_stubs(
+        {"tokens": toks}, cfg, BATCH))
     grown = tserve.grow_cache(cache, cfg, BATCH, total)
 
     def grow(leaf, like):                   # the reference's serve
@@ -162,6 +173,10 @@ def test_grow_cache_matches_reference(arch):
                          ("conv", True)}
     elif arch == "moonshot-v1-16b-a3b":     # the moe layer's K/V grown
         assert kinds == {("k", False), ("v", False)}
+    elif arch in ("whisper-medium", "llama-3.2-vision-90b"):
+        # the self K/V grown, the memory's K/V kept
+        assert kinds == {("k", False), ("v", False), ("mk", True),
+                         ("mv", True)}
     else:                          # the ssd state and conv tail kept
         assert kinds == {("state", True), ("conv", True)}
     if arch in ("gemma3-27b", "recurrentgemma-9b"):
@@ -233,13 +248,17 @@ def cuda():
 
 
 # (arch, layers, flash launches a prefill): the reduced qwen2.5-3b at two
-# layers, gemma3-27b (8), recurrentgemma-9b (5), moonshot-v1-16b-a3b (1)
-# and mamba2-780m (1) at their full pattern depth, where every gemma3
-# layer, recurrentgemma's one local layer and moonshot's moe layer take
-# the kernel at the prompt of PROMPTS, and mamba2's ssd layer none
+# layers, gemma3-27b (8), recurrentgemma-9b (5), moonshot-v1-16b-a3b (1),
+# mamba2-780m (1) and llama-3.2-vision-90b (5) at their full pattern depth,
+# and whisper-medium at two decoder layers, where every gemma3 layer,
+# recurrentgemma's one local layer, moonshot's moe layer, llama's four
+# global layers and whisper's selfcross layers take the kernel at the
+# prompt of PROMPTS, and mamba2's ssd layer, llama's cross layer and
+# whisper's encoder none
 CUDA_SERVE = [("qwen2.5-3b", 2, 2), ("gemma3-27b", None, 8),
               ("recurrentgemma-9b", None, 1), ("moonshot-v1-16b-a3b", None, 1),
-              ("mamba2-780m", None, 0)]
+              ("mamba2-780m", None, 0), ("whisper-medium", 2, 2),
+              ("llama-3.2-vision-90b", None, 4)]
 
 
 @pytest.mark.cuda

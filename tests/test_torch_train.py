@@ -81,9 +81,9 @@ def _jnp(tree) -> dict:
             for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def _reference(mode: str, step: int):
+def _reference(mode: str, step: int, arch: str = ARCH):
     """The reference's state before and after one step, and its
-    tokens."""
+    tokens (with its frames or patches for an arch that has them)."""
     import jax
     import jax.numpy as jnp
 
@@ -94,7 +94,7 @@ def _reference(mode: str, step: int):
     from repro.launch import steps as jsteps
     from repro.optim.adamw import AdamWConfig as JOpt
     jmesh = jcompat.make_mesh((1, 1), ("data", "model"))
-    cfg = jget(ARCH).reduced()
+    cfg = jget(arch).reduced()
     prog = jsteps.build_train_step(
         cfg, JShape("t", SEQ, BATCH, "train"), jmesh,
         inc=JInc(mode=mode, precision=PRECISION),
@@ -103,11 +103,14 @@ def _reference(mode: str, step: int):
     params, opt = jsteps.init_state(prog, cfg)
     dcfg = jpipeline.DataConfig(vocab=cfg.vocab, batch=BATCH, seq_len=SEQ,
                                 kind="bigram")
-    tokens = np.array(jpipeline.make_batch(dcfg, step)["tokens"])
+    batch = jpipeline.add_modality_stubs(jpipeline.make_batch(dcfg, step),
+                                         cfg, BATCH)
+    tokens = np.array(batch["tokens"])
     before = (jax.tree.map(np.asarray, params),
               jax.tree.map(np.asarray, opt))
-    p2, o2, m = prog.fn(params, opt, {"tokens": jnp.asarray(tokens)},
-                        jnp.int32(step))
+    p2, o2, m = prog.fn(params, opt, batch, jnp.int32(step))
+    if arch != ARCH:
+        tokens = {k: np.array(v) for k, v in batch.items()}
     return before, tokens, (p2, o2, {k: float(v) for k, v in m.items()})
 
 
@@ -154,6 +157,29 @@ def test_loss_decreases_on_bigram(mesh):
     _, _, losses = run_steps(cfg, prog, params, opt, 0, 15)
     assert all(np.isfinite(losses))
     assert losses[-1] < losses[0], losses
+
+
+def test_step_with_frames_matches_reference(mesh):
+    """One netrpc step of the reduced whisper-medium (its encoder over the
+    reference's stub frames, which the step splits into microbatches
+    with the tokens): loss and gnorm as test_step_matches_reference
+    holds them."""
+    step = 3
+    (np_p, np_o), batch, (_, _, jm) = _reference("netrpc", step,
+                                                 "whisper-medium")
+    cfg = get_arch("whisper-medium").reduced()
+    prog = steps.build_train_step(
+        cfg, ShapeConfig("t", seq_len=SEQ, global_batch=BATCH, kind="train"),
+        mesh, inc=IncAggConfig(mode="netrpc", precision=PRECISION),
+        opt_cfg=AdamWConfig(warmup_steps=2, total_steps=100),
+        n_micro=N_MICRO, device="cpu")
+    _, _, m = prog.fn(api.params_from_jax(np_p, "cpu"),
+                      api.opt_from_jax(np_o, "cpu"),
+                      {k: api._tensor(v, torch.device("cpu"))
+                       for k, v in batch.items()}, step)
+    assert set(batch) == {"tokens", "frames"}
+    np.testing.assert_allclose(float(m["loss"]), jm["loss"], rtol=2e-4)
+    np.testing.assert_allclose(float(m["gnorm"]), jm["gnorm"], rtol=1e-3)
 
 
 def test_checkpoint_restart_is_bitwise_deterministic(mesh, tmp_path):
@@ -325,9 +351,10 @@ def _spec_leaves(tree, prefix="") -> dict:
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 def test_input_specs_match_reference(kind):
-    """input_specs of a text model: meta tensors with the reference's
-    inputs' shapes and dtypes, leaf for leaf (decode: token, pos and the
-    stacked cache); a family whose inputs are not ported raises."""
+    """input_specs: meta tensors with the reference's inputs' shapes and
+    dtypes, leaf for leaf (decode: token, pos and the stacked cache), for
+    a text model and for the two families with a memory (the patches of
+    the VLM, whisper's frames)."""
     from repro.configs.base import ShapeConfig as JShape
     from repro.configs.base import get_arch as jget
     from repro.models import api as japi
@@ -335,16 +362,15 @@ def test_input_specs_match_reference(kind):
     def spec(leaves):
         return {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
                 for k, v in leaves.items()}
-    for b, s in ((4, 64), (2, 1024)):
-        got = _spec_leaves(api.input_specs(get_arch(ARCH),
+    for arch, b, s in ((ARCH, 4, 64), (ARCH, 2, 1024),
+                       ("llama-3.2-vision-90b", 4, 64),
+                       ("whisper-medium", 2, 448)):
+        got = _spec_leaves(api.input_specs(get_arch(arch),
                                            ShapeConfig("t", s, b, kind)))
-        want = _spec_leaves(japi.input_specs(jget(ARCH),
+        want = _spec_leaves(japi.input_specs(jget(arch),
                                              JShape("t", s, b, kind)))
         assert spec(got) == spec(want)
         assert all(t.device.type == "meta" for t in got.values())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        api.input_specs(get_arch("llama-3.2-vision-90b"),
-                        ShapeConfig("t", 64, 4, kind))
 
 
 # -- repair: flash attention under autograd ------------------------------------
