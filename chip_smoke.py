@@ -2281,7 +2281,7 @@ def rehearse(scale_down: int = 64) -> None:
     print("rehearsal: phases a-q ran on the CPU and met their oracles")
 
 
-def lane_drift(draws: int = 3, phases: str = "ilmnpq") -> None:
+def lane_drift(draws: int = 3) -> None:
     """The drift behind ``SERVES``' lane tolerances, on the CPU: each serve
     phase's arch that has attention, at the reduced width and the phase's
     full depth (whisper's encoder too), its gates set as the phase sets
@@ -2294,8 +2294,7 @@ def lane_drift(draws: int = 3, phases: str = "ilmnpq") -> None:
 
     from repro_torch.launch.serve import model_config
     from repro_torch.models import api
-    for phase in phases:
-        sp = SERVES[phase]
+    for phase, sp in SERVES.items():
         if sp["lanes_tol"] is None:
             continue
         full = model_config(sp["arch"], layers=sp.get("layers"))

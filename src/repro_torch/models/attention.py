@@ -87,8 +87,7 @@ def query(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def memory_kv(p: dict, memory: torch.Tensor):
     """K/V (B,M,KV,hd) of a memory (B,M,d): a cross-attention layer's,
-    projected once at prefill for the decode cache, or a ``selfcross``
-    layer's un-roped self K/V."""
+    projected once at prefill for the decode cache."""
     k = torch.einsum("bsd,dhk->bshk", memory, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", memory, p["wv"])
     if "bk" in p:
@@ -206,11 +205,11 @@ def attn_train(p: dict, x: torch.Tensor, *, n_kv: int, kind: str,
 def attn_prefill(p: dict, x: torch.Tensor, *, n_kv: int, kind: str,
                  theta: float, positions: torch.Tensor,
                  window: int | None = None, flash: bool = False,
-                 memory: torch.Tensor | None = None):
+                 memory: torch.Tensor | None = None, k_roped: bool = True):
     """``attn_train`` that also returns the K and V it attended to (roped
-    for the causal kinds, the memory's for ``cross``): the decode cache
-    entry, which the reference projects a second time (``blocks._roped_kv``,
-    ``memory_kv``) from the same input."""
+    for the causal kinds unless ``k_roped`` is False, the memory's for
+    ``cross``): the decode cache entry, which the reference projects a
+    second time (``blocks._roped_kv``, ``memory_kv``) from the same input."""
     if kind not in ("global", "local", "bidir", "cross"):
         raise ValueError(f"attention kind {kind!r}")
     if kind == "local" and not window:
@@ -221,7 +220,7 @@ def attn_prefill(p: dict, x: torch.Tensor, *, n_kv: int, kind: str,
     if kind in ("bidir", "cross"):
         return out_proj(p, attn_full(q, k, v, n_kv, causal=False)), k, v
     q = apply_rope(q, positions, theta)
-    k = apply_rope(k, positions, theta)
+    k, k_raw = apply_rope(k, positions, theta), k
     if kind == "local":
         # the reference's routing: the kernel only when the window bites
         if flash and x.shape[1] > window:
@@ -234,7 +233,7 @@ def attn_prefill(p: dict, x: torch.Tensor, *, n_kv: int, kind: str,
         o = attn_causal_chunked(q, k, v, n_kv)
     else:
         o = attn_full(q, k, v, n_kv, causal=True)
-    return out_proj(p, o), k, v
+    return out_proj(p, o), k if k_roped else k_raw, v
 
 
 # ---------------------------------------------------------------------------

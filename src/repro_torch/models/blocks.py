@@ -103,9 +103,11 @@ def _attn_kwargs(bt: str, ctx: Ctx) -> dict:
     kind, ``global`` for the rest (moe, selfcross)."""
     cfg = ctx.cfg
     kind = bt if bt in ("local", "bidir") else "global"
+    # the reference caches a selfcross layer's self K before rope (whisper's
+    # decoder has sinusoidal positions), though its prefill attends roped
     return {"n_kv": cfg.n_kv_heads, "kind": kind, "theta": cfg.rope_theta,
             "positions": ctx.positions, "window": cfg.window,
-            "flash": ctx.flash}
+            "flash": ctx.flash, "k_roped": bt != "selfcross"}
 
 
 def _cross(p: dict, x: torch.Tensor, ctx: Ctx):
@@ -155,9 +157,6 @@ def _mixer(p: dict, bt: str, x: torch.Tensor, ctx: Ctx):
         return x, {"k": _ring_pack(k, ctx.cfg.window),
                    "v": _ring_pack(v, ctx.cfg.window)}
     if bt == "selfcross":
-        # the reference caches the self K before rope (whisper's decoder
-        # has sinusoidal positions), though its prefill attends roped
-        k, v = attn.memory_kv(p["attn"], xn)
         y, mk, mv = _cross(p["xattn"], rms_norm(x, p["n2"], eps), ctx)
         return x + y, {"k": k, "v": v, "mk": mk, "mv": mv}
     if bt == "bidir":
