@@ -168,6 +168,29 @@
    ``cut_tol``. p prints the encoder's share of its prefill. Kernel 11
    joins the kernel check at both prefill shapes, (4, 16, 16, 416, 64)
    and (4, 64, 8, 2 048, 128).
+13. Path, phase r: the switch daemon over a real wire, at the paper's
+   geometry (32 x 40 000 int32 on the card). r1: a ``SwitchServer`` whose
+   register file lives on the card, behind a seeded ``FaultProxy`` that
+   drops 5% of the data frames and duplicates and reorders 2.5%; the
+   traffic of phases a-d (e's key-by-key window eviction would cost a
+   round trip a key) from the two workers of one ``IncRuntime`` whose
+   switch is a ``RemoteSwitchMemory`` on one flow, then a second flow
+   straight to the daemon that reads the whole register file back.
+   Checks: every reply against the fixed-point oracle and bitwise equal
+   to the same traffic in process on the CPU, the daemon's registers
+   bitwise equal to that run's; the daemon launched sparse_addto (kernel
+   4, from its handler threads) and nothing launched any other kernel; no
+   handler raised, no flow degraded or fell back, no effect applied
+   twice. Prints each phase's round latency (p50, p99) over the wire
+   beside the same traffic in process on the card, the proxy's frames,
+   each flow's retransmits and reconnects, and the daemon's stats. r2:
+   ``python -m repro_torch.launch.elastic --wire-quorum --wire-loss
+   0.05`` as a process at the same geometry (a daemon and two worker
+   processes on the card, each worker adding 262 144 int32 a step for 24
+   steps, the daemon SIGTERM'd and respawned from its spool mid-run):
+   exits 0 with every vote and gradient exact, every step committed, no
+   effect applied twice, and some worker reconnected (the restart landed
+   in the traffic).
 
 Launch counts are set to 0 just before each path run on the card and read
 just after it; every kernel must have launched in the path. The two
@@ -208,6 +231,15 @@ PHASES = (("a_dense_one_segment", 40_000, 40_000, True, "grad"),
           ("d_host_lane", 262_144, 262_144, False, "grad"),
           ("e_spill_regrant", 131_072, 262_144, True, "grad"))
 LOCAL_ACCUM, LA_SLOTS, LA_CALLS = 8, 262_144, 16     # phase f
+# phase r: phases a-d over the wire (e's key-by-key end_window would cost
+# a round trip a key), through a proxy that drops WIRE_LOSS of the data
+# frames and duplicates and reorders half as many; then the --wire-quorum
+# demo as processes at the same geometry, each worker adding a gradient
+# of phase b's length a step for WIRE_STEPS steps (at the demo's 6 the
+# workers on the card finished before the daemon's SIGTERM landed: no
+# reconnect, no op in flight across the restart)
+WIRE_LABELS = tuple(p[0] for p in PHASES[:4])
+WIRE_LOSS, WIRE_GRAD_SLOTS, WIRE_STEPS = 0.05, 262_144, 24
 BUCKET = 6_553_600     # 25 MiB fp32: PyTorch DDP's default bucket_cap_mb
 FOLD_ROUNDS, BATCH_ROWS = 8, 16
 MODES = ("xla-psum", "fp32-ring", "netrpc", "netrpc-opt")
@@ -1296,30 +1328,40 @@ def same(a, b) -> bool:
             and bool(np.isfinite(a).all()) and a.tobytes() == b.tobytes())
 
 
-def runtime(inc, device, seg_slots):
+def runtime(inc, device, seg_slots, switch=None):
     """``IncRuntime`` on ``device`` at the paper's geometry, or with
-    smaller segments for a CPU rehearsal."""
+    smaller segments for a CPU rehearsal; ``switch(device, seg_slots)``,
+    when given, makes its register file (phase r: a ``RemoteSwitchMemory``
+    whose registers live in the switch daemon)."""
     from repro_torch.core.channel import Controller
     from repro_torch.core.inc_map import SwitchMemory
+    if switch is not None:
+        return inc.IncRuntime(controller=Controller(
+            switch=switch(device, seg_slots)))
     if seg_slots == SEG:
         return inc.IncRuntime(device=device)
     return inc.IncRuntime(controller=Controller(
         switch=SwitchMemory(32, seg_slots, device=device)))
 
 
-def drive_path(device, *, seg_slots=SEG, scale_down=1):
-    """Phases a-e through the port's public entry points on ``device``;
-    returns (replies, switch state_dict, launches, seconds), the last
-    three per phase; on the CPU the launches are the plain calls that
-    stand in for them."""
+def drive_path(device, *, seg_slots=SEG, scale_down=1, switch=None,
+               labels=None):
+    """Phases a-e (or those of ``labels``) through the port's public entry
+    points on ``device``, the register file made by ``switch`` when given
+    (``runtime``); returns (replies, switch state_dict, launches, seconds,
+    round seconds), the last four per phase; on the CPU the launches are
+    the plain calls that stand in for them. A round's seconds run from
+    its first call to its last reply."""
     import repro_torch.api as inc
     from repro_torch.kernels import ops
     count = ops.plain_counts if device == "cpu" else ops.launch_counts
     svcs = services(inc)
-    rt = runtime(inc, device, seg_slots)
-    replies, launches, seconds = {}, {}, {}
+    rt = runtime(inc, device, seg_slots, switch)
+    replies, launches, seconds, rounds = {}, {}, {}, {}
     try:
         for label, slots, n, dev_lane, kind in PHASES:
+            if labels is not None and label not in labels:
+                continue
             slots, n = slots // scale_down, n // scale_down
             before = count()
             t0 = time.perf_counter()
@@ -1327,13 +1369,16 @@ def drive_path(device, *, seg_slots=SEG, scale_down=1):
                      for _ in range(WORKERS)]
             g = gradients(label, n)
             got = []
+            rounds[label] = []
             for r in range(ROUNDS):
+                tr = time.perf_counter()
                 futs = [s.Update(tensor=g[r, w]) for w, s in enumerate(stubs)]
                 for f in futs:
                     rep = f.result(timeout=600)
                     t = rep.get("tensor")
                     got.append(None if t is None else
                                t.cpu().numpy() if hasattr(t, "cpu") else t)
+                rounds[label].append(time.perf_counter() - tr)
             seconds[label] = time.perf_counter() - t0
             want = oracle(g, kind, dev_lane)
             for i, (a, b) in enumerate(zip(got, want)):
@@ -1346,7 +1391,7 @@ def drive_path(device, *, seg_slots=SEG, scale_down=1):
         state = rt.controller.switch.state_dict()
     finally:
         rt.close()
-    return replies, state, launches, seconds
+    return replies, state, launches, seconds, rounds
 
 
 def once_a_call(per_phase, verb: str) -> None:
@@ -1394,7 +1439,7 @@ def counted(torch, run, what: str, needs: tuple) -> tuple:
 
 
 def check_path(torch) -> dict:
-    (replies, state, per_phase, secs), counts, card_s = counted(
+    (replies, state, per_phase, secs, _), counts, card_s = counted(
         torch, lambda: drive_path(None), "the path (phases a-e)",
         ("fused_addto", "fused_read", "sparse_addto", "fused_scatter"))
     for label, c in per_phase.items():
@@ -1403,7 +1448,7 @@ def check_path(torch) -> dict:
     print(f"path on the card: {card_s:.3f} s, launches {counts}", flush=True)
     once_a_call(per_phase, "launched")
     t0 = time.perf_counter()
-    ref_replies, ref_state, _, _ = drive_path("cpu")
+    ref_replies, ref_state, *_ = drive_path("cpu")
     print(f"path on the CPU (reference): {time.perf_counter() - t0:.3f} s",
           flush=True)
     for label in replies:
@@ -2207,6 +2252,159 @@ def check_int8_wire(torch, kernels: list) -> dict:
     return counts
 
 
+# -- phase r: the switch daemon over a real wire ------------------------------
+
+def drive_wire(device, *, seg_slots=SEG, scale_down=1) -> tuple:
+    """Phases a-d (``WIRE_LABELS``) through the port's entry points with
+    the register file in a switch daemon: a ``SwitchServer`` whose
+    segments live on ``device``, behind a ``FaultProxy`` that drops
+    ``WIRE_LOSS`` of the data frames and duplicates and reorders half as
+    many, reached by the runtime's ``RemoteSwitchMemory`` on its own flow.
+    A second flow, straight to the daemon, reads the whole register file
+    back. Returns (replies, the daemon's state_dict, launches, seconds,
+    round seconds, the wire's story: each flow's report, the proxy's
+    frames and the daemon's stats). Fails if the daemon recorded an error
+    or a flow degraded onto its local fallback plane."""
+    from repro_torch.net import (FaultProxy, FaultSpec, RemoteSwitchMemory,
+                                 SwitchServer, WireTransport)
+    srv = SwitchServer(n_segments=32, seg_slots=seg_slots,
+                       track_effects=True, device=device).start()
+    px = FaultProxy(srv.address, FaultSpec(
+        seed=SEED + 25, loss=WIRE_LOSS, dup=WIRE_LOSS / 2,
+        reorder=WIRE_LOSS / 2)).start()
+    flows = []
+
+    # a round takes about a second over this wire: a flow that hears
+    # nothing for a minute degrades (and the phase fails on it)
+    def flow(addr, flow_id, dev, slots):
+        t = WireTransport(addr, flow_id=flow_id, w_max=8, rto_base=0.05,
+                          call_timeout=120.0, unreachable_after=60.0)
+        flows.append(RemoteSwitchMemory(t, 32, slots, device=dev))
+        return flows[-1]
+
+    try:
+        replies, _, launches, secs, rounds = drive_path(
+            device, seg_slots=seg_slots, scale_down=scale_down,
+            switch=lambda dev, slots: flow(px.address, 1, dev, slots),
+            labels=WIRE_LABELS)
+        check = flow(srv.address, 2, device, seg_slots)
+        regs = check.get(np.arange(32 * seg_slots, dtype=np.int64))
+        dupes = check.transport.ctrl("stats")["duplicate_effects"]
+        reports = [m.report() for m in flows]
+    finally:
+        for m in flows:
+            m.transport.close()
+        px.stop()
+        srv.stop()
+        if srv.error is not None:     # the cause of whatever failed here
+            fail(f"phase r: the daemon's handler raised:\n{srv.error}")
+    for rep in reports:
+        if rep["degraded"] or rep["fallback_active"] \
+                or rep["fallback_activations"]:
+            fail(f"phase r: flow {rep['flow']} degraded onto its local "
+                 f"fallback plane: {rep}")
+    if dupes:
+        fail(f"phase r: double-applied effects {dupes}")
+    state = srv.switch.state_dict()
+    if not np.array_equal(regs, np.concatenate(
+            [r.cpu().numpy() for r in state["regs"]])):
+        fail("phase r: the register file read over the wire differs from "
+             "the daemon's")
+    return replies, state, launches, secs, rounds, {
+        "flows": reports, "proxy": px.stats.snapshot(),
+        "daemon": dict(srv.stats),
+        "on": str(srv.switch.segments[0].regs.device)}
+
+
+def wire_quorum_run(device: str, *extra: str) -> dict:
+    """``python -m repro_torch.launch.elastic --wire-quorum --wire-loss
+    WIRE_LOSS`` as a process (its daemon and two workers on ``device``):
+    fails unless it exits 0 with every vote and gradient element exact,
+    every step committed and no effect applied twice, across the daemon's
+    SIGTERM and respawn, and some worker reconnected (the restart landed
+    in the traffic). Returns its numbers and seconds."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.elastic", "--wire-quorum",
+         "--wire-loss", str(WIRE_LOSS), "--device", device, *extra],
+        env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    line = next((ln for ln in p.stdout.splitlines()
+                 if ln.startswith("wire quorum:")), None)
+    if p.returncode != 0 or line is None:
+        fail(f"phase r2: --wire-quorum exited {p.returncode}:\n"
+             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    if "exact=True/True" not in line or "dupes={}" not in line \
+            or "switch daemon restarted mid-run" not in p.stdout:
+        fail(f"phase r2: {line}")
+    reconnects = json.loads(re.search(r"reconnects=(\[[^]]*\])",
+                                      line).group(1))
+    if not any(reconnects):
+        fail(f"phase r2: no worker reconnected, so the restart landed "
+             f"after the traffic: {line}")
+    return {"line": line, "seconds": secs}
+
+
+def percentiles(xs) -> str:
+    return (f"p50 {np.percentile(xs, 50) * 1e3:.3f} ms, "
+            f"p99 {np.percentile(xs, 99) * 1e3:.3f} ms")
+
+
+def check_wire(torch, smi: str) -> dict:
+    """Phase r. r1: phases a-d over the wire to a daemon whose register
+    file lives on the card, every reply and the final register file
+    bitwise equal to the same traffic in process on the CPU, kernel 4
+    launched by the daemon's handler threads; each round's wall latency
+    beside the same traffic in process on the card. r2: the
+    ``--wire-quorum`` demo as processes at the paper's geometry."""
+    (replies, state, per_phase, secs, rounds, story), counts, wire_s = \
+        counted(torch, lambda: drive_wire(None), "phase r1 (the wire)",
+                ("sparse_addto",))
+    if not story["on"].startswith("cuda"):
+        fail(f"phase r1: the daemon's registers are on {story['on']}")
+    others = {k: c for k, c in counts.items() if k != "sparse_addto" and c}
+    if others:
+        fail(f"phase r1: the wire run launched {others}: the daemon's "
+             f"partitions are host-flavoured (kernel 4 only) and the "
+             f"client launches nothing")
+    ref_replies, ref_state, *_ = drive_path("cpu", labels=WIRE_LABELS)
+    for label in replies:
+        for i, (a, b) in enumerate(zip(replies[label], ref_replies[label])):
+            if not same(a, b):
+                fail(f"phase r1 {label}: reply {i} differs between the "
+                     f"wire and the CPU run")
+    same_state(torch, state, ref_state, "phase r1 (the daemon)")
+    _, _, _, _, local = drive_path(None, labels=WIRE_LABELS)
+    for label in WIRE_LABELS:
+        print(f"path r1 {label} on {smi}: {ROUNDS} rounds over the wire "
+              f"{percentiles(rounds[label])}; in process on the card "
+              f"{percentiles(local[label])}", flush=True)
+    every = [x for v in rounds.values() for x in v]
+    every_local = [x for v in local.values() for x in v]
+    flows = story["flows"]
+    print(f"path r1 on {smi}: {len(every)} rounds in {wire_s:.3f} s over "
+          f"the wire, {percentiles(every)}; in process on the card "
+          f"{percentiles(every_local)}; proxy {story['proxy']}; "
+          f"retransmits {[f['retx'] for f in flows]}, reconnects "
+          f"{[f['reconnects'] for f in flows]}, acks "
+          f"{[f['acks'] for f in flows]}; daemon {story['daemon']}; "
+          f"sparse_addto launched by the daemon {counts['sparse_addto']}",
+          flush=True)
+    print("path r1: replies and the daemon's registers (on the card) "
+          "bitwise equal to the CPU run; no flow degraded, no handler "
+          "raised", flush=True)
+    r2 = wire_quorum_run("cuda", "--wire-segments", "32", "--wire-slots",
+                         str(SEG), "--grad-slots", str(WIRE_GRAD_SLOTS),
+                         "--wire-steps", str(WIRE_STEPS))
+    print(f"path r2 on {smi}: {r2['seconds']:.3f} s, {r2['line']}",
+          flush=True)
+    return counts
+
+
 def rehearse(scale_down: int = 64) -> None:
     """Every path phase on the CPU at 1/scale_down of its size, with the
     plain versions: a rehearsal of the script's control flow and its
@@ -2278,7 +2476,22 @@ def rehearse(scale_down: int = 64) -> None:
     modes_oracle(netrpc, train_run("fp32-ring", **small),
                  "rehearsal of phase j")
     int8_wire_oracle(drive_int8_wire(torch, "cpu"))
-    print("rehearsal: phases a-q ran on the CPU and met their oracles")
+    ops.reset_counts()
+    replies, state, _, _, _, story = drive_wire("cpu", seg_slots=seg,
+                                                scale_down=scale_down)
+    print(f"rehearsal of phase r1: plain calls {ops.plain_counts()}, "
+          f"proxy {story['proxy']}, daemon {story['daemon']}", flush=True)
+    ref_replies, ref_state, *_ = drive_path(
+        "cpu", seg_slots=seg, scale_down=scale_down, labels=WIRE_LABELS)
+    for label in replies:
+        for i, (a, b) in enumerate(zip(replies[label], ref_replies[label])):
+            if not same(a, b):
+                fail(f"rehearsal of phase r1 {label}: reply {i} differs "
+                     f"from the in-process run")
+    same_state(torch, state, ref_state, "rehearsal of phase r1")
+    print(f"rehearsal of phase r2: "
+          f"{wire_quorum_run('cpu', '--wire-steps', str(WIRE_STEPS))}")
+    print("rehearsal: phases a-r ran on the CPU and met their oracles")
 
 
 def lane_drift(draws: int = 3) -> None:
@@ -2405,7 +2618,8 @@ def main() -> int:
                          ("n", lambda t: check_serve(t, smi, "n")),
                          ("o", lambda t: check_serve(t, smi, "o")),
                          ("p", lambda t: check_serve(t, smi, "p")),
-                         ("q", lambda t: check_serve(t, smi, "q"))):
+                         ("q", lambda t: check_serve(t, smi, "q")),
+                         ("r", lambda t: check_wire(t, smi))):
         t0 = time.perf_counter()
         for name, c in check(torch).items():
             counts[name] = counts.get(name, 0) + c

@@ -30,6 +30,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+# guards every wrapper's counts (``launches``, ``plain_calls``, the
+# scatters' ``lanes``): the switch daemon launches kernels from one
+# handler thread per connection, and ``+= 1`` on an attribute is a
+# read-modify-write that two threads can interleave
+COUNT_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -109,3 +114,10 @@ def launch(name: str, signatures: dict, fn: str, *args) -> None:
     err = getattr(lib, fn)(*args, stream)
     if err:
         raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
+
+
+def count(wrapper, name: str = "launches") -> None:
+    """Add one to the count ``name`` (``launches`` or ``plain_calls``) of
+    a kernel wrapper, under ``COUNT_LOCK``."""
+    with COUNT_LOCK:
+        setattr(wrapper, name, getattr(wrapper, name) + 1)

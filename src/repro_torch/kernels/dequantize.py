@@ -33,7 +33,7 @@ def dequantize(q: torch.Tensor, scale) -> tuple[torch.Tensor, torch.Tensor]:
     if q.dtype != torch.int32 or not q.is_contiguous():
         raise TypeError("dequantize: q must be contiguous int32")
     if q.device.type == "cpu":
-        dequantize.plain_calls += 1
+        build.count(dequantize, "plain_calls")
         return dequantize_plain(q, scale)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for {q.device.type} tensors")
@@ -46,7 +46,7 @@ def dequantize(q: torch.Tensor, scale) -> tuple[torch.Tensor, torch.Tensor]:
         build.launch("dequantize", SIGNATURES, "repro_dequantize",
                      q.data_ptr(), q.numel(), inv, out.data_ptr(),
                      mask.data_ptr())
-    dequantize.launches += 1
+    build.count(dequantize)
     return out, mask
 
 

@@ -70,7 +70,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``window`` keys. Returns a new contiguous tensor."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
-        flash_attention.plain_calls += 1
+        build.count(flash_attention, "plain_calls")
         return flash_attention_plain(q, k, v, causal, window)
     for t in (q, k, v):
         # TMA: bf16, unit last stride, 16-byte base and strides
@@ -95,7 +95,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      *out.stride()[:3], int(causal),
                      int(window or 0) if causal else 0,
                      float(np.float32(d ** -0.5)))
-    flash_attention.launches += 1
+    build.count(flash_attention)
     return out
 
 

@@ -161,7 +161,7 @@ def fused_addto(regs: torch.Tensor, start: int, fvals: torch.Tensor,
             or fvals.device != regs.device:
         raise TypeError("fvals must be contiguous fp32 on regs' device")
     if regs.device.type == "cpu":
-        fused_addto.plain_calls += 1
+        build.count(fused_addto, "plain_calls")
         return fused_addto_plain(regs, start, fvals, scale)
     if n == 0:
         return regs
@@ -169,7 +169,7 @@ def fused_addto(regs: torch.Tensor, start: int, fvals: torch.Tensor,
     with torch.cuda.device(regs.device):
         _launch("repro_fused_addto", regs.data_ptr(), start,
                 fvals.data_ptr(), n, _f32(scale))
-    fused_addto.launches += 1
+    build.count(fused_addto)
     if _obs.METRICS:
         _obs.kernel_launch("fused_addto", n, t0)
     return regs
@@ -193,7 +193,7 @@ def fused_addto_runs(runs, fvals: torch.Tensor, scale) -> None:
     for c in range(0, len(runs), MAX_RUNS):
         chunk = runs[c:c + MAX_RUNS]
         if fvals.device.type == "cpu":
-            fused_addto.plain_calls += 1
+            build.count(fused_addto, "plain_calls")
             fused_addto_runs_plain(chunk, fvals, scale)
             continue
         t0 = time.perf_counter() if _obs.METRICS else 0.0
@@ -201,7 +201,7 @@ def fused_addto_runs(runs, fvals: torch.Tensor, scale) -> None:
         with torch.cuda.device(fvals.device):
             _launch("repro_fused_addto_runs", ctypes.addressof(table),
                     len(chunk), fvals.data_ptr(), _f32(scale))
-        fused_addto.launches += 1
+        build.count(fused_addto)
         if _obs.METRICS:
             _obs.kernel_launch("fused_addto", sum(r[3] for r in chunk), t0)
 
@@ -213,7 +213,7 @@ def fused_scatter(regs: torch.Tensor, idx: torch.Tensor,
     scatter-add in stream order, IN PLACE; returns ``regs``."""
     check_scatter_args(regs, idx, fvals, torch.float32)
     if regs.device.type == "cpu":
-        fused_scatter.plain_calls += 1
+        build.count(fused_scatter, "plain_calls")
         return fused_scatter_plain(regs, idx, fvals, scale)
     k = idx.numel()
     if k == 0:
@@ -235,7 +235,7 @@ def fused_read(regs: torch.Tensor, start: int, n: int, scale
     ``q.f32 * (1 / float32(scale))``, bit for bit the host fallback's."""
     _check_range(regs, start, n)
     if regs.device.type == "cpu":
-        fused_read.plain_calls += 1
+        build.count(fused_read, "plain_calls")
         return fused_read_plain(regs, start, n, scale)
     out = torch.empty(n, dtype=torch.float32, device=regs.device)
     mask = torch.empty(n, dtype=torch.bool, device=regs.device)
@@ -246,7 +246,7 @@ def fused_read(regs: torch.Tensor, start: int, n: int, scale
     with torch.cuda.device(regs.device):
         _launch("repro_fused_read", regs.data_ptr(), start, n, inv,
                 out.data_ptr(), mask.data_ptr())
-    fused_read.launches += 1
+    build.count(fused_read)
     if _obs.METRICS:
         _obs.kernel_launch("fused_read", n, t0)
     return out, mask
@@ -287,7 +287,7 @@ def fused_read_runs(runs, m: int, scale, *, want_raw: bool = False
             _launch("repro_fused_read_runs", ctypes.addressof(table),
                     len(chunk), inv, out.data_ptr(), mask.data_ptr(),
                     raw.data_ptr() if want_raw else None)
-        fused_read.launches += 1
+        build.count(fused_read)
         if _obs.METRICS:
             _obs.kernel_launch("fused_read", sum(r[3] for r in chunk), t0)
     return out, mask, raw
@@ -302,7 +302,7 @@ def fused_fold(fstack: torch.Tensor, scale) -> torch.Tensor:
         raise TypeError("fstack must be a contiguous fp32 (rounds, n) "
                         "tensor with at least one round")
     if fstack.device.type == "cpu":
-        fused_fold.plain_calls += 1
+        build.count(fused_fold, "plain_calls")
         return fused_fold_plain(fstack, scale)
     if fstack.device.type != "cuda":
         raise ValueError(f"no kernel for {fstack.device.type} tensors")
@@ -314,7 +314,7 @@ def fused_fold(fstack: torch.Tensor, scale) -> torch.Tensor:
     with torch.cuda.device(fstack.device):
         _launch("repro_fused_fold", fstack.data_ptr(), r, n, _f32(scale),
                 out.data_ptr())
-    fused_fold.launches += 1
+    build.count(fused_fold)
     if _obs.METRICS:
         _obs.kernel_launch("fused_fold", r * n, t0)
     return out

@@ -57,7 +57,7 @@ def sat_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"sat_add: shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} differ")
     if a.device.type == "cpu":
-        sat_add.plain_calls += 1
+        build.count(sat_add, "plain_calls")
         return sat_add_plain(a, b)
     out = torch.empty_like(a)
     if a.numel() == 0:
@@ -65,7 +65,7 @@ def sat_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(a.device):
         build.launch("inc_agg", SIGNATURES, "repro_sat_add", a.data_ptr(),
                      b.data_ptr(), out.data_ptr(), a.numel())
-    sat_add.launches += 1
+    build.count(sat_add)
     return out
 
 
@@ -78,7 +78,7 @@ def sat_add_batch(acc: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"sat_add_batch: qs {tuple(qs.shape)} must be "
                          f"(B,) + acc's shape {tuple(acc.shape)}")
     if acc.device.type == "cpu":
-        sat_add_batch.plain_calls += 1
+        build.count(sat_add_batch, "plain_calls")
         return sat_add_batch_plain(acc, qs)
     out = torch.empty_like(acc)
     if acc.numel() == 0:
@@ -87,7 +87,7 @@ def sat_add_batch(acc: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
         build.launch("inc_agg", SIGNATURES, "repro_sat_add_batch",
                      acc.data_ptr(), qs.data_ptr(), qs.shape[0], acc.numel(),
                      out.data_ptr())
-    sat_add_batch.launches += 1
+    build.count(sat_add_batch)
     return out
 
 

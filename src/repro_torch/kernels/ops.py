@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import dequantize as _dequantize
 from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import fused_gpv
@@ -78,12 +79,13 @@ def launch_ks() -> dict[str, list[int]]:
 
 
 def reset_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
-        fn.plain_calls = 0
-    for k in SCATTERS:
-        KERNELS[k].lanes = dict.fromkeys(KERNELS[k].lanes, 0)
-        KERNELS[k].ks.clear()
+    with build.COUNT_LOCK:
+        for fn in KERNELS.values():
+            fn.launches = 0
+            fn.plain_calls = 0
+        for k in SCATTERS:
+            KERNELS[k].lanes = dict.fromkeys(KERNELS[k].lanes, 0)
+            KERNELS[k].ks.clear()
 
 
 # -- numpy host kernels (the CPU switch's host segments) ----------------------

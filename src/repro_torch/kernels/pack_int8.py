@@ -46,7 +46,7 @@ def pack_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     on x's device."""
     rows = _rows(x, torch.float32, "pack_int8: x")
     if x.device.type == "cpu":
-        pack_int8.plain_calls += 1
+        build.count(pack_int8, "plain_calls")
         return pack_int8_plain(x)
     if x.data_ptr() % 16:
         raise ValueError("pack_int8: x must be 16-byte aligned")
@@ -57,7 +57,7 @@ def pack_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     with torch.cuda.device(x.device):
         build.launch("pack_int8", SIGNATURES, "repro_pack_int8",
                      x.data_ptr(), rows, q.data_ptr(), scale.data_ptr())
-    pack_int8.launches += 1
+    build.count(pack_int8)
     return q, scale
 
 
@@ -70,7 +70,7 @@ def unpack_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"unpack_int8: scale must be contiguous fp32 "
                         f"({rows},) on {q.device}")
     if q.device.type == "cpu":
-        unpack_int8.plain_calls += 1
+        build.count(unpack_int8, "plain_calls")
         return unpack_int8_plain(q, scale)
     if q.data_ptr() % 4:
         raise ValueError("unpack_int8: q must be 4-byte aligned")
@@ -80,7 +80,7 @@ def unpack_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(q.device):
         build.launch("pack_int8", SIGNATURES, "repro_unpack_int8",
                      q.data_ptr(), scale.data_ptr(), rows, out.data_ptr())
-    unpack_int8.launches += 1
+    build.count(unpack_int8)
     return out
 
 

@@ -30,7 +30,7 @@ def quantize(x: torch.Tensor, scale) -> torch.Tensor:
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise TypeError("quantize: x must be contiguous fp32")
     if x.device.type == "cpu":
-        quantize.plain_calls += 1
+        build.count(quantize, "plain_calls")
         return quantize_plain(x, scale)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for {x.device.type} tensors")
@@ -40,7 +40,7 @@ def quantize(x: torch.Tensor, scale) -> torch.Tensor:
     with torch.cuda.device(x.device):
         build.launch("quantize", SIGNATURES, "repro_quantize", x.data_ptr(),
                      x.numel(), float(np.float32(scale)), out.data_ptr())
-    quantize.launches += 1
+    build.count(quantize)
     return out
 
 

@@ -112,9 +112,10 @@ def launch_scatter(wrapper, lib: str, signatures: dict, fn: str,
             words, unsafe = scatter_scratch(regs, k)
             build.launch(lib, signatures, fn, *args, words.data_ptr(),
                          unsafe.data_ptr())
-    wrapper.launches += 1
-    wrapper.lanes[lane] += 1
-    wrapper.ks.append(k)
+    with build.COUNT_LOCK:
+        wrapper.launches += 1
+        wrapper.lanes[lane] += 1
+        wrapper.ks.append(k)
 
 
 def sparse_addto_plain(regs: torch.Tensor, idx: torch.Tensor,
@@ -130,7 +131,7 @@ def sparse_addto(regs: torch.Tensor, idx: torch.Tensor,
     order, IN PLACE, and returns ``regs``."""
     check_scatter_args(regs, idx, val, torch.int32)
     if regs.device.type == "cpu":
-        sparse_addto.plain_calls += 1
+        build.count(sparse_addto, "plain_calls")
         return sparse_addto_plain(regs, idx, val)
     k = idx.numel()
     if k == 0:
