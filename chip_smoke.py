@@ -2298,6 +2298,8 @@ def drive_wire(device, *, seg_slots=SEG, scale_down=1) -> tuple:
         srv.stop()
         if srv.error is not None:     # the cause of whatever failed here
             fail(f"phase r: the daemon's handler raised:\n{srv.error}")
+    # a flow that degraded served its ops from the client's local plane,
+    # not from the daemon on the card: such a run must not pass
     for rep in reports:
         if rep["degraded"] or rep["fallback_active"] \
                 or rep["fallback_activations"]:
