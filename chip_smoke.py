@@ -192,6 +192,31 @@
    effect applied twice, and some worker reconnected (the restart landed
    in the traffic).
 
+14. Path, phase s: the paper's applications, ``repro_torch.examples``,
+   through their ``main`` on the card. s1: mapreduce (two mappers reduce
+   a corpus in-network), monitoring (200 zipf probe bursts into a 512-slot
+   partition through the async runtime, with its shipped drain policy,
+   obs and tracing on), paxos (50 ballots, CntFwd vote counting on two
+   channels) and train_telemetry (32 metric pushes folded 4 at a time),
+   then the same four on the CPU. Checks: each example's own asserts; the
+   card's runs equal the CPU's (the reduced dict and top 5; the counts,
+   hot flows, capacity, 201 drained calls and 200 probes; one commit a
+   ballot and 50 learner messages; the sums, mid-run read and 32 folds,
+   ``inc_local_folds_total == local_folds - flushes``); monitoring's hit
+   ratio, batches and triggers and train_telemetry's flushes equal where
+   neither run cut a batch by time (the drain's ``max_delay`` ties them to
+   the host's speed), else each keeps the example's invariants; the card's
+   runs launched sparse_addto and no plain version. Prints monitoring's
+   triggers and hit ratio, paxos's proposals/s and commit p50/p99 on the
+   card and on the CPU, and train_telemetry's folds and flushes. s2:
+   train_mini at full size (8 layers, d_model 512, vocab 8 192: 28 326 400
+   parameters; B = 16 x S = 128 bigram tokens) for 300 steps in netrpc and
+   in xla-psum (``--compare``). Checks: in each mode the last loss at
+   least ``MINI_FALL`` below the first and above the chain's entropy
+   floor; the final losses within ``MINI_GAP`` of each other; one
+   quantize, sat_add and dequantize launch per scattered leaf and netrpc
+   step. Prints each mode's median warm step.
+
 Launch counts are set to 0 just before each path run on the card and read
 just after it; every kernel must have launched in the path. The two
 scatters also record the lane and the k of each launch: every path launch
@@ -309,6 +334,11 @@ SERVES = {
               decode=32, batch=4, lanes_tol=Q_LANES_TOL, cut=5,
               cut_prompt=256, cut_batch=1, cut_decode=4, cut_tol=CPU_TOL),
 }
+# phase s: the runtime examples of s1, and s2's train_mini: its steps, the
+# fall of the loss over them (first - last, each mode), the bound on the
+# netrpc - xla-psum final-loss gap (set before the first run on the card)
+S_EXAMPLES = ("mapreduce", "monitoring", "paxos", "train_telemetry")
+MINI_STEPS, MINI_FALL, MINI_GAP = 300, 1.0, 5e-2
 # phase j: train at full width; the card-vs-CPU step at 2 layers
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 36, 1024, 2, 3
 TRAIN_SMALL_LAYERS, TRAIN_SMALL_SEQ, TRAIN_CPU_STEP = 2, 256, 5
@@ -2407,6 +2437,128 @@ def check_wire(torch, smi: str) -> dict:
     return counts
 
 
+# -- phase s: the paper's applications ----------------------------------------
+
+def example(name: str):
+    import importlib
+    return importlib.import_module(f"repro_torch.examples.{name}")
+
+
+def examples_same(name: str, a: dict, b: dict, what: str) -> None:
+    """Two runs of a runtime example agree: what it holds exactly always,
+    what the drain's time trigger moves only where neither run cut a batch
+    by time (else each keeps the example's invariants)."""
+    by_time = "drains" in a and bool(a["drains"]["time"]
+                                     or b["drains"]["time"])
+    if name == "mapreduce":
+        keys = ("counts", "top")
+    elif name == "paxos":
+        keys = ("commits", "learned")
+    elif name == "train_telemetry":
+        keys = ("sums", "mid", "local_folds") + (
+            () if by_time else ("flushes", "traffic_reduction"))
+        for r in (a, b):
+            if r["inc_local_folds_total"] != r["local_folds"] - r["flushes"] \
+                    or not 0 < r["flushes"] < r["local_folds"] \
+                    or not r["traffic_reduction"] > 1.5:
+                fail(f"{what} train_telemetry: {r}")
+    else:
+        keys = ("counts", "hot", "capacity", "drained_calls", "probes") + (
+            () if by_time else ("cache_hit_ratio", "drained_batches",
+                                "drains"))
+        for r in (a, b):
+            if r["counts"] != r["truth"] or r["drained_calls"] != 201:
+                fail(f"{what} monitoring: counts or drained calls wrong")
+    for k in keys:
+        if a[k] != b[k]:
+            fail(f"{what} {name}: {k} differs: {a[k]} vs {b[k]}")
+
+
+def check_examples(torch, smi: str) -> dict:
+    """Phase s1: the four runtime examples on the card, then on the CPU;
+    each pair held by ``examples_same``."""
+    from repro_torch.kernels import ops
+    card, counts, card_s = counted(
+        torch, lambda: {n: example(n).main() for n in S_EXAMPLES},
+        "phase s1 (the examples)", ("sparse_addto",))
+    plain = {k: c for k, c in ops.plain_counts().items() if c}
+    if plain:
+        fail(f"phase s1: the card's runs took the plain version of {plain}")
+    t0 = time.perf_counter()
+    cpu = {n: example(n).main(device="cpu") for n in S_EXAMPLES}
+    cpu_s = time.perf_counter() - t0
+    for n in S_EXAMPLES:
+        examples_same(n, card[n], cpu[n], "phase s1")
+    for where, r in (("card", card), ("CPU", cpu)):
+        mon, pax, tel = r["monitoring"], r["paxos"], r["train_telemetry"]
+        print(f"path s1 monitoring on the {where} ({smi}): "
+              f"{len(mon['counts'])} flows in {mon['capacity']} slots, cache "
+              f"hit ratio {mon['cache_hit_ratio']}, {mon['drained_calls']} "
+              f"calls in {mon['drained_batches']} batches, triggers "
+              f"{mon['drains']}, submit->resolve p50 "
+              f"{mon['latency_p50_us']} us, p99 {mon['latency_p99_us']} us",
+              flush=True)
+        print(f"path s1 paxos on the {where} ({smi}): "
+              f"{len(pax['commits'])} ballots, {pax['proposals_per_s']} "
+              f"proposals/s, commit p50 {pax['commit_p50_s'] * 1e6:.3f} us, "
+              f"p99 {pax['commit_p99_s'] * 1e6:.3f} us; the learner saw "
+              f"{pax['learned']} messages", flush=True)
+        print(f"path s1 train_telemetry on the {where} ({smi}): "
+              f"{tel['local_folds']} folds, {tel['flushes']} flushes, "
+              f"traffic reduction {tel['traffic_reduction']}, triggers "
+              f"{tel['drains']}", flush=True)
+    print(f"path s1 on {smi}: {card_s:.3f} s on the card, {cpu_s:.3f} s on "
+          f"the CPU; launches {counts}", flush=True)
+    print("path s1: mapreduce, monitoring, paxos and train_telemetry on the "
+          "card equal their CPU runs", flush=True)
+    return counts
+
+
+def mini_oracle(losses: list, floor: float, what: str) -> None:
+    if len(losses) != MINI_STEPS or not np.all(np.isfinite(losses)) \
+            or losses[0] - losses[-1] < MINI_FALL or losses[-1] <= floor:
+        fail(f"{what}: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+             f"{len(losses)} steps (must fall by {MINI_FALL} and stay above "
+             f"the entropy floor {floor:.4f})")
+
+
+def check_train_mini(torch, smi: str) -> dict:
+    """Phase s2: train_mini at full size in netrpc and xla-psum."""
+    from repro_torch.examples import train_mini
+    torch.cuda.empty_cache()
+    out, counts, secs = counted(
+        torch, lambda: train_mini.main(["--steps", str(MINI_STEPS),
+                                        "--compare"]),
+        "phase s2 (train_mini)",
+        ("quantize", "sat_add", "dequantize", "sparse_addto"))
+    leaves = scattered_leaves(train_mini.hundred_m_config())
+    for name in ("quantize", "sat_add", "dequantize"):
+        if counts[name] != leaves * MINI_STEPS:
+            fail(f"phase s2: {counts[name]} {name} launches, not one per "
+                 f"scattered leaf ({leaves}) and netrpc step")
+    floor = out["entropy_floor"]
+    for mode, run in (("netrpc", out), ("xla-psum", out["compare"])):
+        mini_oracle(run["losses"], floor, f"phase s2 ({mode})")
+        print(f"path s2 train_mini {mode} on {smi}: {out['params']} "
+              f"parameters, B=16 x S=128, {MINI_STEPS} steps; loss "
+              f"{run['losses'][0]} -> {run['losses'][-1]} (entropy floor "
+              f"{floor}); median warm step "
+              f"{statistics.median(run['step_s'][1:]):.6f} s", flush=True)
+    if not out["gap"] <= MINI_GAP:
+        fail(f"phase s2: netrpc - xla-psum final loss gap {out['gap']} > "
+             f"{MINI_GAP}")
+    print(f"path s2 train_mini on {smi}: {secs:.3f} s for both runs; netrpc "
+          f"- xla-psum final loss gap {out['gap']} (bound {MINI_GAP}); "
+          f"{leaves} scattered leaves; launches {counts}", flush=True)
+    return counts
+
+
+def check_phase_s(torch, smi: str) -> dict:
+    s1 = check_examples(torch, smi)
+    s2 = check_train_mini(torch, smi)
+    return {k: s1[k] + s2[k] for k in s1}
+
+
 def rehearse(scale_down: int = 64) -> None:
     """Every path phase on the CPU at 1/scale_down of its size, with the
     plain versions: a rehearsal of the script's control flow and its
@@ -2493,7 +2645,16 @@ def rehearse(scale_down: int = 64) -> None:
     same_state(torch, state, ref_state, "rehearsal of phase r1")
     print(f"rehearsal of phase r2: "
           f"{wire_quorum_run('cpu', '--wire-steps', str(WIRE_STEPS))}")
-    print("rehearsal: phases a-r ran on the CPU and met their oracles")
+    runs = [{n: example(n).main(device="cpu") for n in S_EXAMPLES}
+            for _ in range(2)]
+    for n in S_EXAMPLES:
+        examples_same(n, runs[0][n], runs[1][n], "rehearsal of phase s1")
+    from repro_torch.examples import train_mini
+    mini = train_mini.main(["--steps", "3", "--layers", "1", "--compare"],
+                           device="cpu")
+    if not mini["gap"] <= MINI_GAP:
+        fail(f"rehearsal of phase s2: gap {mini['gap']}")
+    print("rehearsal: phases a-s ran on the CPU and met their oracles")
 
 
 def lane_drift(draws: int = 3) -> None:
@@ -2621,7 +2782,8 @@ def main() -> int:
                          ("o", lambda t: check_serve(t, smi, "o")),
                          ("p", lambda t: check_serve(t, smi, "p")),
                          ("q", lambda t: check_serve(t, smi, "q")),
-                         ("r", lambda t: check_wire(t, smi))):
+                         ("r", lambda t: check_wire(t, smi)),
+                         ("s", lambda t: check_phase_s(t, smi))):
         t0 = time.perf_counter()
         for name, c in check(torch).items():
             counts[name] = counts.get(name, 0) + c

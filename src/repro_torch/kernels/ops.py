@@ -220,11 +220,15 @@ def zeros_regs(n_slots: int, device: torch.device, resident: bool = False):
 
 
 def _on(regs: torch.Tensor, x, dtype) -> torch.Tensor:
-    """``x`` (numpy or tensor) as a contiguous tensor on regs' device."""
+    """``x`` (numpy or tensor) as a contiguous tensor on regs' device. A
+    numpy array that is not writeable (a view of a wire op's reassembled
+    bytes) is copied first: a tensor must not share read-only memory."""
     if isinstance(x, torch.Tensor):
         return x.to(device=regs.device, dtype=dtype).contiguous()
-    return torch.from_numpy(np.ascontiguousarray(x)).to(
-        device=regs.device, dtype=dtype)
+    x = np.ascontiguousarray(x)
+    if not x.flags.writeable:
+        x = x.copy()
+    return torch.from_numpy(x).to(device=regs.device, dtype=dtype)
 
 
 def _check_slots(idx, n_slots: int) -> None:

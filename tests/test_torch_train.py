@@ -22,6 +22,8 @@ places, so the gradients differ in their last bf16 bits:
   params      the bf16 rounding of each package's own master, and at
               most 1% of the elements differ (measured 0.3%).
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -32,7 +34,8 @@ from repro_torch.configs.base import ShapeConfig, get_arch
 from repro_torch.core.inc_agg import MODES, IncAggConfig
 from repro_torch.data import pipeline
 from repro_torch.launch import steps
-from repro_torch.launch.train import one_rank_group, train_loop
+from repro_torch.launch.train import (drawn_ahead, one_rank_group,
+                                     train_loop)
 from repro_torch.models import api
 from repro_torch.optim.adamw import AdamWConfig
 
@@ -266,6 +269,33 @@ def test_train_loop_resumes_exactly_once(tmp_path):
     for (_, a), (_, b) in zip(api.named_leaves(out["params"]),
                               api.named_leaves(again["params"])):
         assert torch.equal(a, b)
+
+
+def test_train_loop_draws_batches_ahead(monkeypatch):
+    """The loop takes each step's batch from ``drawn_ahead``: drawn once,
+    on a host thread other than the loop's, ahead of its step (the
+    reference draws on its device; a bigram batch at train_mini's vocab
+    takes 0.75 s on one thread of the card's host, seven times its step
+    on the card), and equal to ``make_batch`` of its own step."""
+    dcfg = pipeline.DataConfig(vocab=64, batch=2, seq_len=8, seed=3)
+    run = [0, 2] + list(range(5, 25))       # past an 8-core host's depth
+    got = list(drawn_ahead(dcfg, run))
+    assert [s for s, _ in got] == run
+    for s, b in got:
+        assert torch.equal(b["tokens"], pipeline.make_batch(dcfg, s)["tokens"])
+    seen = []
+    make = pipeline.make_batch
+
+    def spy(dcfg, s):
+        seen.append((s, threading.current_thread() is
+                     threading.main_thread()))
+        return make(dcfg, s)
+    monkeypatch.setattr(pipeline, "make_batch", spy)
+    out = train_loop(arch=ARCH, inc_mode="netrpc", steps_n=4, seq=16,
+                     batch=2, reduced=True, device="cpu", log_every=100)
+    assert len(out["losses"]) == 4
+    assert sorted(s for s, _ in seen) == [0, 1, 2, 3]
+    assert not any(main for _, main in seen)
 
 
 def test_train_defaults_to_the_card():

@@ -688,6 +688,52 @@ def test_switchd_process_spools_on_sigterm(tmp_path):
                           np.arange(50, dtype=np.int32))
 
 
+# a daemon whose segments hold tensors, as on the card (on the CPU they are
+# numpy), fed ops of several fragments (a small MTU), which reassemble into
+# bytes and decode to read-only arrays; in a process of its own, since
+# PyTorch warns of such an array once a process
+_READ_ONLY_ROUND_TRIP = """
+import warnings
+import numpy as np, torch
+from repro_torch.net import RemoteSwitchMemory, SwitchServer, WireTransport
+warnings.simplefilter("error")
+geo = dict(n_segments=4, seg_slots=256)
+srv = SwitchServer(device="cpu", **geo).start()
+for seg in srv.switch.segments:
+    seg.regs = torch.from_numpy(seg.regs.copy())
+t = WireTransport(srv.address, flow_id=1, w_max=8, mtu=128,
+                  call_timeout=20.0)
+mem = RemoteSwitchMemory(t, device="cpu", **geo)
+try:
+    dense = np.arange(200, 300, dtype=np.int64)
+    mem.addto(dense, np.arange(100, dtype=np.int32))
+    mem.addto(dense[::3], np.full(34, 5, np.int32))
+    got = mem.get(dense)
+finally:
+    t.close()
+    srv.stop()
+assert srv.error is None, srv.error
+want = np.arange(100, dtype=np.int32)
+want[::3] += 5
+assert np.array_equal(got, want), got
+print("round trip exact")
+"""
+
+
+def test_wire_round_trip_hands_torch_no_read_only_array():
+    """An op of several frames decodes to read-only views of its
+    reassembled bytes; where the daemon's segments are tensors (on the
+    card), the kernel wrappers take them in. A dense and a scattered addTo
+    and a read over the wire, with every warning an error, in a fresh
+    process: a read-only array wrapped by ``torch.from_numpy`` raises
+    there and stops the daemon."""
+    p = subprocess.run([sys.executable, "-c", _READ_ONLY_ROUND_TRIP],
+                       env=_env(), capture_output=True, text=True,
+                       timeout=120)
+    assert p.returncode == 0, p.stderr[-3000:]
+    assert "round trip exact" in p.stdout
+
+
 def test_launchers_raise_without_a_card():
     """No silent CPU fallback: without ``--device cpu`` the daemon and the
     wire-quorum demo ask for the card and fail where there is none."""
