@@ -2445,33 +2445,13 @@ def example(name: str):
 
 
 def examples_same(name: str, a: dict, b: dict, what: str) -> None:
-    """Two runs of a runtime example agree: what it holds exactly always,
-    what the drain's time trigger moves only where neither run cut a batch
-    by time (else each keeps the example's invariants)."""
-    by_time = "drains" in a and bool(a["drains"]["time"]
-                                     or b["drains"]["time"])
-    if name == "mapreduce":
-        keys = ("counts", "top")
-    elif name == "paxos":
-        keys = ("commits", "learned")
-    elif name == "train_telemetry":
-        keys = ("sums", "mid", "local_folds") + (
-            () if by_time else ("flushes", "traffic_reduction"))
-        for r in (a, b):
-            if r["inc_local_folds_total"] != r["local_folds"] - r["flushes"] \
-                    or not 0 < r["flushes"] < r["local_folds"] \
-                    or not r["traffic_reduction"] > 1.5:
-                fail(f"{what} train_telemetry: {r}")
-    else:
-        keys = ("counts", "hot", "capacity", "drained_calls", "probes") + (
-            () if by_time else ("cache_hit_ratio", "drained_batches",
-                                "drains"))
-        for r in (a, b):
-            if r["counts"] != r["truth"] or r["drained_calls"] != 201:
-                fail(f"{what} monitoring: counts or drained calls wrong")
-    for k in keys:
-        if a[k] != b[k]:
-            fail(f"{what} {name}: {k} differs: {a[k]} vs {b[k]}")
+    """Two runs of a runtime example agree by ``repro_torch.examples.hold``
+    (the rule the CPU tests hold the port to the reference by)."""
+    from repro_torch.examples import hold
+    try:
+        hold(name, a, b)
+    except AssertionError as e:
+        fail(f"{what}: {e}")
 
 
 def check_examples(torch, smi: str) -> dict:

@@ -44,6 +44,21 @@ def transition_logits(cfg: DataConfig) -> torch.Tensor:
         / cfg.temperature
 
 
+@functools.lru_cache(maxsize=4)
+def transition_probs(cfg: DataConfig) -> torch.Tensor:
+    """The chain's (vocab, vocab) fp32 transition probabilities, the
+    softmax of ``transition_logits``: computed once a chain, not once a
+    batch (a 67 M-element softmax at vocab 8 192)."""
+    return torch.softmax(transition_logits(cfg), dim=-1)
+
+
+def _probs(cfg: DataConfig, logits) -> torch.Tensor:
+    if logits is None:
+        return transition_probs(cfg)
+    return torch.softmax(torch.as_tensor(logits, dtype=torch.float32),
+                         dim=-1)
+
+
 def make_batch(cfg: DataConfig, step: int,
                logits: torch.Tensor | None = None) -> dict:
     """(seed, step) -> {"tokens": (B, S+1) int32}, on the CPU. ``logits``
@@ -57,9 +72,7 @@ def make_batch(cfg: DataConfig, step: int,
     if cfg.kind != "bigram":
         raise ValueError(f"data kind must be 'bigram' or 'uniform', got "
                          f"{cfg.kind!r}")
-    probs = torch.softmax(transition_logits(cfg) if logits is None
-                          else torch.as_tensor(logits, dtype=torch.float32),
-                          dim=-1)
+    probs = _probs(cfg, logits)
     tok = torch.randint(0, cfg.vocab, (cfg.batch,), generator=gen)
     rows = [tok]
     for _ in range(cfg.seq_len):
@@ -71,9 +84,7 @@ def make_batch(cfg: DataConfig, step: int,
 def bigram_entropy(cfg: DataConfig,
                    logits: torch.Tensor | None = None) -> float:
     """Mean conditional entropy of the chain (the loss floor)."""
-    p = torch.softmax(transition_logits(cfg) if logits is None
-                      else torch.as_tensor(logits, dtype=torch.float32),
-                      dim=-1)
+    p = _probs(cfg, logits)
     h = -(p * torch.log(p.clamp(min=1e-30))).sum(dim=-1)
     return float(h.mean())
 

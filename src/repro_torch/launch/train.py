@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import math
 import os
 import socket
 import time
@@ -56,26 +57,38 @@ def one_rank_group(device: torch.device):
         dist.destroy_process_group()
 
 
+def _timed_batch(dcfg: pipeline.DataConfig, step: int):
+    t = time.perf_counter()
+    b = pipeline.make_batch(dcfg, step)
+    return b, time.perf_counter() - t
+
+
 def drawn_ahead(dcfg: pipeline.DataConfig, run: list[int]):
-    """(step, batch) for each step of ``run``, each batch drawn ahead of
-    its step on host threads (two fewer than the host's cores). The
-    reference draws its batches on its device; the port draws them on the
-    host, where a bigram batch takes an exponential a vocab lane and token
-    (16.8 M at B = 16, S = 128 and vocab 8 192: 0.75 s on one thread of
-    the card's host, seven times a train_mini step on the card). A batch
-    is a pure function of (seed, step), so drawing ahead changes no
-    token."""
-    depth = max(1, (os.cpu_count() or 1) - 2)
-    with ThreadPoolExecutor(depth) as pool:
+    """(step, batch) for each step of ``run``, each batch drawn on a host
+    thread ahead of its step. The reference draws its batches on its
+    device; the port draws them on the host, where a bigram batch takes
+    one exponential a vocab lane and token (16.8 M at B = 16, S = 128 and
+    vocab 8 192), on one thread. The depth follows measured times:
+    after each step it is ceil(draw seconds / the loop's seconds a
+    step), the threads that keep the loop fed, and at most the host's
+    cores less the loop's own. A batch is a pure function of (seed,
+    step), so drawing ahead changes no token."""
+    most = max(1, (os.cpu_count() or 2) - 1)
+    depth = 1
+    with ThreadPoolExecutor(most) as pool:
         ahead = {}
         for i, s in enumerate(run):
             # the first batch alone: it draws the chain's table, which the
             # others then share from its cache (else one draw a thread)
-            stop = i + depth if i else 1
+            stop = i + 1 + depth if i else 1
             for t in run[i:stop]:
                 if t not in ahead:
-                    ahead[t] = pool.submit(pipeline.make_batch, dcfg, t)
-            yield s, ahead.pop(s).result()
+                    ahead[t] = pool.submit(_timed_batch, dcfg, t)
+            b, draw_s = ahead.pop(s).result()
+            t0 = time.perf_counter()
+            yield s, b
+            step_s = time.perf_counter() - t0
+            depth = min(most, max(1, math.ceil(draw_s / max(step_s, 1e-6))))
 
 
 def _sync(dev: torch.device) -> None:

@@ -103,3 +103,24 @@ def test_defaults_stubs_and_placement():
     placed = pipeline.shard_batch(b, "cpu")
     assert placed["tokens"].device.type == "cpu"
     assert torch.equal(placed["tokens"], b["tokens"])
+
+
+def test_transition_probs_drawn_once_a_chain(monkeypatch):
+    """``make_batch`` takes the chain's softmax from a cache, once a chain
+    and not once a batch (67 M elements at vocab 8 192), and draws the
+    tokens it drew from a softmax taken afresh."""
+    c = pipeline.DataConfig(vocab=32, batch=3, seq_len=9, seed=11)
+    fresh = [pipeline.make_batch(c, s, logits=pipeline.transition_logits(c))
+             ["tokens"] for s in range(3)]
+    calls = []
+    softmax = torch.softmax
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return softmax(*a, **kw)
+    monkeypatch.setattr(torch, "softmax", counted)
+    pipeline.transition_probs.cache_clear()
+    got = [pipeline.make_batch(c, s)["tokens"] for s in range(3)]
+    assert len(calls) == 1
+    for a, b in zip(got, fresh):
+        assert torch.equal(a, b)

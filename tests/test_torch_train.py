@@ -22,7 +22,9 @@ places, so the gradients differ in their last bf16 bits:
   params      the bf16 rounding of each package's own master, and at
               most 1% of the elements differ (measured 0.3%).
 """
+import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -275,10 +277,10 @@ def test_train_loop_draws_batches_ahead(monkeypatch):
     """The loop takes each step's batch from ``drawn_ahead``: drawn once,
     on a host thread other than the loop's, ahead of its step (the
     reference draws on its device; a bigram batch at train_mini's vocab
-    takes 0.75 s on one thread of the card's host, seven times its step
-    on the card), and equal to ``make_batch`` of its own step."""
+    takes several train_mini steps on one thread of the card's host), and
+    equal to ``make_batch`` of its own step."""
     dcfg = pipeline.DataConfig(vocab=64, batch=2, seq_len=8, seed=3)
-    run = [0, 2] + list(range(5, 25))       # past an 8-core host's depth
+    run = [0, 2] + list(range(5, 25))
     got = list(drawn_ahead(dcfg, run))
     assert [s for s, _ in got] == run
     for s, b in got:
@@ -298,6 +300,35 @@ def test_train_loop_draws_batches_ahead(monkeypatch):
     assert not any(main for _, main in seen)
 
 
+@pytest.mark.parametrize("draw_s, step_s, most, deepest", [
+    (0.0, 0.05, 4, 1),      # a draw far shorter than a step: one ahead
+    (0.3, 0.005, 3, 3),     # far longer: as deep as allowed
+])
+def test_drawn_ahead_depth_follows_draw_and_step(monkeypatch, draw_s,
+                                                 step_s, most, deepest):
+    """``drawn_ahead`` draws as deep as ceil(draw / step), within
+    ``most``, the host's cores less the loop's own. The depth after the first step follows the first draw,
+    which may be dear (it builds the chain's table), and reaches at most
+    step ``most + 1``; from there on, the draws in flight at once are one
+    where a draw is cheap, and ``most`` where it is dear."""
+    lock, live, peak = threading.Lock(), [0], [0]
+    make = pipeline.make_batch
+
+    def slow(dcfg, s):
+        with lock:
+            live[0] += 1
+            if s > most + 1:
+                peak[0] = max(peak[0], live[0])
+        time.sleep(draw_s)
+        with lock:
+            live[0] -= 1
+        return make(dcfg, s)
+    monkeypatch.setattr(pipeline, "make_batch", slow)
+    monkeypatch.setattr(os, "cpu_count", lambda: most + 1)
+    dcfg = pipeline.DataConfig(vocab=16, batch=1, seq_len=4, seed=0)
+    for _ in drawn_ahead(dcfg, list(range(12))):
+        time.sleep(step_s)
+    assert peak[0] == deepest
 def test_train_defaults_to_the_card():
     """Without a card, the train loop raises unless given device='cpu';
     the fsdp mode and more than one rank are not ported."""
