@@ -216,6 +216,23 @@
    floor; the final losses within ``MINI_GAP`` of each other; one
    quantize, sat_add and dequantize launch per scattered leaf and netrpc
    step. Prints each mode's median warm step.
+15. Path, phase t: the fsdp mode of the train step on the card
+   (``train_loop(mode="fsdp")``): qwen2.5-3b at full width and all 36
+   layers, netrpc (precision 8), on a ``(data=1, model=1)`` mesh (the
+   machine has one card: the several-rank paths run on gloo in the
+   tests), phase j's B = 2 x S = 1 024 uniform tokens and 3 steps. The
+   params are stored scattered (whole, at one rank) and gathered layer by
+   layer inside each layer's checkpoint; each gather's backward is the
+   INC reduce-scatter, so every stacked scattered leaf launches quantize,
+   sat_add and dequantize once a layer and microbatch, and every other
+   scattered leaf once a microbatch. Checks: phase j's oracle; each
+   step's loss within ``FSDP_TOL`` (2e-3, the reference's
+   fsdp-vs-zero1 bound, ``tests/multidevice/md_train_equiv.py:52``) of
+   phase j's zero1 netrpc loss on the same seed and batches; the three
+   launch counts equal that reckoning; then one fsdp netrpc step at 2
+   full-width layers (B = 2, S = 256) on the card and on the CPU, held as
+   phase j's. Prints the warm step, one step's stage times (CUDA events)
+   and the peak device memory, beside the card's name and power limit.
 
 Launch counts are set to 0 just before each path run on the card and read
 just after it; every kernel must have launched in the path. The two
@@ -341,6 +358,10 @@ S_EXAMPLES = ("mapreduce", "monitoring", "paxos", "train_telemetry")
 MINI_STEPS, MINI_FALL, MINI_GAP = 300, 1.0, 5e-2
 # phase j: train at full width; the card-vs-CPU step at 2 layers
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 36, 1024, 2, 3
+# phase t: fsdp against phase j's zero1 netrpc losses, absolute, each step
+# (md_train_equiv.py's fsdp-vs-zero1 bound)
+FSDP_TOL = 2e-3
+TRAIN_J: dict = {}     # phase j's netrpc losses, for phase t
 TRAIN_SMALL_LAYERS, TRAIN_SMALL_SEQ, TRAIN_CPU_STEP = 2, 256, 5
 # step 0's loss within [ln(vocab) - STEP0_BELOW, ln(vocab) + STEP0_ABOVE]
 STEP0_BELOW, STEP0_ABOVE = 0.5, 1.5
@@ -2015,14 +2036,15 @@ def check_serve(torch, smi: str, phase: str) -> dict:
 # -- phase j: training qwen2.5-3b ---------------------------------------------
 
 def train_run(mode: str, *, device=None, layers=TRAIN_LAYERS, seq=TRAIN_SEQ,
-              batch=TRAIN_BATCH, reduced=False) -> dict:
+              batch=TRAIN_BATCH, reduced=False, shard="zero1") -> dict:
     """``train_loop`` of ARCH for TRAIN_STEPS steps on uniform tokens
-    (random weights from the loop's seed, 0)."""
+    (random weights from the loop's seed, 0), in ``mode`` (the inc mode)
+    and the ``shard`` mode (zero1 or fsdp)."""
     from repro_torch.launch.train import train_loop
     return train_loop(arch=ARCH, inc_mode=mode, steps_n=TRAIN_STEPS,
                       seq=seq, batch=batch, reduced=reduced,
                       precision=PRECISION, data_kind="uniform", log_every=1,
-                      device=device, layers=layers)
+                      device=device, layers=layers, mode=shard)
 
 
 def scattered_leaves(cfg) -> int:
@@ -2032,6 +2054,20 @@ def scattered_leaves(cfg) -> int:
     from repro_torch.models import api
     dims = steps.scatter_dims_tree(api.param_shapes(cfg), 1, 1)
     return sum(d >= 0 for d in dims.values())
+
+
+def gathered_leaves(cfg) -> int:
+    """Gathers of one fsdp microbatch on one rank, each one quantize,
+    sat_add and dequantize launch in its backward (netrpc): a stacked
+    scattered leaf once a layer of its stack, any other scattered leaf
+    once."""
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.sharding import rules
+    shapes = dict(api.named_leaves(api.param_shapes(cfg)))
+    dims = steps.scatter_dims_tree(api.param_shapes(cfg), 1, 1)
+    return sum((shapes[n].shape[0] if rules._is_stacked(n) else 1)
+               for n, d in dims.items() if d >= 0)
 
 
 def train_oracle(run: dict, vocab: int, what: str) -> None:
@@ -2068,9 +2104,10 @@ def modes_oracle(a: dict, b: dict, what: str) -> float:
     return err
 
 
-def step_pair(torch, mesh_card, mesh_cpu) -> None:
+def step_pair(torch, mesh_card, mesh_cpu, shard: str = "zero1") -> None:
     """One netrpc step at 2 full-width layers on the card and on the CPU
-    from the same params, optimizer state and tokens."""
+    from the same params, optimizer state and tokens, in the ``shard``
+    mode (one rank: the state is whole in both)."""
     import copy as _copy
 
     from repro_torch.configs.base import ShapeConfig
@@ -2084,7 +2121,7 @@ def step_pair(torch, mesh_card, mesh_cpu) -> None:
     shape = ShapeConfig("j_small", TRAIN_SMALL_SEQ, TRAIN_BATCH, "train")
     kw = dict(inc=IncAggConfig(mode="netrpc", precision=PRECISION),
               opt_cfg=AdamWConfig(warmup_steps=5, total_steps=100),
-              n_micro=1)
+              n_micro=1, mode=shard)
     p_cpu = api.init_params(SEED, cfg, device="cpu")
     o_cpu = steps.init_opt(p_cpu)
     p_card = _copy.deepcopy(p_cpu).to("cuda")
@@ -2100,9 +2137,10 @@ def step_pair(torch, mesh_card, mesh_cpu) -> None:
     t0 = time.perf_counter()
     _, o_cpu, m_cpu = cpu.fn(p_cpu, o_cpu, batch, TRAIN_CPU_STEP)
     cpu_s = time.perf_counter() - t0
+    phase = "j" if shard == "zero1" else "t"
     lr = float(m_cpu["lr"])
     if float(m_card["lr"]) != lr:
-        fail("phase j: the card's learning rate is not the CPU's")
+        fail(f"phase {phase}: the card's learning rate is not the CPU's")
     loss_err = abs(float(m_card["loss"]) / float(m_cpu["loss"]) - 1)
     gnorm_err = abs(float(m_card["gnorm"]) / float(m_cpu["gnorm"]) - 1)
     d = torch.cat([(a.cpu() - b).abs().reshape(-1) for (_, a), (_, b) in
@@ -2120,8 +2158,9 @@ def step_pair(torch, mesh_card, mesh_cpu) -> None:
                       / torch.linalg.vector_norm(b.double()))
             if not e <= mv_err:
                 mv_err, mv_worst = e, f"{k} {name}"
-    print(f"path j_train: {TRAIN_SMALL_LAYERS} layers at full width, S="
-          f"{TRAIN_SMALL_SEQ}, B={TRAIN_BATCH}, one netrpc step, card vs CPU "
+    print(f"path {phase}_train: {TRAIN_SMALL_LAYERS} layers at full width, "
+          f"S={TRAIN_SMALL_SEQ}, B={TRAIN_BATCH}, one {shard} netrpc step, "
+          f"card vs CPU "
           f"({cpu_s:.3f} s on the CPU): loss {float(m_card['loss']):.6f} vs "
           f"{float(m_cpu['loss']):.6f} (rel {loss_err:.2e}, tolerance "
           f"{TRAIN_LOSS_RTOL}), gnorm rel {gnorm_err:.2e} (tolerance "
@@ -2133,7 +2172,7 @@ def step_pair(torch, mesh_card, mesh_cpu) -> None:
     if loss_err > TRAIN_LOSS_RTOL or gnorm_err > TRAIN_GNORM_RTOL \
             or float(d.max()) > 2.5 * lr or far > MASTER_FLIP_FRAC \
             or not mv_err <= MV_RTOL:
-        fail("phase j: the card's train step differs from the CPU's")
+        fail(f"phase {phase}: the card's train step differs from the CPU's")
 
 
 def profile_train(torch, run: dict, mesh) -> None:
@@ -2206,6 +2245,7 @@ def check_train(torch, smi: str) -> dict:
         print(f"path j_train card: {smi}", flush=True)
         profile_train(torch, run, mesh)
         netrpc_losses = {"losses": run["losses"]}
+        TRAIN_J["losses"] = list(run["losses"])
         del run
         torch.cuda.empty_cache()
         ring, ring_counts, ring_s = counted(
@@ -2222,6 +2262,98 @@ def check_train(torch, smi: str) -> dict:
         step_pair(torch, mesh, compat.make_mesh((1, 1), ("data", "model"),
                                                 device="cpu"))
     return {k: counts[k] + ring_counts[k] for k in counts}
+
+
+# -- phase t: the fsdp mode of the train step ---------------------------------
+
+def fsdp_oracle(run: dict, zero1: list, what: str) -> float:
+    """Each step's fsdp loss within FSDP_TOL of zero1's on the same seed
+    and batches; returns the largest difference."""
+    err = max(abs(a - b) for a, b in zip(run["losses"], zero1))
+    if len(run["losses"]) != len(zero1) or not err <= FSDP_TOL:
+        fail(f"{what}: fsdp losses {run['losses']} and zero1's {zero1} "
+             f"differ by {err:.2e} > {FSDP_TOL}")
+    return err
+
+
+def fsdp_stages(torch, run: dict, mesh) -> dict:
+    """Two more fsdp netrpc steps on the trained state: one under the
+    profiler (the card's busy share and top kernels), one with the stage
+    clock (ms of the card's stream between CUDA events)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.inc_agg import IncAggConfig
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import model_config
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = model_config(ARCH, layers=TRAIN_LAYERS)
+    prog = steps.build_train_step(
+        cfg, ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH, "train"), mesh,
+        inc=IncAggConfig(mode="netrpc", precision=PRECISION),
+        opt_cfg=AdamWConfig(warmup_steps=5, total_steps=TRAIN_STEPS),
+        n_micro=1, mode="fsdp", device="cuda")
+    batch = pipeline.shard_batch(pipeline.make_batch(pipeline.DataConfig(
+        vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=SEED,
+        kind="uniform"), TRAIN_STEPS), "cuda")
+    def step():
+        prog.fn(run["params"], run["opt"], batch, TRAIN_STEPS)
+    wall, share, top = busy_share(torch, step)
+    print(f"path t_fsdp profile, one fsdp netrpc step: {wall * 1e3:.3f} ms "
+          f"(wall, profiler on), card busy {share:.4f} of it; top kernels "
+          f"(ms): {top}", flush=True)
+    step()
+    return prog.meta["clock"].ms()
+
+
+def check_fsdp(torch, smi: str) -> dict:
+    """Phase t on the card: fsdp at full width against phase j's zero1,
+    its gathers' launches, one step's stages, the 2-layer step against
+    the CPU."""
+    from repro_torch import compat
+    from repro_torch.launch.serve import model_config
+    from repro_torch.launch.train import one_rank_group
+    if "losses" not in TRAIN_J:
+        fail("phase t needs phase j's zero1 losses: run phase j first")
+    cfg = model_config(ARCH, layers=TRAIN_LAYERS)
+    gathers = gathered_leaves(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with one_rank_group(torch.device("cuda")):
+        mesh = compat.make_mesh((1, 1), ("data", "model"))
+        run, counts, secs = counted(
+            torch, lambda: train_run("netrpc", shard="fsdp"),
+            "phase t (train, fsdp)",
+            ("quantize", "sat_add", "dequantize", "sparse_addto"))
+        peak = torch.cuda.max_memory_allocated()
+        train_oracle(run, cfg.vocab, "phase t (fsdp)")
+        err = fsdp_oracle(run, TRAIN_J["losses"], "phase t")
+        for name in ("quantize", "sat_add", "dequantize"):
+            if counts[name] != gathers * TRAIN_STEPS:
+                fail(f"phase t: {counts[name]} {name} launches, not one per "
+                     f"gather ({gathers} a step) and step")
+        if counts["flash_attention"]:
+            fail("phase t: the train step launched the flash kernel")
+        warm = statistics.mean(run["step_s"][1:])
+        print(f"path t_fsdp: {ARCH}, {run['n_layers']} layers, d_model "
+              f"{cfg.d_model}, B={TRAIN_BATCH} x S={TRAIN_SEQ}, fsdp netrpc "
+              f"(precision {PRECISION}) on a (data=1, model=1) mesh: "
+              f"{secs:.3f} s for {TRAIN_STEPS} steps; losses {run['losses']}"
+              f" vs zero1's {TRAIN_J['losses']} (max |d| {err:.2e}, "
+              f"tolerance {FSDP_TOL}); step seconds {run['step_s']}; warm "
+              f"step {warm:.6f} s, {TRAIN_BATCH * TRAIN_SEQ / warm:.3f} "
+              f"tokens/s; peak device memory {peak / 2 ** 30:.3f} GiB; "
+              f"{gathers} gathers a step; launches {counts}", flush=True)
+        stages = fsdp_stages(torch, run, mesh)
+        print("path t_fsdp, one fsdp netrpc step by stage (ms of the card's "
+              "stream between CUDA events): " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in stages.items())
+              + f"; total {sum(stages.values()):.3f}", flush=True)
+        print(f"path t_fsdp card: {smi}", flush=True)
+        del run
+        torch.cuda.empty_cache()
+        step_pair(torch, mesh, compat.make_mesh((1, 1), ("data", "model"),
+                                                device="cpu"), shard="fsdp")
+    return counts
 
 
 # -- phase k: the int8 wire format --------------------------------------------
@@ -2609,6 +2741,11 @@ def rehearse(scale_down: int = 64) -> None:
         fail("rehearsal: not one quantize per scattered leaf and step")
     modes_oracle(netrpc, train_run("fp32-ring", **small),
                  "rehearsal of phase j")
+    ops.reset_counts()
+    fsdp_oracle(train_run("netrpc", shard="fsdp", **small),
+                netrpc["losses"], "rehearsal of phase t")
+    if ops.plain_counts()["quantize"] != gathered_leaves(cfg) * TRAIN_STEPS:
+        fail("rehearsal: not one quantize per fsdp gather and step")
     int8_wire_oracle(drive_int8_wire(torch, "cpu"))
     ops.reset_counts()
     replies, state, _, _, _, story = drive_wire("cpu", seg_slots=seg,
@@ -2634,7 +2771,7 @@ def rehearse(scale_down: int = 64) -> None:
                            device="cpu")
     if not mini["gap"] <= MINI_GAP:
         fail(f"rehearsal of phase s2: gap {mini['gap']}")
-    print("rehearsal: phases a-s ran on the CPU and met their oracles")
+    print("rehearsal: phases a-t ran on the CPU and met their oracles")
 
 
 def lane_drift(draws: int = 3) -> None:
@@ -2763,7 +2900,8 @@ def main() -> int:
                          ("p", lambda t: check_serve(t, smi, "p")),
                          ("q", lambda t: check_serve(t, smi, "q")),
                          ("r", lambda t: check_wire(t, smi)),
-                         ("s", lambda t: check_phase_s(t, smi))):
+                         ("s", lambda t: check_phase_s(t, smi)),
+                         ("t", lambda t: check_fsdp(t, smi))):
         t0 = time.perf_counter()
         for name, c in check(torch).items():
             counts[name] = counts.get(name, 0) + c

@@ -23,6 +23,16 @@ A tree is a nested dict (or tuple/list) of tensors or numpy arrays, or a
 ``models.api.Tree``; ``restore`` rebuilds the structure of the tree it is
 given, with its leaves' dtypes and devices.
 
+Several ranks: the reference's single controller saves each global
+array whole (``np.asarray`` of a sharded array gathers it), so a
+checkpoint holds full leaves whatever the mesh. Given ``specs`` (per
+tree, {leaf path: ``rules.PartitionSpec``}, e.g.
+``launch.steps.state_specs``) and the ``mesh``, ``save`` gathers each
+sharded leaf from every rank (every rank calls it) and rank 0 alone
+writes; ``restore`` reads the full leaf on every rank and keeps this
+rank's shard. So a state written by any number of ranks restores in the
+reference, onto another dp size, or the other way round.
+
 Elastic resize: ZeRO state is saved per-leaf along its scatter dim, so
 restoring onto a different dp size = concatenate chunks and re-slice
 (resize_chunks), no re-initialization.
@@ -36,7 +46,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from repro_torch.sharding import rules
 
 
 def _items(tree):
@@ -71,8 +84,27 @@ def _to_numpy(leaf) -> np.ndarray:
     return arr
 
 
-def _flatten(tree) -> dict[str, np.ndarray]:
-    return {key: _to_numpy(leaf) for key, leaf in _leaves(tree)}
+def _spec(specs, key: str):
+    """The spec of the leaf at ``key`` ("groups/0/s0/attn/wq") in a
+    {leaf path: spec} dict, or in one nested under the key's first
+    component (the optimizer's {"master": {...}, ...}); None if none."""
+    if not specs:
+        return None
+    if key.replace("/", ".") in specs:
+        return specs[key.replace("/", ".")]
+    head, _, rest = key.partition("/")
+    sub = specs.get(head)
+    return _spec(sub, rest) if isinstance(sub, dict) and rest else None
+
+
+def _flatten(tree, specs=None, mesh=None) -> dict[str, np.ndarray]:
+    out = {}
+    for key, leaf in _leaves(tree):
+        spec = _spec(specs, key)
+        if spec is not None:
+            leaf = rules.unshard(leaf.detach(), spec, mesh)
+        out[key] = _to_numpy(leaf)
+    return out
 
 
 def _leaf(like, arr: np.ndarray):
@@ -87,33 +119,48 @@ def _leaf(like, arr: np.ndarray):
     return arr.reshape(like.shape)
 
 
-def _plain(like, flat: dict[str, np.ndarray], prefix=()):
+def _read(flat: dict[str, np.ndarray], prefix: tuple, specs, mesh):
+    """The stored leaf at ``prefix``, cut to this rank's shard when
+    ``specs`` has a spec for it."""
+    key = "/".join(prefix)
+    spec = _spec(specs, key)
+    if spec is None:
+        return flat[key]
+    return rules.shard_of(torch.from_numpy(np.array(flat[key])), spec,
+                          mesh).numpy()
+
+
+def _plain(like, flat: dict[str, np.ndarray], prefix=(), specs=None,
+           mesh=None):
     """``like``'s structure as nested dicts and tuples (a module list is
     a tuple), with the leaves read from ``flat``."""
     items = _items(like)
     if items is None:
-        return _leaf(like, flat["/".join(prefix)])
-    kids = [(k, _plain(v, flat, prefix + (str(k),))) for k, v in items]
+        return _leaf(like, _read(flat, prefix, specs, mesh))
+    kids = [(k, _plain(v, flat, prefix + (str(k),), specs, mesh))
+            for k, v in items]
     if isinstance(like, (nn.ModuleList, tuple, list)):
         return tuple(v for _, v in kids)
     return dict(kids)
 
 
-def _rebuild(like, flat: dict[str, np.ndarray], prefix=()):
+def _rebuild(like, flat: dict[str, np.ndarray], prefix=(), specs=None,
+             mesh=None):
     if isinstance(like, nn.Module):
         from repro_torch.models.api import Tree
-        return Tree(_plain(like, flat, prefix))
+        return Tree(_plain(like, flat, prefix, specs, mesh))
     if isinstance(like, dict):
-        return {k: _rebuild(v, flat, prefix + (str(k),))
+        return {k: _rebuild(v, flat, prefix + (str(k),), specs, mesh)
                 for k, v in like.items()}
     if isinstance(like, (tuple, list)):
-        return type(like)(_rebuild(v, flat, prefix + (str(i),))
+        return type(like)(_rebuild(v, flat, prefix + (str(i),), specs, mesh)
                           for i, v in enumerate(like))
-    return _leaf(like, flat["/".join(prefix)])
+    return _leaf(like, _read(flat, prefix, specs, mesh))
 
 
-def _unflatten(tree_like, flat: dict[str, np.ndarray]):
-    return _rebuild(tree_like, flat)
+def _unflatten(tree_like, flat: dict[str, np.ndarray], specs=None,
+               mesh=None):
+    return _rebuild(tree_like, flat, (), specs, mesh)
 
 
 class CheckpointStore:
@@ -126,8 +173,16 @@ class CheckpointStore:
     # -- save -------------------------------------------------------------
 
     def save(self, step: int, trees: dict, extra: dict | None = None,
-             async_: bool = True) -> None:
-        trees_np = {name: _flatten(t) for name, t in trees.items()}
+             async_: bool = True, specs: dict | None = None,
+             mesh=None) -> None:
+        """Save ``trees`` ({name: tree}) as step ``step``. With ``specs``
+        ({name: {leaf path: spec}}) and ``mesh``, every rank calls this:
+        the sharded leaves are gathered whole, and rank 0 writes."""
+        specs = specs or {}
+        trees_np = {name: _flatten(t, specs.get(name), mesh)
+                    for name, t in trees.items()}
+        if specs and dist.is_initialized() and dist.get_rank() != 0:
+            return
         manifest = {"step": int(step), "flip": int(step) % 2,
                     **(extra or {})}
         if async_:
@@ -179,12 +234,17 @@ class CheckpointStore:
         return json.loads(
             (self.dir / f"step_{step:08d}" / "manifest.json").read_text())
 
-    def restore(self, step: int, trees_like: dict) -> dict:
+    def restore(self, step: int, trees_like: dict,
+                specs: dict | None = None, mesh=None) -> dict:
+        """The trees of step ``step`` in the structure, dtypes and devices
+        of ``trees_like``; with ``specs`` and ``mesh``, this rank's shard
+        of each sharded leaf (``trees_like`` holds shards)."""
+        specs = specs or {}
         d = self.dir / f"step_{step:08d}"
         out = {}
         for name, like in trees_like.items():
             with np.load(d / f"{name}.npz") as z:
-                out[name] = _unflatten(like, dict(z))
+                out[name] = _unflatten(like, dict(z), specs.get(name), mesh)
         return out
 
     # -- exactly-once gate (the flip bit) ----------------------------------

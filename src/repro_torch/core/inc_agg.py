@@ -322,11 +322,13 @@ def reduce_scatter_dim(g: torch.Tensor, dim: int, dp_axes: tuple[Axis, ...],
         val, mask = dequantize(r, cfg.precision)
         del r
         if cfg.fallback == "always":
-            c = x.shape[0] // dp_size(dp_axes)
-            off = ring.dp_index(dp_axes) * c
-            x_own = x[off:off + c]
-            repaired = _psum(torch.where(mask, x_own,
-                                         torch.zeros_like(x_own)), dp_axes)
+            # the overflowed lanes from an fp32 reduce-scatter of the
+            # leaf along the same dim, as the flat API repairs. The
+            # reference psums each rank's own chunk of its own leaf
+            # (its lines 271-277), which adds chunk r of rank r to chunk
+            # s of rank s: right on one rank only (ROADMAP: departures)
+            repaired = ring.hierarchical_reduce_scatter(x, dp_axes,
+                                                        torch.add)
             val = torch.where(mask, repaired, val)
         out = val
     elif cfg.mode == "netrpc-opt":

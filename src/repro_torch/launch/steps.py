@@ -1,18 +1,28 @@
 """Train step builder and the INC telemetry of the train and serve
-loops: the port of ``repro/launch/steps.py`` on one rank.
+loops: the port of ``repro/launch/steps.py``.
 
 The loop's metric stream, step-commit quorum and gradient channel run on
 the port's async ``IncRuntime`` through typed schema services. The train
-step is the paper's SyncAgtr pipeline as the gradient aggregation path
-(zero1): local grads accumulate over microbatches in fp32; each leaf is
-INC reduce-scattered along its scatter dim (quantize -> per-hop
-saturating Map.addTo ring -> dequant + overflow fallback); AdamW updates
-this rank's fp32 chunk; the updated leaf is rebuilt by the INC
-all-gather. The reference runs the step as one ``jit(shard_map(...))``
-over a mesh; here it is eager PyTorch on the ranks of a
-``compat.make_mesh`` mesh of one data-parallel rank (``(data=1,
-model=1)``: NCCL on the card, gloo with ``device="cpu"``). More ranks,
-tensor parallelism and the ``fsdp`` mode raise ``NotImplementedError``
+step is the paper's SyncAgtr pipeline as the gradient aggregation path:
+
+  zero1  params bf16 replicated over dp; local grads accumulate over
+         microbatches in fp32; each leaf is INC reduce-scattered along
+         its scatter dim (quantize -> per-hop saturating Map.addTo ring
+         -> dequant + overflow fallback); AdamW updates this rank's fp32
+         chunk (ZeRO-1); the updated leaf is rebuilt by the INC
+         all-gather.
+  fsdp   params stored dp-scattered (grok-314b, llama-90b); each layer's
+         leaves are gathered inside the layer loop by an autograd
+         Function whose BACKWARD is the INC reduce-scatter: the paper's
+         technique runs inside backprop, per layer. The optimizer
+         consumes the already-scattered grads; no re-gather of the full
+         model ever materializes.
+
+The reference runs the step as one ``jit(shard_map(...))`` over a mesh,
+manual over the data axes; here it is eager PyTorch, one process a rank
+of a ``compat.make_mesh`` mesh (NCCL on the card, gloo with
+``device="cpu"``), each holding its shards as plain tensors. Tensor
+parallelism (a "model" axis above 1) raises ``NotImplementedError``
 (ROADMAP: several cards). The serve step builder is not ported: serving
 calls ``models.api`` directly (``launch/serve.py``).
 """
@@ -259,6 +269,129 @@ def scatter_dims_tree(params, n_dp: int, n_model: int) -> dict[str, int]:
     return out
 
 
+def _with_dp_dim(spec: rules.PartitionSpec, dim: int,
+                 dp_axes: tuple[str, ...]) -> rules.PartitionSpec:
+    entries = list(spec) + [None] * (dim + 1 - len(spec))
+    entries[dim] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+    return rules.P(*entries)
+
+
+def opt_specs(pspecs: dict, dims: dict, dp_axes: tuple[str, ...]) -> dict:
+    """Optimizer-state partition specs: param spec + dp sharding on the
+    scatter dim (fp32 master/m/v, each rank its chunk)."""
+    return {k: _with_dp_dim(s, dims[k], dp_axes) if dims[k] >= 0 else s
+            for k, s in pspecs.items()}
+
+
+def _batch_specs(cfg: ArchConfig, shape: ShapeConfig, dp) -> dict:
+    """The batch's rows by dp rank (``dp_axes[0]``-major)."""
+    dp = dp if len(dp) > 1 else dp[0]
+    sp = {"tokens": rules.P(dp)}
+    if cfg.family == "vlm":
+        sp["patches"] = rules.P(dp)
+    if cfg.is_encdec:
+        sp["frames"] = rules.P(dp)
+    return sp
+
+
+# ---------------------------------------------------------------------------
+# FSDP gather (an autograd Function: backward = the INC reduce-scatter)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class GradSink:
+    """Where the fsdp gathers' backward puts its result: the fp32
+    gradient accumulator of each scattered leaf (this rank's chunk shape)
+    and the anchor that every gather takes as its differentiable input.
+
+    The reference's gather is a ``custom_vjp`` whose backward returns the
+    reduce-scatter's fp32 chunk for a bf16 chunk; JAX keeps that fp32
+    cotangent (measured: ``jax.grad`` of a bf16 input through such a
+    ``custom_vjp`` under ``scan`` and ``checkpoint`` comes back fp32, not
+    rounded to bf16), and its step adds it to the fp32 accumulator as it
+    is. PyTorch's engine casts a backward's output to its input's dtype,
+    which would round it to bf16. So the backward adds the fp32 chunk to
+    the accumulator itself, and autograd reaches every gather through
+    the fp32 anchor (a scalar whose gradient is zero)."""
+    leaves: dict                 # leaf path -> the stored (chunk) leaf
+    acc: dict                    # leaf path -> fp32 accumulator
+    anchor: torch.Tensor
+
+    def slot(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """The accumulator of ``x``: the leaf's, or its layer's when ``x``
+        is one layer of a stacked leaf (found by its storage offset:
+        ``_unbind`` takes layer i at i * stride(0))."""
+        base, acc = self.leaves[name], self.acc[name]
+        if x.shape == base.shape:
+            return acc
+        i, r = divmod(x.storage_offset() - base.storage_offset(),
+                      base.stride(0))
+        if r or not 0 <= i < base.shape[0] or \
+                x.untyped_storage().data_ptr() != \
+                base.untyped_storage().data_ptr():
+            raise ValueError(f"{name}: the gathered slice is not a layer "
+                             f"of the stored leaf")
+        return acc[i]
+
+
+class _Gather(torch.autograd.Function):
+    """The fsdp mode's parameter gather: forward is the INC all-gather
+    along ``dim``; backward is the INC reduce-scatter of the gathered
+    leaf's cotangent (quantize -> saturating ring -> dequantize: kernels
+    7, 6 and 8 on the card), added in fp32 to the step's accumulator
+    (``GradSink``). The paper's SyncAgtr inside backprop, per layer."""
+
+    @staticmethod
+    def forward(ctx, x, anchor, dim, dp_axes, inc, acc):
+        ctx.args = (dim, dp_axes, inc, acc)
+        return inc_agg.all_gather_dim(x, dim, dp_axes, inc)
+
+    @staticmethod
+    def backward(ctx, ct):
+        dim, dp_axes, inc, acc = ctx.args
+        acc.add_(inc_agg.reduce_scatter_dim(ct, dim, dp_axes, inc))
+        zero = torch.zeros((), dtype=torch.float32, device=ct.device)
+        return None, zero, None, None, None, None
+
+
+def _gather(x, dim: int, name: str, dp_axes, inc: IncAggConfig,
+            sink: GradSink) -> torch.Tensor:
+    return _Gather.apply(x, sink.anchor, dim, dp_axes, inc,
+                         sink.slot(name, x))
+
+
+def _named_map(tree: dict, fn, prefix: str) -> dict:
+    return {k: _named_map(v, fn, f"{prefix}{k}.") if isinstance(v, dict)
+            else fn(prefix + k, v) for k, v in tree.items()}
+
+
+def make_param_gather(dims: dict, dp_axes, inc: IncAggConfig,
+                      sink: GradSink):
+    """Hook for Ctx.param_gather: gathers one layer of stacked params
+    (the slice has lost the stack dim, so scatter dims shift by -1)."""
+    def hook(scope: str, gi: int, pslice: dict) -> dict:
+        prefix = f"groups.{gi}." if scope == "groups" else "enc.blocks."
+
+        def one(name, leaf):
+            d = dims[name]
+            if d < 1:      # -1: not scattered; 0 impossible (stack dim)
+                return leaf
+            return _gather(leaf, d - 1, name, dp_axes, inc, sink)
+        return _named_map(pslice, one, prefix)
+    return hook
+
+
+def gather_unstacked(params, dims: dict, dp_axes, inc: IncAggConfig,
+                     sink: GradSink):
+    """The params as nested dicts, the non-stacked leaves (embed,
+    lm_head, final_norm, ...) gathered."""
+    def one(name, leaf):
+        if dims[name] >= 0 and not rules._is_stacked(name):
+            return _gather(leaf, dims[name], name, dp_axes, inc, sink)
+        return leaf
+    return api.plain_tree(params, one)
+
+
 # ---------------------------------------------------------------------------
 # microbatching
 # ---------------------------------------------------------------------------
@@ -321,8 +454,8 @@ class Program:
 
 def _several_cards(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet: the train step runs on one "
-        f"data-parallel rank (ROADMAP: several cards)")
+        f"{what} is not ported yet: tensor parallelism (a 'model' mesh "
+        f"axis above 1) comes with a later slice (ROADMAP: several cards)")
 
 
 def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
@@ -330,76 +463,116 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                      n_micro: int | None = None, mode: str | None = None,
                      device=None) -> Program:
     """The train step of ``cfg`` at ``shape`` on ``mesh`` (a
-    ``compat.make_mesh`` mesh with a "data" axis and optionally "pod" and
-    "model"), its tensors on ``device`` (the card by default).
+    ``compat.make_mesh`` mesh over ("data", "model") or ("pod", "data",
+    "model"), any data size, model 1), its tensors on ``device`` (the
+    card by default). This process is one rank of the mesh.
 
     ``prog.fn(params, opt, batch, step)`` -> ``(params, opt, {"loss",
-    "gnorm", "lr"})``, the metrics 0-d fp32 tensors. It follows the
-    reference's body step for step. Unlike the reference, which returns
-    new trees (and donates the old ones), it updates ``params`` (a
-    ``Tree``) and ``opt`` (``{"master", "m", "v"}``, fp32 ``Tree``s) in
-    place and returns them: the full-width model's optimizer state is
-    37 GB, and a second copy would not fit the card. ``meta["clock"]``
-    (a ``StageClock``) times the stages of the last step."""
+    "gnorm", "lr"})``, the metrics 0-d fp32 tensors. ``batch`` is the
+    global batch; the step takes this rank's rows. ``params`` and
+    ``opt`` (``{"master", "m", "v"}``) are this rank's shards
+    (``init_state``; ``meta["param_specs"]`` and ``meta["opt_specs"]``):
+    in zero1 the bf16 params are whole and the fp32 optimizer state is
+    this rank's chunk of each scattered leaf; in fsdp the params are
+    chunks too, gathered layer by layer inside the forward (and again in
+    the checkpoint's recompute), with the INC reduce-scatter as the
+    gather's backward. It follows the reference's body step for step.
+    Unlike the reference, which returns new trees (and donates the old
+    ones), it updates ``params`` and ``opt`` in place and returns them:
+    the full-width model's optimizer state is 37 GB, and a second copy
+    would not fit the card. ``meta["clock"]`` (a ``StageClock``) times
+    the stages of the last step."""
     dev = resolve_device(device)
     mode = mode or rules.mode_for(cfg.name)
-    if mode != "zero1":
-        raise _several_cards(f"the {mode!r} mode")
+    if mode not in ("zero1", "fsdp"):
+        raise ValueError(f"mode must be 'zero1' or 'fsdp', got {mode!r}")
     names = tuple(a for a in ("pod", "data") if a in mesh.names)
-    manual = mesh.axes_of(names)
-    n_dp = inc_agg.dp_size(manual)
-    n_model = mesh.shape[mesh.names.index("model")] \
-        if "model" in mesh.names else 1
-    if n_dp != 1 or n_model != 1:
+    axes = rules.MeshAxes(data=names)
+    n_dp, n_model = axes.sizes(mesh)
+    if n_model != 1:
         raise _several_cards(f"a mesh of {n_dp} data x {n_model} model "
                              f"ranks")
+    manual = mesh.axes_of(names)
     if n_micro is None:
         n_micro = default_n_micro(cfg, shape, n_dp)
+    if shape.global_batch % n_dp:
+        raise ValueError(f"a global batch of {shape.global_batch} does not "
+                         f"split over {n_dp} data-parallel ranks")
     local_b = shape.global_batch // n_dp
     if local_b % n_micro:
         raise ValueError(f"a local batch of {local_b} does not split into "
                          f"{n_micro} microbatches")
-    dims = scatter_dims_tree(api.param_shapes(cfg), n_dp, n_model)
+    shapes = api.param_shapes(cfg)
+    dims = scatter_dims_tree(shapes, n_dp, n_model)
+    pspecs = rules.param_specs(shapes, axes, mesh, mode)
+    ospecs = opt_specs(pspecs, dims, names)
+    bspecs = _batch_specs(cfg, shape, names)
+    fsdp = mode == "fsdp"
 
-    def grads_of(params, leaves, mb):
-        """fp32 gradient per leaf summed over the microbatches, and the
-        mean loss over the data-parallel ranks."""
-        for _, p in leaves:
-            p.requires_grad_(True)
-        gacc = [None] * len(leaves)
+    def grads_of(params, leaves, flat_d, mb):
+        """fp32 gradient per leaf summed over the microbatches (in fsdp
+        a scattered leaf's is already the sum over the ranks, from the
+        gathers' backward), and the mean loss over the data-parallel
+        ranks."""
+        if fsdp:
+            gacc = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                    if d >= 0 else None
+                    for (_, p), d in zip(leaves, flat_d)]
+            sink = GradSink({n: p for n, p in leaves},
+                            {n: a for (n, _), a in zip(leaves, gacc)
+                             if a is not None}, None)
+        else:
+            gacc = [None] * len(leaves)
+        wrt = [j for j, d in enumerate(flat_d) if not (fsdp and d >= 0)]
+        for j in wrt:
+            leaves[j][1].requires_grad_(True)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         try:
             for i in range(n_micro):
-                loss, _ = api.train_loss(params, cfg,
-                                         {k: v[i] for k, v in mb.items()},
-                                         remat=True)
+                mb_i = {k: v[i] for k, v in mb.items()}
+                anchor = []
+                if fsdp:
+                    sink.anchor = torch.zeros((), dtype=torch.float32,
+                                              device=dev, requires_grad=True)
+                    anchor = [sink.anchor]
+                    loss, _ = api.train_loss(
+                        gather_unstacked(params, dims, manual, inc, sink),
+                        cfg, mb_i, remat=True,
+                        param_gather=make_param_gather(dims, manual, inc,
+                                                       sink))
+                else:
+                    loss, _ = api.train_loss(params, cfg, mb_i, remat=True)
                 grads = list(torch.autograd.grad(
-                    loss, [p for _, p in leaves]))
-                for j in range(len(grads)):
+                    loss, anchor + [leaves[j][1] for j in wrt],
+                    allow_unused=True, materialize_grads=True))[len(anchor):]
+                for k, j in enumerate(wrt):
                     # an fp32 buffer per leaf as its bf16 gradient is
                     # freed: 0 + g, then + g of each later microbatch
                     if gacc[j] is None:
-                        gacc[j] = torch.zeros(grads[j].shape,
+                        gacc[j] = torch.zeros(grads[k].shape,
                                               dtype=torch.float32,
                                               device=dev)
-                    gacc[j].add_(grads[j])
-                    grads[j] = None
+                    gacc[j].add_(grads[k])
+                    grads[k] = None
                 loss_sum = loss_sum + loss.detach()
         finally:
-            for _, p in leaves:
-                p.requires_grad_(False)
+            for j in wrt:
+                leaves[j][1].requires_grad_(False)
         loss = inc_agg._psum(loss_sum / torch.full_like(loss_sum, n_micro),
                              manual) / torch.full_like(loss_sum, n_dp)
         return gacc, loss
 
     def aggregate(gacc, flat_d):
         """Each leaf's mean over the ranks: INC reduce-scattered along its
-        scatter dim, or summed where it has none."""
+        scatter dim (in fsdp already reduced by the gathers' backward),
+        or summed where it has none."""
         inv = 1.0 / (n_micro * n_dp)
         agg = []
         for j, d in enumerate(flat_d):
             g, gacc[j] = gacc[j], None
-            if d >= 0:
+            if fsdp and d >= 0:
+                agg.append(g.mul_(inv))      # scattered+summed in backward
+            elif d >= 0:
                 agg.append(inc_agg.reduce_scatter_dim(g, d, manual, inc)
                            .mul_(inv))
             else:
@@ -414,18 +587,20 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         return agg, gnorm
 
     def update(opt, leaves, flat_d, agg, factor, lr, step):
-        """AdamW on each leaf's chunk, then the bf16 leaf rebuilt by the
-        INC all-gather, in place."""
+        """AdamW on each leaf's chunk, then in zero1 the bf16 leaf rebuilt
+        by the INC all-gather (in fsdp the chunk is the stored leaf), in
+        place."""
         state = {k: dict(opt[k].named_parameters())
                  for k in ("master", "m", "v")}
         for j, ((name, p), d) in enumerate(zip(leaves, flat_d)):
             g, agg[j] = agg[j], None
+            ms = state["master"][name]
             st = adamw.adamw_leaf(
                 {k: state[k][name] for k in state}, g.mul_(factor), lr=lr,
-                cfg=opt_cfg, step=step, wd_on=adamw.decay_mask(p))
+                cfg=opt_cfg, step=step, wd_on=adamw.decay_mask(ms))
             del g
             upd = st["master"].to(p.dtype)
-            if d >= 0:
+            if d >= 0 and not fsdp:
                 upd = inc_agg.all_gather_dim(upd, d, manual, inc)
             p.data.copy_(upd)
             del upd
@@ -437,11 +612,17 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         leaves = api.named_leaves(params)
         flat_d = [dims[name] for name, _ in leaves]
         # every input (the tokens, and whisper's frames or a VLM's
-        # patches) split into the microbatches along the batch dim
-        mb = {k: v.to(dev).reshape(n_micro, v.shape[0] // n_micro,
-                                   *v.shape[1:]) for k, v in batch.items()}
+        # patches): this rank's rows of the global batch, split into the
+        # microbatches along the batch dim
+        mb = {}
+        for k, v in batch.items():
+            if v.shape[0] != shape.global_batch:
+                raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, not "
+                                 f"the global batch of {shape.global_batch}")
+            v = rules.shard_of(v, bspecs[k], mesh).to(dev)
+            mb[k] = v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])
         clock.mark()
-        gacc, loss = grads_of(params, leaves, mb)      # local grads
+        gacc, loss = grads_of(params, leaves, flat_d, mb)   # local grads
         clock.mark()
         agg, gnorm = aggregate(gacc, flat_d)           # INC aggregation
         clock.mark()
@@ -453,22 +634,43 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
 
     meta = {"mode": mode, "n_micro": n_micro, "n_dp": n_dp,
             "n_model": n_model, "manual": names, "kind": "train",
-            "dims": dims, "device": dev, "clock": clock}
+            "dims": dims, "param_specs": pspecs, "opt_specs": ospecs,
+            "device": dev, "clock": clock}
     return Program(fn=fn, mesh=mesh, meta=meta)
+
+
+def state_specs(program: Program) -> dict:
+    """The specs of a train program's state as ``CheckpointStore`` takes
+    them: {"params": param specs, "opt": {"master", "m", "v": opt
+    specs}}."""
+    o = program.meta["opt_specs"]
+    return {"params": program.meta["param_specs"],
+            "opt": {"master": o, "m": o, "v": o}}
 
 
 def init_state(program: Program, cfg: ArchConfig, seed: int = 0):
     """Random params from ``seed`` and a fresh optimizer state (fp32
-    master copies, zero m and v) on the program's device."""
-    params = api.init_params(seed, cfg, device=program.meta["device"])
-    return params, init_opt(params)
+    master copies, zero m and v) on the program's device: every rank
+    draws the full params from the same seed, then keeps its shards."""
+    full = api.init_params(seed, cfg, device=program.meta["device"])
+    opt = init_opt(full, program.meta["opt_specs"], program.mesh)
+    return api.shard_tree(full, program.meta["param_specs"],
+                          program.mesh), opt
 
 
-def init_opt(params) -> dict:
-    """AdamW state for ``params``: an fp32 master copy, zero m and v."""
-    return {"master": api.map_tree(
-                lambda t: t.detach().to(torch.float32, copy=True), params),
-            "m": api.map_tree(lambda t: torch.zeros(
-                t.shape, dtype=torch.float32, device=t.device), params),
-            "v": api.map_tree(lambda t: torch.zeros(
-                t.shape, dtype=torch.float32, device=t.device), params)}
+def init_opt(params, specs: dict | None = None, mesh=None) -> dict:
+    """AdamW state for the full ``params``: an fp32 master copy, zero m
+    and v; with ``specs`` ({leaf path: PartitionSpec}) and ``mesh``, this
+    rank's shard of each."""
+    def shard(name, t):
+        return t if specs is None else rules.shard_of(t, specs[name], mesh)
+
+    def master(name, t):
+        return shard(name, t.detach()).to(torch.float32, copy=True)
+
+    def zeros(name, t):
+        return torch.zeros(shard(name, t.detach()).shape,
+                           dtype=torch.float32, device=t.device)
+    return {"master": api.map_named(master, params),
+            "m": api.map_named(zeros, params),
+            "v": api.map_named(zeros, params)}

@@ -1,18 +1,28 @@
-"""Training launcher: the port of ``repro/launch/train.py`` on one card.
+"""Training launcher: the port of ``repro/launch/train.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
         --inc-mode netrpc --steps 200 --seq 128 --batch 8
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \\
+        -m repro_torch.launch.train --arch qwen2.5-3b --reduced \\
+        --device cpu --mode fsdp --steps 20
 
 The train step runs on the card unless ``--device cpu`` (with
 ``--reduced`` for the tiny same-family config; ``--layers N`` cuts the
 depth). Without a card and without ``--device cpu`` it raises. The loop
 integrates: the deterministic data pipeline, the INC-aggregated train
-step (``launch/steps.py``), the CntFwd elastic quorum (``--quorum``; one
-rank casts one vote a step), the metric telemetry on the port's
+step (``launch/steps.py``, ``--mode zero1`` or ``fsdp``, by default the
+arch's ``rules.mode_for``), the CntFwd elastic quorum (``--quorum``; one
+vote a dp rank and step), the metric telemetry on the port's
 ``IncRuntime``, and checkpoint/restart with the step-parity exactly-once
 gate. Weights are random, from a seed. One process is one data-parallel
-rank: the loop makes a ``torch.distributed`` group of one rank (a free
-port on localhost) unless one is already initialized.
+rank of a ``make_host_mesh`` mesh over the world that
+``torch.distributed.run`` initialized (``RANK`` and ``WORLD_SIZE`` in the
+environment; on the card each rank takes ``cuda:LOCAL_RANK``); without
+that environment the loop makes a group of one rank (a free port on
+localhost) unless one is already initialized. Rank 0 alone runs the
+telemetry, as the reference's single controller does, and prints.
+``--model-axis`` is 1: the reference's default of 2 is tensor
+parallelism, which is not ported yet.
 """
 from __future__ import annotations
 
@@ -23,17 +33,18 @@ import os
 import socket
 import time
 from concurrent.futures import ThreadPoolExecutor
+from datetime import timedelta
 
 import torch
 import torch.distributed as dist
 
-from repro_torch import compat
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.inc_agg import IncAggConfig
 from repro_torch.data import pipeline
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.launch import steps
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.serve import model_config
 from repro_torch.optim.adamw import AdamWConfig
 
@@ -51,6 +62,28 @@ def one_rank_group(device: torch.device):
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
                             init_method=f"tcp://127.0.0.1:{port}", rank=0,
                             world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def world_group(device: torch.device):
+    """The default process group of the loop: the world of
+    ``torch.distributed.run`` (``RANK`` and ``WORLD_SIZE`` in the
+    environment, ``env://``), else ``one_rank_group``; a group the
+    caller already made is kept."""
+    if dist.is_initialized() or not {"RANK", "WORLD_SIZE"} <= set(
+            os.environ):
+        with one_rank_group(device):
+            yield
+        return
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method="env://",
+                            timeout=timedelta(seconds=300))
     try:
         yield
     finally:
@@ -101,15 +134,20 @@ def train_loop(*, arch: str, inc_mode: str, steps_n: int, seq: int,
                ckpt_dir: str | None = None, ckpt_every: int = 50,
                resume: bool = True, data_kind: str = "bigram",
                log_every: int = 10, n_micro: int = 1, quorum: float = 1.0,
-               device=None, layers: int | None = None) -> dict:
+               device=None, layers: int | None = None,
+               mode: str | None = None, model_axis: int = 1) -> dict:
     """Train ``arch`` for ``steps_n`` steps on ``device`` (the card by
-    default), on a ``(data=1, model=1)`` mesh. Returns the losses,
-    gnorms and seconds of every step run, the final params and optimizer
-    state, the telemetry summary and the bigram loss floor."""
+    default), this process one rank of a ``make_host_mesh(model_axis)``
+    mesh over the world (``world_group``), in ``mode`` (zero1 or fsdp;
+    the arch's by default). Returns the losses, gnorms and seconds of
+    every step run, this rank's params and optimizer state, the
+    telemetry summary (rank 0; None elsewhere) and the bigram loss
+    floor."""
     dev = resolve_device(device)
     cfg = model_config(arch, reduced, layers)
-    with one_rank_group(dev):
-        mesh = compat.make_mesh((1, 1), ("data", "model"), device=dev)
+    with world_group(dev):
+        mesh = make_host_mesh(model=model_axis, device=dev)
+        lead = dist.get_rank() == 0
         shape = ShapeConfig("cli_train", seq_len=seq, global_batch=batch,
                             kind="train")
         inc = IncAggConfig(mode=inc_mode, precision=precision)
@@ -117,17 +155,20 @@ def train_loop(*, arch: str, inc_mode: str, steps_n: int, seq: int,
                               total_steps=steps_n)
         prog = steps.build_train_step(cfg, shape, mesh, inc=inc,
                                       opt_cfg=opt_cfg, n_micro=n_micro,
-                                      device=dev)
+                                      mode=mode, device=dev)
         params, opt = steps.init_state(prog, cfg)
+        specs = steps.state_specs(prog)
 
         store = CheckpointStore(ckpt_dir) if ckpt_dir else None
         start = 0
         if store and resume and store.latest_step() is not None:
             start = store.latest_step() + 1
             state = store.restore(store.latest_step(),
-                                  {"params": params, "opt": opt})
+                                  {"params": params, "opt": opt},
+                                  specs=specs, mesh=mesh)
             params, opt = state["params"], state["opt"]
-            print(f"resumed from step {start - 1}")
+            if lead:
+                print(f"resumed from step {start - 1}")
 
         dcfg = pipeline.DataConfig(vocab=cfg.vocab, batch=batch,
                                    seq_len=seq, kind=data_kind)
@@ -137,7 +178,7 @@ def train_loop(*, arch: str, inc_mode: str, steps_n: int, seq: int,
         # scheduler coalesces them into drained batches off the hot path
         telemetry = steps.TrainTelemetry(n_workers=prog.meta["n_dp"],
                                          quorum=quorum, app_prefix="train",
-                                         device=dev)
+                                         device=dev) if lead else None
         losses, gnorms, step_s = [], [], []
         ran = 0
         t0 = time.time()
@@ -154,23 +195,27 @@ def train_loop(*, arch: str, inc_mode: str, steps_n: int, seq: int,
             _sync(dev)
             step_s.append(time.perf_counter() - ts)
             ran += 1
-            telemetry.push({"loss_sum": losses[-1], "steps": 1,
-                            "gnorm_sum": gnorms[-1]})
-            # one commit vote per dp rank; CntFwd forwards exactly one
-            # quorum notification per step once >= quorum * n_dp votes
-            for _ in range(prog.meta["n_dp"]):
-                telemetry.vote(s)
-            if s % log_every == 0 or s == steps_n - 1:
+            if lead:
+                telemetry.push({"loss_sum": losses[-1], "steps": 1,
+                                "gnorm_sum": gnorms[-1]})
+                # one commit vote per dp rank; CntFwd forwards exactly one
+                # quorum notification per step once >= quorum * n_dp votes
+                for _ in range(prog.meta["n_dp"]):
+                    telemetry.vote(s)
+            if lead and (s % log_every == 0 or s == steps_n - 1):
                 print(f"step {s:5d} loss {losses[-1]:.4f} "
                       f"gnorm {gnorms[-1]:.3f} lr {float(m['lr']):.2e} "
                       f"({time.time() - t0:.1f}s)")
             if store and s and s % ckpt_every == 0:
-                store.save(s, {"params": params, "opt": opt})
+                store.save(s, {"params": params, "opt": opt}, specs=specs,
+                           mesh=mesh)
         if store:
-            store.save(steps_n - 1, {"params": params, "opt": opt})
+            store.save(steps_n - 1, {"params": params, "opt": opt},
+                       specs=specs, mesh=mesh)
             store.wait()
-        summary = telemetry.finish()
-    if ran:
+            dist.barrier()       # rank 0's write is done for every rank
+        summary = telemetry.finish() if lead else None
+    if ran and summary:
         sched = summary["scheduling"].get("train-metrics", {})
         print(f"inc telemetry: steps="
               f"{summary['metrics'].get('steps', 0):.0f} mean_loss="
@@ -201,15 +246,21 @@ def main() -> None:
                     help="cuda (the default) or cpu")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to N layers")
+    ap.add_argument("--mode", choices=("zero1", "fsdp"), default=None,
+                    help="the arch's (sharding.rules.mode_for) by default")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="the mesh's model axis; 1 until tensor "
+                    "parallelism is ported (the reference's default is 2)")
     args = ap.parse_args()
     out = train_loop(arch=args.arch, inc_mode=args.inc_mode,
                      steps_n=args.steps, seq=args.seq, batch=args.batch,
                      reduced=args.reduced, precision=args.precision,
                      ckpt_dir=args.ckpt_dir, data_kind=args.data,
                      n_micro=args.n_micro, quorum=args.quorum,
-                     device=args.device, layers=args.layers)
+                     device=args.device, layers=args.layers,
+                     mode=args.mode, model_axis=args.model_axis)
     ls = out["losses"]
-    if ls:
+    if ls and out["inc_telemetry"] is not None:
         print(f"final loss {ls[-1]:.4f} (first {ls[0]:.4f}); "
               f"entropy floor {out['entropy_floor']}")
 

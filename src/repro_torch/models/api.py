@@ -14,7 +14,8 @@ patches through ``mproj``, the memory of the ``cross`` layers) families.
   input_specs(cfg, shape)                  -> dict of meta tensors
   param_shapes(cfg) / count_params(cfg, active_only) -> meta Tree / int
   params_from_jax / opt_from_jax / cache_from_jax / cache_to_numpy: the
-  JAX package's trees (as numpy) across, for the tests
+  JAX package's trees (as numpy) across, for the tests (the first two
+  cut to one rank's shard when given specs and a mesh)
 
 Parameters keep the reference's stacked layout, ``groups[gi]["s{i}"]``
 with the layer dim first, held in an ``nn.Module`` whose ``state_dict``
@@ -88,13 +89,33 @@ def named_leaves(tree: nn.Module) -> list[tuple[str, torch.Tensor]]:
 def map_tree(fn, tree: nn.Module) -> "Tree":
     """A new ``Tree`` of the same structure with ``fn`` applied to every
     leaf."""
-    def plain(node):
-        if isinstance(node, nn.ModuleList):
-            return tuple(plain(m) for m in node)
-        out = {k: fn(v) for k, v in node._parameters.items()}
-        out.update({k: plain(m) for k, m in node._modules.items()})
-        return out
-    return Tree(plain(tree))
+    return map_named(lambda _, t: fn(t), tree)
+
+
+def map_named(fn, tree: nn.Module) -> "Tree":
+    """A new ``Tree`` of the same structure with ``fn(path, leaf)``
+    applied to every leaf, the path's keys joined by "."."""
+    return Tree(plain_tree(tree, fn))
+
+
+def plain_tree(tree: nn.Module, fn=lambda _, t: t, prefix: str = ""):
+    """The tree as nested dicts and tuples (a module list is a tuple) of
+    ``fn(path, leaf)``; the identity keeps the parameters themselves."""
+    if isinstance(tree, nn.ModuleList):
+        return tuple(plain_tree(m, fn, f"{prefix}{i}.")
+                     for i, m in enumerate(tree))
+    out = {k: fn(prefix + k, v) for k, v in tree._parameters.items()}
+    out.update({k: plain_tree(m, fn, f"{prefix}{k}.")
+                for k, m in tree._modules.items()})
+    return out
+
+
+def shard_tree(tree: nn.Module, specs: dict, mesh) -> "Tree":
+    """This rank's shard of every leaf of a full ``tree`` under ``specs``
+    ({leaf path: PartitionSpec}) on ``mesh`` (``rules.shard_of``)."""
+    from repro_torch.sharding import rules
+    return map_named(lambda name, t: rules.shard_of(t.detach(), specs[name],
+                                                     mesh), tree)
 
 
 def _layer(tree, i: int) -> dict:
@@ -193,28 +214,31 @@ def _decode_embed(params: Tree, cfg: ArchConfig, token: torch.Tensor,
     return x
 
 
-def _memory(params: Tree, cfg: ArchConfig,
-            batch: dict) -> torch.Tensor | None:
+def _memory(params: Tree, cfg: ArchConfig, batch: dict,
+            param_gather=None) -> torch.Tensor | None:
     """What the cross-attention attends to: the projected patches (vlm),
     the encoder's output (whisper), else None."""
     if cfg.family == "vlm":
         return (batch["patches"].to(COMPUTE_DTYPE)
                 @ params["mproj"]).to(COMPUTE_DTYPE)
     if cfg.is_encdec:
-        return encode(params, cfg, batch["frames"])
+        return encode(params, cfg, batch["frames"], param_gather)
     return None
 
 
-def encode(params: Tree, cfg: ArchConfig,
-           frames: torch.Tensor) -> torch.Tensor:
+def encode(params: Tree, cfg: ArchConfig, frames: torch.Tensor,
+           param_gather=None) -> torch.Tensor:
     """Whisper's encoder over stub frame embeddings (B, M, d): sinusoidal
-    positions, the ``bidir`` layers, then its own final norm."""
+    positions, the ``bidir`` layers (each gathered by ``param_gather``
+    under scope "enc" first), then its own final norm."""
     m = frames.shape[1]
     x = frames.to(COMPUTE_DTYPE) + sinusoidal_positions(
         m, cfg.d_model, frames.device).to(COMPUTE_DTYPE)
-    ctx = Ctx(cfg=cfg, positions=torch.arange(m, device=frames.device))
+    ctx = Ctx(cfg=cfg, positions=torch.arange(m, device=frames.device),
+              param_gather=param_gather)
     for layer in _unbind(params["enc"]["blocks"]):
-        x, _ = blocks.block_train(layer, "bidir", x, ctx)
+        x, _ = blocks.block_train(ctx.gather("enc", 0, layer), "bidir", x,
+                                  ctx)
     return rms_norm(x, params["enc"]["norm"], cfg.norm_eps)
 
 
@@ -247,17 +271,21 @@ def _unbind(tree) -> list[dict]:
 def _stack_train(params: Tree, cfg: ArchConfig, x: torch.Tensor, ctx: Ctx,
                  remat: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """The layers over a full sequence, one pattern unit at a time (the
-    reference's scan body), each under ``checkpoint`` when ``remat``."""
+    reference's scan body), each under ``checkpoint`` when ``remat``. A
+    unit's params pass through ``ctx.gather`` inside the body, so the
+    checkpoint's recompute gathers them again and only one unit's
+    gathered params are alive at a time."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, (pat, n) in enumerate(cfg.pattern_groups):
         gp = params["groups"][gi]
         slots = [_unbind(gp[f"s{i}"]) for i in range(len(pat))]
         for layer in range(n):
-            def body(h, _pat=pat, _layer_i=layer, _slots=slots):
+            def body(h, _pat=pat, _gi=gi, _layer_i=layer, _slots=slots):
+                pslice = ctx.gather("groups", _gi, {
+                    f"s{i}": _slots[i][_layer_i] for i in range(len(_pat))})
                 a = torch.zeros((), dtype=torch.float32, device=h.device)
                 for i, bt in enumerate(_pat):
-                    h, ai = blocks.block_train(_slots[i][_layer_i], bt, h,
-                                               ctx)
+                    h, ai = blocks.block_train(pslice[f"s{i}"], bt, h, ctx)
                     a = a + ai
                 return h, a
             if remat:
@@ -268,14 +296,15 @@ def _stack_train(params: Tree, cfg: ArchConfig, x: torch.Tensor, ctx: Ctx,
     return x, aux
 
 
-def forward(params: Tree, cfg: ArchConfig, batch: dict, remat: bool = True
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Tree, cfg: ArchConfig, batch: dict, remat: bool = True,
+            param_gather=None) -> tuple[torch.Tensor, torch.Tensor]:
     """batch["tokens"]: (B, S) int -> (logits (B, S, V), aux), with the
-    plain attention: the flash kernel has no backward."""
+    plain attention: the flash kernel has no backward. ``param_gather``
+    is the fsdp mode's per-layer gather (``Ctx.param_gather``)."""
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    ctx = Ctx(cfg=cfg, positions=positions,
-              memory=_memory(params, cfg, batch))
+    ctx = Ctx(cfg=cfg, positions=positions, param_gather=param_gather,
+              memory=_memory(params, cfg, batch, param_gather))
     x = _embed(params, cfg, tokens)
     x, aux = _stack_train(params, cfg, x, ctx, remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -283,13 +312,14 @@ def forward(params: Tree, cfg: ArchConfig, batch: dict, remat: bool = True
 
 
 def train_loss(params: Tree, cfg: ArchConfig, batch: dict,
-               remat: bool = True) -> tuple[torch.Tensor, dict]:
+               remat: bool = True, param_gather=None
+               ) -> tuple[torch.Tensor, dict]:
     """batch["tokens"]: (B, S+1) -> next-token cross-entropy (+ MoE aux),
     the log-sum-exp in fp32."""
     tokens = batch["tokens"]
     inp = {**batch, "tokens": tokens[:, :-1]}
     tgt = tokens[:, 1:].long()
-    logits, aux = forward(params, cfg, inp, remat)
+    logits, aux = forward(params, cfg, inp, remat, param_gather)
     lse = torch.logsumexp(logits.float(), dim=-1)
     tl = torch.gather(logits, -1, tgt[..., None])[..., 0]
     ce = torch.mean(lse - tl.float())
@@ -401,17 +431,25 @@ def _from_numpy(tree, device: torch.device, copy: bool = False):
     return _tensor(tree, device, copy)
 
 
-def params_from_jax(np_tree: dict, device=None) -> Tree:
+def params_from_jax(np_tree: dict, device=None, *, specs=None,
+                    mesh=None) -> Tree:
     """The reference's parameter tree (numpy leaves, e.g.
-    ``jax.tree.map(np.asarray, params)``) as the port's parameters."""
-    return Tree(_from_numpy(np_tree, resolve_device(device)))
+    ``jax.tree.map(np.asarray, params)``: full arrays) as the port's
+    parameters; with ``specs`` ({leaf path: PartitionSpec}, a train
+    program's ``meta["param_specs"]``) and ``mesh``, this rank's shard
+    of each."""
+    tree = Tree(_from_numpy(np_tree, resolve_device(device)))
+    return tree if specs is None else shard_tree(tree, specs, mesh)
 
 
-def opt_from_jax(np_opt: dict, device=None) -> dict:
+def opt_from_jax(np_opt: dict, device=None, *, specs=None,
+                 mesh=None) -> dict:
     """The reference's optimizer state ``{"master", "m", "v"}`` (numpy
-    leaves) as the port's: one fp32 ``Tree`` each."""
+    leaves, full arrays) as the port's: one fp32 ``Tree`` each; with
+    ``specs`` (``meta["opt_specs"]``) and ``mesh``, this rank's shard."""
     dev = resolve_device(device)
-    return {k: Tree(_from_numpy(np_opt[k], dev)) for k in ("master", "m", "v")}
+    return {k: params_from_jax(np_opt[k], dev, specs=specs, mesh=mesh)
+            for k in ("master", "m", "v")}
 
 
 def cache_from_jax(np_cache: tuple, device=None) -> tuple:

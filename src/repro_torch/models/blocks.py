@@ -54,6 +54,16 @@ class Ctx:
     positions: torch.Tensor | None = None     # (S,) for train/prefill
     memory: torch.Tensor | None = None        # (B,M,d) cross-attn memory
     flash: bool = False
+    # FSDP hook: (scope, group_idx, one layer's params) -> gathered
+    # params. Applied inside the layer loop (under the layer's
+    # checkpoint), so only one layer's params are ever materialized; its
+    # backward is the INC reduce-scatter (see launch/steps.py).
+    param_gather: object = None
+
+    def gather(self, scope: str, gi: int, pslice):
+        if self.param_gather is None:
+            return pslice
+        return self.param_gather(scope, gi, pslice)
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.compat", "repro_torch.core.inc_agg",
             "repro_torch.core.ring", "repro_torch.kernels.quantize",
             "repro_torch.models.api", "repro_torch.launch.serve",
-            "repro_torch.kernels.flash_attn"} \
+            "repro_torch.kernels.flash_attn", "repro_torch.launch.mesh",
+            "repro_torch.sharding.rules"} \
         <= set(names)
     code = (
         "import importlib, json, sys\n"

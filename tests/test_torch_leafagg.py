@@ -16,10 +16,14 @@ gathered along each of its three dims in all four modes. Tolerances:
               jit, and XLA may compile it as a multiply by 1/127, which
               rounds some rows' scale the other way (measured: one row of
               16, 1 ulp, on one rank along dim 2);
-  sum-close   the netrpc lanes that overflowed (repaired by an fp32 sum
-              over the ranks) and the whole of xla-psum: the order of
-              those sums belongs to the collective library, so |got -
-              want| may reach 1e-6 * sum_r |x_r|;
+  sum-close   the netrpc lanes that overflowed and the whole of
+              xla-psum: the order of those fp32 sums belongs to the
+              collective library, so |got - want| may reach 1e-6 *
+              sum_r |x_r|. On one rank the overflowed lanes are held to
+              the reference's; on several, to the reference's xla-psum
+              (the witness), because the port repairs them with an fp32
+              reduce-scatter and the reference's repair is not the sum
+              (``test_netrpc_repair_is_the_sum``);
   q8          all_gather_dim_q8 of the bf16 leaf: for the same reason
               the reference's scale may round the other way, and an
               element near a rounding midpoint then lands on the next
@@ -215,7 +219,9 @@ def test_leaf_agg_matches_jax(results, mesh, mode):
             ovf = _owned((np.abs(x) == 30.0).any(0), dim, world)
             assert ovf.any() and not ovf.all()
             assert rs[~ovf].tobytes() == wrs[~ovf].tobytes(), tag
-            assert np.all(np.abs(rs - wrs)[ovf] <= 1e-6 * mag[ovf]), tag
+            witness = wrs if world == 1 else \
+                want[_key("xla-psum", dim, "rs")]
+            assert np.all(np.abs(rs - witness)[ovf] <= 1e-6 * mag[ovf]), tag
         else:
             assert np.all(np.abs(rs - wrs) <= 1e-6 * mag), tag
         # all_gather_dim moves bytes: every rank gets the ranks' chunks
@@ -225,21 +231,41 @@ def test_leaf_agg_matches_jax(results, mesh, mode):
 
 
 def test_overflow_lanes_are_repaired_on_one_rank(results):
-    """netrpc on one rank (the train step's mesh): every lane of the
+    """netrpc on one rank (the card's train step): every lane of the
     leaf is its input after the repair, within the fixed-point step.
-
-    With more ranks the reference's repair is not the sum: each rank
-    psums its OWN chunk of its own leaf, masked by its own chunk's
-    overflow lanes (``reduce_scatter_dim``, reference lines 243-249), so
-    rank r's repaired lanes add chunk r of rank r to chunk s of rank s.
-    The port does the same (test_leaf_agg_matches_jax holds it to the
-    reference), and its train step runs on one rank only."""
+    Several ranks: ``test_netrpc_repair_is_the_sum``."""
     x = leaf_buffers(1)[0]
     for dim in DIMS:
         full = results[0]["1"][_key("netrpc", dim, "ag")][0]
         assert np.all(np.abs(full - x) <= 0.5e-8 + 1e-7 * np.abs(x)), dim
         ovf = np.abs(x) == 30.0
         assert ovf.any() and full[ovf].tobytes() == x[ovf].tobytes()
+
+
+@pytest.mark.parametrize("mesh", [m for m in MESHES if _world(m) > 1])
+def test_netrpc_repair_is_the_sum(results, mesh):
+    """At world 2 and 4 the port's overflowed netrpc lanes are the sum
+    over the ranks (the xla-psum result, within sum-close), and the
+    reference's are not: its ``reduce_scatter_dim`` psums each rank's
+    OWN chunk of its own leaf, masked by its own chunk's overflow lanes
+    (reference ``core/inc_agg.py:271-277``), so rank r's repaired lanes
+    add chunk r of rank r to chunk s of rank s. The port repairs with an
+    fp32 reduce-scatter of the leaf along the same dim, as the flat API
+    does (reference lines 146-151)."""
+    got, want = results[0][mesh], results[1][mesh]
+    world = _world(mesh)
+    x = leaf_buffers(world)
+    for dim in DIMS:
+        tag = f"dim={dim} mesh={mesh}"
+        ovf = _owned((np.abs(x) == 30.0).any(0), dim, world)
+        mag = _owned(np.abs(x).sum(0), dim, world)
+        witness = want[_key("xla-psum", dim, "rs")]
+        port = got[_key("netrpc", dim, "rs")]
+        ref = want[_key("netrpc", dim, "rs")]
+        assert np.all(np.abs(port - witness)[ovf] <= 1e-6 * mag[ovf]), tag
+        assert not np.all(np.abs(ref - witness)[ovf] <= 1e-6 * mag[ovf]), \
+            tag
+        assert port[~ovf].tobytes() == ref[~ovf].tobytes(), tag
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

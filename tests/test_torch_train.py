@@ -331,7 +331,8 @@ def test_drawn_ahead_depth_follows_draw_and_step(monkeypatch, draw_s,
     assert peak[0] == deepest
 def test_train_defaults_to_the_card():
     """Without a card, the train loop raises unless given device='cpu';
-    the fsdp mode and more than one rank are not ported."""
+    the fsdp mode builds (grok's by ``mode_for``), and tensor
+    parallelism (a model axis above 1) is not ported."""
     if torch.cuda.is_available():
         assert steps.Program is not None
     else:
@@ -341,10 +342,15 @@ def test_train_defaults_to_the_card():
     with one_rank_group(torch.device("cpu")):
         m = compat.make_mesh((1, 1), ("data", "model"), device="cpu")
         cfg = get_arch("grok-1-314b").reduced()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kw = dict(inc=IncAggConfig(), opt_cfg=AdamWConfig(), device="cpu")
+        prog = steps.build_train_step(cfg, ShapeConfig("t", 8, 2, "train"),
+                                      m, **kw)
+        assert prog.meta["mode"] == "fsdp"
+        with pytest.raises(NotImplementedError,
+                           match="tensor parallelism.*ROADMAP"):
             steps.build_train_step(
-                cfg, ShapeConfig("t", 8, 2, "train"), m,
-                inc=IncAggConfig(), opt_cfg=AdamWConfig(), device="cpu")
+                cfg, ShapeConfig("t", 8, 2, "train"),
+                compat.Mesh((1, 2), ("data", "model"), {}), **kw)
 
 
 def test_loss_and_remat_match_reference():
