@@ -61,7 +61,10 @@
 7. Path, phase i: serving qwen2.5-3b at full width and depth (36 layers,
    random weights from a seed): ``serve`` prefills 4 prompts of 2 048
    tokens through the flash kernel and decodes 32 tokens, with its
-   telemetry on the card's ``IncRuntime``. Checks: 36 flash launches per
+   telemetry on the card's ``IncRuntime``. ``serve`` runs the prefill and
+   decode programs of ``steps.build_serve_step`` on a one-rank world
+   (NCCL on the card, gloo for the CPU runs), as every serve phase (l-q,
+   u2) does. Checks: 36 flash launches per
    prefill and telemetry pushes through sparse_addto; 4 x 32 decode tokens
    counted by the telemetry; the same run with the plain attention
    (``flash=False``, the same weights, the tokens fed) within 6e-2 of its
@@ -234,6 +237,21 @@
    phase j's. Prints the warm step, one step's stage times (CUDA events)
    and the peak device memory, beside the card's name and power limit.
 
+16. Path, phase u: the serve step's sequence-sharded decode and q8
+   gather on the card. u1: qwen2.5-3b at full width and depth, 1 prompt
+   of 2 048 tokens, then 8 greedy decode steps with ``seq_axes`` set to
+   a one-rank NCCL mesh's data axes (the partial-softmax combine's pmax
+   and two psums run over one rank) and the same 8 steps from a copy of
+   the cache without: logits and caches bitwise equal. u2: phase q's
+   model and shapes in fsdp with ``q8=True`` (every layer's params and
+   the non-stacked leaves through ``all_gather_dim_q8`` at each call),
+   fed q's tokens: prints max|q8 - plain| / max|plain| of the logits
+   against q's run, the top-1 agreement, prefill seconds, decode tokens/s
+   and peak memory, and fails if the logits are q's bit for bit; then
+   q's cut (5 layers, 1 x 256 tokens, 1 decode step) with q8 on the card
+   against the CPU within q's ``cut_tol``. One card is one rank: the
+   combine and the gathers over several ranks run on gloo in the tests.
+
 Launch counts are set to 0 just before each path run on the card and read
 just after it; every kernel must have launched in the path. The two
 scatters also record the lane and the k of each launch: every path launch
@@ -351,6 +369,18 @@ SERVES = {
               decode=32, batch=4, lanes_tol=Q_LANES_TOL, cut=5,
               cut_prompt=256, cut_batch=1, cut_decode=4, cut_tol=CPU_TOL),
 }
+# phase u1: qwen2.5-3b at full width and depth, one prompt, then U1_STEPS
+# decode steps with the cache's positions sharded over the one-rank mesh's
+# data axes (the partial-softmax combine's pmax and psums over NCCL) and
+# the same steps without
+U1_PROMPT, U1_STEPS = 2048, 8
+# phase u2: phase q's model and shapes in fsdp with the int8 gather (q8),
+# fed q's tokens; the card against the CPU at q's cut and tolerance with
+# U2_CUT_DECODE decode steps: on the CPU every call quantizes all 6.5 B
+# parameters of the cut, so the cut keeps to one decode step
+U2_CUT_DECODE = 1
+KEEP_SERVED = ("q",)
+SERVED: dict = {}      # phase q's tokens and logits, for phase u2
 # phase s: the runtime examples of s1, and s2's train_mini: its steps, the
 # fall of the loss over them (first - last, each mode), the bound on the
 # netrpc - xla-psum final-loss gap (set before the first run on the card)
@@ -1735,12 +1765,15 @@ def check_clear_policies(torch) -> dict:
 
 # -- phases i, l and m: serving at full width and depth -----------------------
 
-def serve_run(device, params, flash, shape: dict, feed=None) -> dict:
-    """``serve`` on ``device`` with ``params``; ``shape`` holds arch,
-    prompt_len, decode_n, batch and the depth cut (reduced, layers)."""
+def serve_run(device, params, flash, shape: dict, feed=None,
+              q8: bool = False) -> dict:
+    """``serve`` on ``device`` with ``params`` (its programs from
+    ``build_serve_step``, on a one-rank world); ``shape`` holds arch,
+    prompt_len, decode_n, batch and the depth cut (reduced, layers);
+    ``q8`` the fsdp gather in int8."""
     from repro_torch.launch.serve import serve
     return serve(device=device, params=params, flash=flash, feed=feed,
-                 **shape)
+                 q8=q8, **shape)
 
 
 def flash_layers(cfg, prompt: int) -> int:
@@ -1986,6 +2019,9 @@ def check_serve(torch, smi: str, phase: str) -> dict:
           f"peak device memory {peak / 2 ** 30:.3f} GiB; launches {counts}",
           flush=True)
     print(f"path {label} card: {smi}", flush=True)
+    if phase in KEEP_SERVED:
+        SERVED[phase] = {"tokens": run["tokens"].cpu(),
+                         "logits": run["logits"].cpu()}
     profile_serve(torch, params, cfg, sp, label)
     if sp["lanes_tol"] is not None:
         plain, forced = forced_run(
@@ -2214,7 +2250,7 @@ def check_train(torch, smi: str) -> dict:
     step, and the 2-layer step against the CPU."""
     from repro_torch import compat
     from repro_torch.launch.serve import model_config
-    from repro_torch.launch.train import one_rank_group
+    from repro_torch.launch.mesh import one_rank_group
     cfg = model_config(ARCH, layers=TRAIN_LAYERS)
     leaves = scattered_leaves(cfg)
     torch.cuda.empty_cache()
@@ -2311,7 +2347,7 @@ def check_fsdp(torch, smi: str) -> dict:
     the CPU."""
     from repro_torch import compat
     from repro_torch.launch.serve import model_config
-    from repro_torch.launch.train import one_rank_group
+    from repro_torch.launch.mesh import one_rank_group
     if "losses" not in TRAIN_J:
         fail("phase t needs phase j's zero1 losses: run phase j first")
     cfg = model_config(ARCH, layers=TRAIN_LAYERS)
@@ -2353,6 +2389,159 @@ def check_fsdp(torch, smi: str) -> dict:
         torch.cuda.empty_cache()
         step_pair(torch, mesh, compat.make_mesh((1, 1), ("data", "model"),
                                                 device="cpu"), shard="fsdp")
+    return counts
+
+
+# -- phase u: the serve step's sequence-sharded combine and q8 gather ---------
+
+def seq_combine_run(torch, params, cfg, tokens, seq_axes, steps: int):
+    """One prefill of ``tokens`` (1, S), then ``steps`` greedy decode steps
+    with ``seq_axes`` (the cache's positions cut over them; over one rank
+    the whole cache, through the combine's pmax and psums), and the same
+    steps from a copy of the cache without: ({"seq", "whole": (logits
+    (steps, 1, V), seconds)}, {"seq", "whole": the cache after})."""
+    from repro_torch.launch.serve import grow_cache
+    from repro_torch.models import api
+    dev = tokens.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    s = tokens.shape[1]
+    logits, cache = api.prefill(params, cfg, {"tokens": tokens}, flash=True)
+    cache = grow_cache(cache, cfg, 1, s + steps)
+    caches = {"seq": cache, "whole": tuple(
+        {k: {n: t.clone() for n, t in e.items()} for k, e in g.items()}
+        for g in cache)}
+    out, feed = {}, [logits.argmax(-1)]
+    for name, axes in (("seq", seq_axes), ("whole", None)):
+        sync()
+        t0 = time.perf_counter()
+        every = []
+        for i in range(steps):
+            lg, _ = api.decode_step(params, cfg, feed[i], s + i, caches[name],
+                                    seq_axes=axes)
+            every.append(lg)
+            if axes is not None:
+                feed.append(lg.argmax(-1))
+        sync()
+        out[name] = (torch.stack(every), time.perf_counter() - t0)
+    return out, caches
+
+
+def seq_combine_oracle(torch, out: dict, caches: dict, what: str) -> None:
+    same_cache = all(torch.equal(a, b)
+                     for ga, gb in zip(caches["seq"], caches["whole"])
+                     for k in ga for a, b in zip(ga[k].values(),
+                                                 gb[k].values()))
+    if not torch.equal(out["seq"][0], out["whole"][0]) or not same_cache:
+        fail(f"{what}: the sequence-sharded decode's logits or cache differ "
+             f"from the whole cache's")
+
+
+def check_seq_combine(torch, smi: str) -> dict:
+    """u1: qwen2.5-3b's decode steps with ``seq_axes`` (a one-rank NCCL
+    mesh's data axes: the combine's pmax and two psums run, over one
+    rank) and without, from one prefill's cache: the logits and the
+    caches bitwise equal."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch.mesh import make_host_mesh, one_rank_group
+    from repro_torch.launch.serve import model_config
+    from repro_torch.models import api
+    cfg = model_config(ARCH)
+    torch.cuda.empty_cache()
+    params = api.init_params(SEED, cfg, device="cuda")
+    tokens = pipeline.make_batch(pipeline.DataConfig(
+        vocab=cfg.vocab, batch=1, seq_len=U1_PROMPT - 1, kind="uniform"),
+        0)["tokens"].cuda()
+    with one_rank_group(torch.device("cuda")):
+        seq_axes = make_host_mesh(model=1).axes_of(("data",))
+        (out, caches), counts, secs = counted(
+            torch, lambda: seq_combine_run(torch, params, cfg, tokens,
+                                           seq_axes, U1_STEPS),
+            "phase u1 (decode, sequence-sharded at one rank)",
+            ("flash_attention",))
+    seq_combine_oracle(torch, out, caches, "phase u1")
+    print(f"path u1_seq_combine: {ARCH}, {cfg.n_layers} layers, 1 x "
+          f"{U1_PROMPT} tokens, {U1_STEPS} decode steps with seq_axes over "
+          f"the one-rank NCCL mesh ({out['seq'][1]:.6f} s) and without ("
+          f"{out['whole'][1]:.6f} s): logits and caches bitwise equal; "
+          f"{secs:.3f} s; launches {counts}", flush=True)
+    del params, caches, out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_q8_serve(torch, smi: str) -> dict:
+    """u2: phase q's model and shapes in fsdp with the int8 gather, fed
+    q's tokens: its logits against q's (the plain gather, at one rank the
+    leaves themselves), then q's cut on the card against the CPU, both
+    q8."""
+    from repro_torch.launch.serve import model_config
+    from repro_torch.models import api
+    sp = SERVES["q"]
+    if "q" not in SERVED:
+        fail("phase u2 needs phase q's run: run phase q first")
+    plain = SERVED.pop("q")
+    cfg = model_config(sp["arch"], layers=sp["layers"])
+    shape = dict(arch=sp["arch"], prompt_len=sp["prompt"],
+                 decode_n=sp["decode"], batch=sp["batch"],
+                 layers=sp["layers"])
+    torch.cuda.empty_cache()
+    params = api.init_params(SEED, cfg, device="cuda")
+    set_gates(params, cfg, sp["gate"])
+    torch.cuda.reset_peak_memory_stats()
+    run, counts, secs = counted(
+        torch, lambda: serve_run(None, params, True, shape, q8=True,
+                                 feed=plain["tokens"][:, :-1]),
+        "phase u2 (serve, q8)", ("flash_attention", "sparse_addto"))
+    peak = torch.cuda.max_memory_allocated()
+    serve_oracle(run, shape, cfg.vocab, "phase u2")
+    if torch.equal(run["logits"].cpu(), plain["logits"]):
+        fail("phase u2: the q8 gather left q's logits as they were")
+    err = lanes_err(run, plain, cfg.vocab)
+    top1 = float((run["logits"][..., :cfg.vocab].argmax(-1).cpu()
+                  == plain["logits"][..., :cfg.vocab].argmax(-1))
+                 .float().mean())
+    print(f"path u2_q8_serve: {sp['arch']}, {cfg.n_layers} layers, fsdp "
+          f"with the q8 gather, fed phase q's tokens: {secs:.3f} s; prefill "
+          f"{sp['prompt']} tokens x{sp['batch']}: {run['prefill_s']:.6f} s; "
+          f"decode {sp['decode']} steps: {run['decode_s']:.6f} s, "
+          f"{sp['batch'] * sp['decode'] / run['decode_s']:.3f} tokens/s; "
+          f"peak device memory {peak / 2 ** 30:.3f} GiB; against q's plain "
+          f"gather: max|q8 - plain|/max|plain| {err:.6f}, top-1 agreement "
+          f"{top1:.6f} of {run['tokens'].numel()}; launches {counts}",
+          flush=True)
+    print(f"path u2_q8_serve card: {smi}", flush=True)
+    del params, run, plain
+    torch.cuda.empty_cache()
+    small_cfg = model_config(sp["arch"], layers=sp["cut"])
+    small = dict(arch=sp["arch"], prompt_len=sp["cut_prompt"],
+                 decode_n=U2_CUT_DECODE, batch=sp["cut_batch"],
+                 layers=sp["cut"])
+    p_card = api.init_params(SEED, small_cfg, device="cuda")
+    set_gates(p_card, small_cfg, sp["gate"])
+    p_cpu = api.map_tree(lambda t: t.cpu(), p_card)
+    card = serve_run(None, p_card, True, small, q8=True)
+    t0 = time.perf_counter()
+    cpu = serve_run("cpu", p_cpu, True, small, q8=True,
+                    feed=card["tokens"][:, :-1])
+    serve_oracle(card, small, small_cfg.vocab, f"phase u2 ({sp['cut']} "
+                 f"layers)")
+    got = lanes_check(card, cpu, small_cfg, sp["cut_tol"],
+                      f"phase u2: {sp['cut']} layers, q8, on the card "
+                      f"against the CPU")
+    print(f"path u2_q8_serve: {sp['cut']} layers at full width, S="
+          f"{sp['cut_prompt']}, B={sp['cut_batch']}, {U2_CUT_DECODE} decode "
+          f"steps, q8: card vs CPU ({time.perf_counter() - t0:.3f} s: the "
+          f"CPU's prefill {cpu['prefill_s']:.3f} s, decode "
+          f"{cpu['decode_s']:.3f} s) {got}", flush=True)
+    del p_card, p_cpu, card, cpu
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_phase_u(torch, smi: str) -> dict:
+    counts = check_seq_combine(torch, smi)
+    for name, c in check_q8_serve(torch, smi).items():
+        counts[name] = counts.get(name, 0) + c
     return counts
 
 
@@ -2680,6 +2869,7 @@ def rehearse(scale_down: int = 64) -> None:
     import torch.distributed as dist
 
     from repro_torch import compat
+    from repro_torch.launch.mesh import make_host_mesh, one_rank_group
     seg = SEG // scale_down
     once_a_call(drive_path("cpu", seg_slots=seg, scale_down=scale_down)[2],
                 "took the plain version of")
@@ -2771,7 +2961,31 @@ def rehearse(scale_down: int = 64) -> None:
                            device="cpu")
     if not mini["gap"] <= MINI_GAP:
         fail(f"rehearsal of phase s2: gap {mini['gap']}")
-    print("rehearsal: phases a-t ran on the CPU and met their oracles")
+    # phase u: u1 at the reduced width over a one-rank gloo mesh; u2's q8
+    # serve of q's reduced shape against the plain gather's
+    cfg = model_config(ARCH, reduced=True, layers=2)
+    with one_rank_group(torch.device("cpu")):
+        seq_axes = make_host_mesh(model=1, device="cpu").axes_of(("data",))
+        tokens = torch.randint(0, cfg.vocab, (1, 64),
+                               generator=torch.Generator().manual_seed(SEED))
+        seq_combine_oracle(torch, *seq_combine_run(
+            torch, api.init_params(SEED, cfg, device="cpu"), cfg, tokens,
+            seq_axes, 4), "rehearsal of phase u1")
+    sp = SERVES["q"]
+    cfg = model_config(sp["arch"], reduced=True)
+    shape = dict(arch=sp["arch"], prompt_len=64, decode_n=4, batch=2,
+                 reduced=True)
+    params = api.init_params(SEED, cfg, device="cpu")
+    set_gates(params, cfg, sp["gate"])
+    plain = serve_run("cpu", params, True, shape)
+    q8 = serve_run("cpu", params, True, shape, q8=True,
+                   feed=plain["tokens"][:, :-1])
+    serve_oracle(q8, shape, cfg.vocab, "rehearsal of phase u2")
+    if torch.equal(q8["logits"], plain["logits"]):
+        fail("rehearsal of phase u2: the q8 gather changed nothing")
+    print(f"rehearsal of phase u2: q8 vs plain "
+          f"{lanes_err(q8, plain, cfg.vocab):.6f}", flush=True)
+    print("rehearsal: phases a-u ran on the CPU and met their oracles")
 
 
 def lane_drift(draws: int = 3) -> None:
@@ -2901,7 +3115,8 @@ def main() -> int:
                          ("q", lambda t: check_serve(t, smi, "q")),
                          ("r", lambda t: check_wire(t, smi)),
                          ("s", lambda t: check_phase_s(t, smi)),
-                         ("t", lambda t: check_fsdp(t, smi))):
+                         ("t", lambda t: check_fsdp(t, smi)),
+                         ("u", lambda t: check_phase_u(t, smi))):
         t0 = time.perf_counter()
         for name, c in check(torch).items():
             counts[name] = counts.get(name, 0) + c

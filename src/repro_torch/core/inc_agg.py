@@ -296,9 +296,12 @@ def _lead(scale: torch.Tensor, ndim: int) -> torch.Tensor:
 
 def _row_amax(x: torch.Tensor) -> torch.Tensor:
     """max|x| over every dim but 0 (the reference's max over trailing
-    axes; a 1-D x has none, so it is |x| itself)."""
-    a = x.abs()
-    return a.amax(dim=tuple(range(1, x.dim()))) if x.dim() > 1 else a
+    axes; a 1-D x has none, so it is |x| itself), as max(max x, -min x):
+    the same value, with no |x| the size of x."""
+    if x.dim() == 1:
+        return x.abs()
+    dims = tuple(range(1, x.dim()))
+    return torch.maximum(x.amax(dim=dims), x.amin(dim=dims).neg())
 
 
 def reduce_scatter_dim(g: torch.Tensor, dim: int, dp_axes: tuple[Axis, ...],
@@ -357,19 +360,51 @@ def all_gather_dim(x: torch.Tensor, dim: int, dp_axes: tuple[Axis, ...],
     return torch.movedim(y, 0, dim)
 
 
+# elements a q8 pass takes at a time on the CPU (whole slices of the leaf's
+# dim 0, in its own layout), in one fp32 block reused for every pass:
+# passes over a few MiB that stay in cache run several times faster there
+# than passes over the whole leaf, and a block allocated afresh each time
+# is faulted in again each time; the card takes the leaf in one piece
+_Q8_CPU_ELEMS = 1 << 21
+
+
 def all_gather_dim_q8(x: torch.Tensor, dim: int, dp_axes: tuple[Axis, ...]
                       ) -> torch.Tensor:
     """Quantized parameter gather (ZeRO++-style, beyond-paper): the local
-    shard is block-quantized to int8 with one fp32 scale per dim-0 row —
-    the same shared-scale scheme as the netrpc-opt wire format — gathered
-    at 1 B/element instead of 2 (bf16), and dequantized locally."""
-    y = torch.movedim(x, dim, 0).to(torch.float32)
-    scale = _int8_scale(_row_amax(y))
-    qg = torch.clamp(torch.round(y / _lead(scale, y.dim())),
-                     -127, 127).to(torch.int8)
-    sg = scale
-    for ax in reversed(dp_axes):
+    shard is block-quantized to int8 with one fp32 scale per row along
+    ``dim`` (the max over every other dim) — the same shared-scale scheme
+    as the netrpc-opt wire format — gathered at 1 B/element instead of 2
+    (bf16), and dequantized locally. It quantizes at one rank too, where
+    each block is dequantized as soon as it is quantized, from its fp32
+    values, which are the int8 values exactly (a gather over one rank is
+    the identity)."""
+    axes = [ax for ax in reversed(dp_axes) if compat.axis_size(ax) > 1]
+    scale = _int8_scale(_row_amax(torch.movedim(x, dim, 0)).float())
+    at = [1] * x.dim()
+    at[dim] = -1                      # the scales broadcast along dim
+    n = x.shape[0]
+    step = n if x.is_cuda else max(1, _Q8_CPU_ELEMS // max(1, x[0].numel()))
+    block = torch.empty((min(step, n),) + tuple(x.shape[1:]),
+                        dtype=torch.float32, device=x.device)
+    q8 = torch.empty(x.shape, dtype=torch.int8, device=x.device) \
+        if axes else None
+    out = None if axes else torch.empty_like(
+        x, memory_format=torch.contiguous_format)
+    for a in range(0, n, step):
+        c = block[:min(step, n - a)]
+        c.copy_(x[a:a + step])
+        s = scale.reshape(at)
+        s = s[a:a + step] if dim == 0 else s
+        c.div_(s).round_().clamp_(-127, 127)       # int8 values, exactly
+        if axes:
+            q8[a:a + step].copy_(c)
+        else:               # one rank: dequantized from the block itself
+            out[a:a + step].copy_(c.mul_(s))
+    if out is not None:
+        return out
+    qg, sg = torch.movedim(q8, dim, 0), scale
+    for ax in axes:
         qg = _all_gather_tiled(qg, ax)
         sg = _all_gather_tiled(sg, ax)
-    out = qg.to(torch.float32) * _lead(sg, y.dim())
-    return torch.movedim(out, 0, dim).to(x.dtype)
+    return torch.movedim(qg.float() * _lead(sg, qg.dim()), 0,
+                         dim).to(x.dtype)

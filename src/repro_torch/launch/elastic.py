@@ -84,7 +84,7 @@ def quorum_demo(n_dp: int = 8, quorum: float = 0.75, device=None) -> list:
     from repro_torch.core.agreement import (elastic_mean, quorum_commit,
                                             quorum_count)
     from repro_torch.kernels.backend import resolve_device
-    from repro_torch.launch.train import one_rank_group
+    from repro_torch.launch.mesh import one_rank_group
 
     dev = resolve_device(device)
     rows = []

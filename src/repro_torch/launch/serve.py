@@ -2,29 +2,39 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --prompt-len 2048 --decode 32 --batch 4
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.serve --arch qwen2.5-3b --reduced \
+        --device cpu --prompt-len 32 --decode 8 --batch 4
 
-The port of ``repro/launch/serve.py`` on one card (``--device cpu`` for
-the CPU, with ``--reduced`` for the tiny same-family config): prefill
-builds the cache (K/V of the attention layers, ``moe`` ones included, a
-ring of the window for a ``local`` layer, the state and conv tail of an
-``rglru`` or ``ssd`` layer, the memory's K/V of a ``cross`` or
-``selfcross`` layer), the global K/V grow with zeros to prompt + decode
-positions, and greedy decode steps consume and update it, each pushing
-its token count and step time to the serve telemetry on the port's
-``IncRuntime``. Prefill attention runs through the flash kernel
-(``--no-flash`` for the dense lane); a local layer takes it when the
-prompt is longer than its window. Weights are random, from a seed; the
-audio frames (whisper) and image patches (the VLM) are the pipeline's
-stubs (``pipeline.add_modality_stubs``). ``--layers N`` cuts the depth
-to the first N layers, for checks that compare the card with the CPU at
-full width; it cuts whisper's decoder and leaves its ``enc_layers``
-encoder layers as they are. gemma3-27b, recurrentgemma-9b,
-moonshot-v1-16b-a3b (MoE), mamba2-780m (SSD), whisper-medium
-(encoder-decoder; 448 = prompt + decode positions is its decoder's
-context) and llama-3.2-vision-90b (cross-attention to the patches; the
-full 100 layers take several cards, 10 fit one) serve the same way; an
-``ssd`` prompt longer than one SSD chunk (256 tokens) must be a whole
-number of chunks:
+The port of ``repro/launch/serve.py`` (``--device cpu`` for the CPU,
+with ``--reduced`` for the tiny same-family config). As the reference's,
+it builds a prefill and a decode program with ``steps.build_serve_step``
+on a ``make_host_mesh`` mesh over the world (``mesh.world_group``: the
+ranks of ``torch.distributed.run``, NCCL on the card (one card a rank)
+and gloo with ``--device cpu``, else one rank), each rank holding its
+shards of the params (``--mode``: the arch's zero1 or fsdp by default;
+``--q8-gather``: fsdp's int8 gather) and its rows of the batch.
+``--model-axis`` is 1: the reference's default of 2 is tensor
+parallelism, which is not ported yet. Prefill builds each rank's cache
+(K/V of the attention layers, ``moe`` ones included, a ring of the
+window for a ``local`` layer, the state and conv tail of an ``rglru`` or
+``ssd`` layer, the memory's K/V of a ``cross`` or ``selfcross`` layer),
+the global K/V grow with zeros to prompt + decode positions, and greedy
+decode steps consume and update it; rank 0 pushes each step's token count
+and time to the serve telemetry on the port's ``IncRuntime`` and prints.
+Prefill attention runs through the flash kernel (``--no-flash`` for the
+dense lane); a local layer takes it when the prompt is longer than its
+window. Weights are random, from a seed; the audio frames (whisper) and
+image patches (the VLM) are the pipeline's stubs
+(``pipeline.add_modality_stubs``). ``--layers N`` cuts the depth to the
+first N layers, for checks that compare the card with the CPU at full
+width; it cuts whisper's decoder and leaves its ``enc_layers`` encoder
+layers as they are. gemma3-27b, recurrentgemma-9b, moonshot-v1-16b-a3b
+(MoE), mamba2-780m (SSD), whisper-medium (encoder-decoder; 448 = prompt
++ decode positions is its decoder's context) and llama-3.2-vision-90b
+(cross-attention to the patches; the full 100 layers take several cards,
+10 fit one) serve the same way; an ``ssd`` prompt longer than one SSD
+chunk (256 tokens) must be a whole number of chunks:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \
         --prompt-len 2048 --decode 32 --batch 4
@@ -34,7 +44,7 @@ number of chunks:
         --prompt-len 416 --decode 32 --batch 4
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch llama-3.2-vision-90b --layers 10 --prompt-len 2048 \
-        --decode 32 --batch 4
+        --decode 32 --batch 4 --q8-gather
 """
 from __future__ import annotations
 
@@ -43,11 +53,13 @@ import time
 from dataclasses import replace
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.configs.base import ArchConfig, get_arch
+from repro_torch.configs.base import ArchConfig, ShapeConfig, get_arch
 from repro_torch.data import pipeline
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.launch import steps
+from repro_torch.launch.mesh import make_host_mesh, world_group
 from repro_torch.models import api
 
 
@@ -117,18 +129,22 @@ def _sync(dev: torch.device) -> None:
 def serve(*, arch: str | ArchConfig, prompt_len: int, decode_n: int,
           batch: int, reduced: bool = False, flash: bool = True,
           device=None, layers: int | None = None, params=None, tokens=None,
-          feed=None, seed: int = 0) -> dict:
+          feed=None, seed: int = 0, mode: str | None = None,
+          q8: bool = False, model_axis: int = 1) -> dict:
     """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
-    ``decode_n`` tokens greedily. ``params`` and ``tokens`` (B, prompt_len)
-    default to random weights from ``seed`` and a uniform batch;
-    ``feed`` (B, decode_n) replaces the greedy tokens fed to the decode
-    steps (teacher forcing, to compare two lanes step by step). The
-    frames or patches of an arch with a memory are the pipeline's stubs
-    for ``batch`` rows.
+    ``decode_n`` tokens greedily, through ``build_serve_step``'s programs
+    on a ``make_host_mesh(model_axis)`` mesh over the world
+    (``world_group``). ``params`` (the full tree) and ``tokens`` (B,
+    prompt_len) default to random weights from ``seed`` and a uniform
+    batch; each rank keeps its shards of ``params``. ``feed`` (B,
+    decode_n) replaces the greedy tokens fed to the decode steps (teacher
+    forcing, to compare two lanes step by step). The frames or patches of
+    an arch with a memory are the pipeline's stubs for ``batch`` rows.
+    ``mode`` and ``q8`` are ``build_serve_step``'s.
 
     Returns the tokens (B, decode_n + 1), the logits of every step
-    (decode_n + 1, B, V), the telemetry summary and the seconds of
-    prefill and decode."""
+    (decode_n + 1, B, V), the telemetry summary (rank 0; None elsewhere)
+    and the seconds of prefill and decode."""
     dev = resolve_device(device)
     cfg = model_config(arch, reduced, layers)
     total = prompt_len + decode_n
@@ -138,44 +154,57 @@ def serve(*, arch: str | ArchConfig, prompt_len: int, decode_n: int,
         dcfg = pipeline.DataConfig(vocab=cfg.vocab, batch=batch,
                                    seq_len=prompt_len - 1, kind="uniform")
         tokens = pipeline.make_batch(dcfg, 0)["tokens"]
-    inputs = pipeline.shard_batch(pipeline.add_modality_stubs(
-        {"tokens": tokens}, cfg, tokens.shape[0]), dev)
-
-    # serve telemetry on the async INC runtime: per-token counters
-    # enqueue on the decode path through the generated stubs and coalesce
-    # off-thread (never a blocking INC call)
-    telemetry = steps.TrainTelemetry(app_prefix="serve", device=dev)
-    t0 = time.perf_counter()
-    logits, cache = api.prefill(params, cfg, inputs, flash=flash)
-    cache = grow_cache(cache, cfg, tokens.shape[0], total)
-    _sync(dev)
-    t1 = time.perf_counter()
-    toks = [logits.argmax(-1)]
-    every = [logits]
-    tprev = time.perf_counter()
-    for i in range(decode_n):
-        tok = toks[-1] if feed is None else feed[:, i].to(dev)
-        logits, cache = api.decode_step(params, cfg, tok, prompt_len + i,
-                                        cache)
-        toks.append(logits.argmax(-1))
-        every.append(logits)
+    b = tokens.shape[0]
+    inputs = pipeline.add_modality_stubs({"tokens": tokens}, cfg, b)
+    with world_group(dev):
+        mesh = make_host_mesh(model=model_axis, device=dev)
+        lead = dist.get_rank() == 0
+        kw = dict(mode=mode, q8=q8, flash=flash, device=dev)
+        pf = steps.build_serve_step(
+            cfg, ShapeConfig("cli_prefill", seq_len=prompt_len,
+                             global_batch=b, kind="prefill"), mesh, **kw)
+        dec = steps.build_serve_step(
+            cfg, ShapeConfig("cli_decode", seq_len=total, global_batch=b,
+                             kind="decode"), mesh, **kw)
+        # this rank's shards (at one rank the leaves themselves)
+        params = api.shard_tree(params, pf.meta["param_specs"], mesh)
+        # serve telemetry on the async INC runtime: per-token counters
+        # enqueue on the decode path through the generated stubs and
+        # coalesce off-thread (never a blocking INC call)
+        telemetry = steps.TrainTelemetry(app_prefix="serve", device=dev) \
+            if lead else None
+        t0 = time.perf_counter()
+        logits, cache = pf.fn(params, inputs)
+        cache = grow_cache(cache, cfg, b // pf.meta["n_dp"], total)
         _sync(dev)
-        tnow = time.perf_counter()
-        telemetry.push({"decode_tokens": batch,
-                        "decode_ms_sum": (tnow - tprev) * 1e3})
-        tprev = tnow
-    t2 = time.perf_counter()
-    out = torch.stack(toks, dim=1)
-    inc = telemetry.finish()
-    got = inc["metrics"]
-    print(f"prefill {prompt_len} tokens x{batch}: {t1 - t0:.2f}s; "
-          f"decode {decode_n} tokens: {t2 - t1:.2f}s "
-          f"({decode_n / max(t2 - t1, 1e-9):.1f} tok/s)")
-    sched = inc["scheduling"].get("serve-metrics", {})
-    print(f"inc telemetry: tokens={got.get('decode_tokens', 0):.0f} "
-          f"mean_step_ms={got.get('decode_ms_sum', 0.0) / max(decode_n, 1):.1f} "
-          f"mean_drained_batch={sched.get('mean_drained_batch', 0)}")
-    print("sampled token ids[0]:", out[0][:16].tolist())
+        t1 = time.perf_counter()
+        toks = [logits.argmax(-1)]
+        every = [logits]
+        tprev = time.perf_counter()
+        for i in range(decode_n):
+            tok = toks[-1] if feed is None else feed[:, i].to(dev)
+            logits, cache = dec.fn(params, tok, prompt_len + i, cache)
+            toks.append(logits.argmax(-1))
+            every.append(logits)
+            _sync(dev)
+            tnow = time.perf_counter()
+            if lead:
+                telemetry.push({"decode_tokens": b,
+                                "decode_ms_sum": (tnow - tprev) * 1e3})
+            tprev = tnow
+        t2 = time.perf_counter()
+        out = torch.stack(toks, dim=1)
+        inc = telemetry.finish() if lead else None
+    if lead:
+        got = inc["metrics"]
+        print(f"prefill {prompt_len} tokens x{b}: {t1 - t0:.2f}s; "
+              f"decode {decode_n} tokens: {t2 - t1:.2f}s "
+              f"({decode_n / max(t2 - t1, 1e-9):.1f} tok/s)")
+        sched = inc["scheduling"].get("serve-metrics", {})
+        print(f"inc telemetry: tokens={got.get('decode_tokens', 0):.0f} "
+              f"mean_step_ms={got.get('decode_ms_sum', 0.0) / max(decode_n, 1):.1f} "
+              f"mean_drained_batch={sched.get('mean_drained_batch', 0)}")
+        print("sampled token ids[0]:", out[0][:16].tolist())
     return {"tokens": out, "logits": torch.stack(every),
             "inc_telemetry": inc, "prefill_s": t1 - t0,
             "decode_s": t2 - t1}
@@ -195,10 +224,19 @@ def main() -> None:
     ap.add_argument("--no-flash", dest="flash", action="store_false",
                     help="dense prefill attention instead of the flash "
                          "kernel")
+    ap.add_argument("--mode", choices=("zero1", "fsdp"), default=None,
+                    help="the arch's (sharding.rules.mode_for) by default")
+    ap.add_argument("--q8-gather", dest="q8", action="store_true",
+                    help="fsdp's param gather in int8 (the reference's "
+                    "REPRO_QUANTIZED_GATHER=1)")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="the mesh's model axis; 1 until tensor "
+                    "parallelism is ported (the reference's default is 2)")
     args = ap.parse_args()
     serve(arch=args.arch, prompt_len=args.prompt_len, decode_n=args.decode,
           batch=args.batch, reduced=args.reduced, flash=args.flash,
-          device=args.device, layers=args.layers)
+          device=args.device, layers=args.layers, mode=args.mode,
+          q8=args.q8, model_axis=args.model_axis)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Train step builder and the INC telemetry of the train and serve
-loops: the port of ``repro/launch/steps.py``.
+"""Train and serve step builders and the INC telemetry of the train and
+serve loops: the port of ``repro/launch/steps.py``.
 
 The loop's metric stream, step-commit quorum and gradient channel run on
 the port's async ``IncRuntime`` through typed schema services. The train
@@ -18,13 +18,17 @@ step is the paper's SyncAgtr pipeline as the gradient aggregation path:
          consumes the already-scattered grads; no re-gather of the full
          model ever materializes.
 
-The reference runs the step as one ``jit(shard_map(...))`` over a mesh,
+Serve steps gather params with plain collectives (no gradient stream),
+or with the int8 gather (``q8``); decode is either batch-sharded (cache
+rows per rank) or sequence-sharded (a batch too small to split: the
+partial-softmax combine in ``models/attention.py``).
+
+The reference runs each step as one ``jit(shard_map(...))`` over a mesh,
 manual over the data axes; here it is eager PyTorch, one process a rank
 of a ``compat.make_mesh`` mesh (NCCL on the card, gloo with
 ``device="cpu"``), each holding its shards as plain tensors. Tensor
 parallelism (a "model" axis above 1) raises ``NotImplementedError``
-(ROADMAP: several cards). The serve step builder is not ported: serving
-calls ``models.api`` directly (``launch/serve.py``).
+(ROADMAP: several cards).
 """
 from __future__ import annotations
 
@@ -45,6 +49,8 @@ from repro_torch.models import api
 from repro_torch.obs import hooks as _obs
 from repro_torch.optim import adamw
 from repro_torch.sharding import rules
+
+SEQ_SHARDED_BLOCKS = ("global", "moe", "selfcross")
 
 # fixed-point digits for metric scalars; milli-precision keeps long-run
 # accumulated sums far from the int32 saturation sentinels of the register
@@ -674,3 +680,167 @@ def init_opt(params, specs: dict | None = None, mesh=None) -> dict:
     return {"master": api.map_named(master, params),
             "m": api.map_named(zeros, params),
             "v": api.map_named(zeros, params)}
+
+
+# ---------------------------------------------------------------------------
+# serve steps
+# ---------------------------------------------------------------------------
+
+def _cache_manual_specs(cfg: ArchConfig, shape: ShapeConfig,
+                        dp: tuple[str, ...], seq_sharded: bool):
+    """(the cache at the global shape as meta tensors, its specs: the same
+    tree of PartitionSpecs). Batch-sharded, every leaf's rows (dim 1,
+    after the layer dim) go by data rank; sequence-sharded, the K/V of
+    ``SEQ_SHARDED_BLOCKS`` are cut along the sequence (dim 2) and the rest
+    (local rings, recurrent states, a memory's K/V) is whole on every
+    rank. The reference's specs over "model" come with tensor
+    parallelism."""
+    cspecs = api.cache_specs(cfg, shape.global_batch, shape.seq_len)
+    dp = dp if len(dp) > 1 else dp[0]
+
+    def spec(bt: str, key: str):
+        if not seq_sharded:
+            return rules.P(None, dp)
+        if bt in SEQ_SHARDED_BLOCKS and key in ("k", "v"):
+            return rules.P(None, None, dp)
+        return rules.P()
+    specs = tuple({s: {k: spec(pat[int(s[1:])], k) for k in e}
+                   for s, e in g.items()}
+                  for (pat, _), g in zip(cfg.pattern_groups, cspecs))
+    return cspecs, specs
+
+
+def shard_cache(cache: tuple, program: Program) -> tuple:
+    """This rank's shard of a full decode cache under the program's
+    ``meta["cache_specs"]`` (``rules.shard_of``: a leaf that is not cut is
+    the caller's tensor, which the decode then writes in place)."""
+    specs = program.meta["cache_specs"]
+    return tuple({s: {k: rules.shard_of(t, sg[s][k], program.mesh)
+                      for k, t in e.items()} for s, e in g.items()}
+                 for g, sg in zip(cache, specs))
+
+
+def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
+                     mode: str | None = None, q8: bool = False,
+                     flash: bool = True, device=None) -> Program:
+    """The prefill or decode program of ``cfg`` (``shape.kind``) on
+    ``mesh`` (data axes of any size, model 1), its tensors on ``device``
+    (the card by default). This process is one rank of the mesh;
+    ``params`` are this rank's shards under ``meta["param_specs"]`` (in
+    fsdp the scattered leaves are chunks: the non-stacked ones are
+    gathered whole at each call, each layer's inside the layer loop).
+    The gather is ``all_gather_dim`` (the leaf itself when the data axes
+    hold one rank, where the reference's XLA drops it), or with ``q8``
+    the int8 ``all_gather_dim_q8``, which quantizes at one rank too (the
+    reference's ``REPRO_QUANTIZED_GATHER=1``). ``flash`` routes the
+    prefill's causal attention through kernel 11.
+
+      prefill  ``prog.fn(params, batch)``: ``batch`` is the global batch
+               (tokens (B, S), and the frames or patches), of which the
+               step takes this rank's rows; returns (logits (B, V) on
+               every rank, this rank's cache shard: its rows at S).
+      decode   ``prog.fn(params, token, pos, cache)``: ``token`` (B,) is
+               the global batch's, ``cache`` this rank's shard under
+               ``meta["cache_specs"]`` (``shard_cache``), written in
+               place; returns (logits (B, V) on every rank, the cache).
+               Batch-sharded when B splits over the data ranks (the
+               logits are then gathered over them), else
+               sequence-sharded (``meta["seq_sharded"]``): the global
+               K/V's positions are cut over the data ranks, the first
+               axis major, and attention combines the ranks' partial
+               softmaxes; the rest of the step runs whole on every
+               rank."""
+    dev = resolve_device(device)
+    mode = mode or rules.mode_for(cfg.name)
+    if mode not in ("zero1", "fsdp"):
+        raise ValueError(f"mode must be 'zero1' or 'fsdp', got {mode!r}")
+    if shape.kind not in ("prefill", "decode"):
+        raise ValueError(f"a serve step is a prefill or a decode, not "
+                         f"{shape.kind!r}")
+    names = tuple(a for a in ("pod", "data") if a in mesh.names)
+    axes = rules.MeshAxes(data=names)
+    n_dp, n_model = axes.sizes(mesh)
+    if n_model != 1:
+        raise _several_cards(f"a mesh of {n_dp} data x {n_model} model "
+                             f"ranks")
+    seq_sharded = shape.global_batch % n_dp != 0
+    if seq_sharded and shape.kind == "prefill":
+        raise ValueError(f"a prefill batch of {shape.global_batch} does not "
+                         f"split over {n_dp} data-parallel ranks")
+    if seq_sharded and shape.seq_len % n_dp and any(
+            bt in SEQ_SHARDED_BLOCKS for pat, _ in cfg.pattern_groups
+            for bt in pat):
+        raise ValueError(f"a sequence-sharded cache of {shape.seq_len} "
+                         f"positions does not split over {n_dp} "
+                         f"data-parallel ranks")
+    manual = mesh.axes_of(names)
+    shapes = api.param_shapes(cfg)
+    dims = scatter_dims_tree(shapes, n_dp, n_model)
+    pspecs = rules.param_specs(shapes, axes, mesh, mode)
+    _, cspecs = _cache_manual_specs(cfg, shape, names, seq_sharded)
+    serve_inc = IncAggConfig(mode="xla-psum")
+    fsdp = mode == "fsdp"
+
+    def gather_leaf(leaf, d):
+        if q8:
+            return inc_agg.all_gather_dim_q8(leaf, d, manual)
+        if n_dp == 1:
+            return leaf
+        return inc_agg.all_gather_dim(leaf, d, manual, serve_inc)
+
+    def hook(scope: str, gi: int, pslice: dict) -> dict:
+        """One layer of stacked params gathered (the slice has lost the
+        stack dim, so scatter dims shift by -1)."""
+        prefix = f"groups.{gi}." if scope == "groups" else "enc.blocks."
+        return _named_map(pslice, lambda name, leaf: gather_leaf(
+            leaf, dims[name] - 1) if dims[name] >= 1 else leaf, prefix)
+
+    def prep(params):
+        """The params with the non-stacked scattered leaves gathered (in
+        fsdp; zero1's params are whole)."""
+        if not fsdp:
+            return params
+        return api.plain_tree(params, lambda name, leaf: gather_leaf(
+            leaf, dims[name]) if dims[name] >= 0
+            and not rules._is_stacked(name) else leaf)
+
+    gather = hook if fsdp else None
+
+    def rows(x: torch.Tensor) -> torch.Tensor:
+        """(B/n_dp, ...) of every rank -> (B, ...), data rank major."""
+        return x if n_dp == 1 else inc_agg.all_gather_dim(x, 0, manual,
+                                                          serve_inc)
+
+    def check_rows(name: str, x: torch.Tensor) -> None:
+        if x.shape[0] != shape.global_batch:
+            raise ValueError(f"{name} has {x.shape[0]} rows, not the global "
+                             f"batch of {shape.global_batch}")
+
+    meta = {"mode": mode, "kind": shape.kind, "n_dp": n_dp,
+            "n_model": n_model, "manual": names, "param_specs": pspecs,
+            "cache_specs": cspecs, "seq_sharded": seq_sharded}
+    if shape.kind == "prefill":
+        bspecs = _batch_specs(cfg, shape, names)
+
+        def prefill_fn(params, batch: dict):
+            local = {}
+            for k, v in batch.items():
+                check_rows(f"batch[{k!r}]", v)
+                local[k] = rules.shard_of(v, bspecs[k], mesh).to(dev)
+            logits, cache = api.prefill(prep(params), cfg, local,
+                                        flash=flash, param_gather=gather)
+            return rows(logits), cache
+        return Program(fn=prefill_fn, mesh=mesh, meta=meta)
+
+    tok_spec = rules.P() if seq_sharded else _batch_specs(
+        cfg, shape, names)["tokens"]
+    seq_axes = manual if seq_sharded else None
+
+    def decode_fn(params, token: torch.Tensor, pos: int, cache: tuple):
+        check_rows("token", token)
+        tok = rules.shard_of(token, tok_spec, mesh).to(dev)
+        logits, cache = api.decode_step(prep(params), cfg, tok, pos, cache,
+                                        seq_axes=seq_axes,
+                                        param_gather=gather)
+        return (logits if seq_sharded else rows(logits)), cache
+    return Program(fn=decode_fn, mesh=mesh, meta=meta)

@@ -27,13 +27,10 @@ parallelism, which is not ported yet.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import math
 import os
-import socket
 import time
 from concurrent.futures import ThreadPoolExecutor
-from datetime import timedelta
 
 import torch
 import torch.distributed as dist
@@ -44,50 +41,9 @@ from repro_torch.core.inc_agg import IncAggConfig
 from repro_torch.data import pipeline
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.launch import steps
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_host_mesh, world_group
 from repro_torch.launch.serve import model_config
 from repro_torch.optim.adamw import AdamWConfig
-
-
-@contextlib.contextmanager
-def one_rank_group(device: torch.device):
-    """A default process group of one rank for the loop, unless the
-    caller already made one: NCCL on the card, gloo on the CPU."""
-    if dist.is_initialized():
-        yield
-        return
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
-                            init_method=f"tcp://127.0.0.1:{port}", rank=0,
-                            world_size=1)
-    try:
-        yield
-    finally:
-        dist.destroy_process_group()
-
-
-@contextlib.contextmanager
-def world_group(device: torch.device):
-    """The default process group of the loop: the world of
-    ``torch.distributed.run`` (``RANK`` and ``WORLD_SIZE`` in the
-    environment, ``env://``), else ``one_rank_group``; a group the
-    caller already made is kept."""
-    if dist.is_initialized() or not {"RANK", "WORLD_SIZE"} <= set(
-            os.environ):
-        with one_rank_group(device):
-            yield
-        return
-    if device.type == "cuda":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
-                            init_method="env://",
-                            timeout=timedelta(seconds=300))
-    try:
-        yield
-    finally:
-        dist.destroy_process_group()
 
 
 def _timed_batch(dcfg: pipeline.DataConfig, step: int):

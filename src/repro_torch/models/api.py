@@ -7,9 +7,11 @@ patches through ``mproj``, the memory of the ``cross`` layers) families.
   init_params(seed, cfg, device)           -> Tree (bf16 leaves)
   forward(params, cfg, batch, remat)       -> (logits, aux)
   train_loss(params, cfg, batch, remat)    -> (loss, metrics)
-  prefill(params, cfg, batch, flash=...)   -> (last_logits, cache)
+  prefill(params, cfg, batch, flash=..., param_gather=...)
+                                           -> (last_logits, cache)
   encode(params, cfg, frames)              -> the encoder's memory
-  decode_step(params, cfg, token, pos, cache) -> (logits, cache)
+  decode_step(params, cfg, token, pos, cache, seq_axes, param_gather)
+                                           -> (logits, cache)
   cache_specs(cfg, batch, seq_len)         -> cache of meta tensors
   input_specs(cfg, shape)                  -> dict of meta tensors
   param_shapes(cfg) / count_params(cfg, active_only) -> meta Tree / int
@@ -327,25 +329,36 @@ def train_loss(params: Tree, cfg: ArchConfig, batch: dict,
     return loss, {"ce": ce, "aux": aux}
 
 
+def _unit(gp, ctx: Ctx, gi: int, n_slots: int, layer: int) -> dict:
+    """Layer ``layer`` of pattern group ``gi``, one entry a slot of its
+    unit, through ``ctx.gather`` (the fsdp serve gather, when given)."""
+    return ctx.gather("groups", gi, {f"s{i}": _layer(gp[f"s{i}"], layer)
+                                     for i in range(n_slots)})
+
+
 def prefill(params: Tree, cfg: ArchConfig, batch: dict, *,
-            flash: bool = False) -> tuple[torch.Tensor, tuple]:
+            flash: bool = False, param_gather=None
+            ) -> tuple[torch.Tensor, tuple]:
     """batch["tokens"]: (B, S) -> (last-position logits (B, V), cache).
     ``flash`` runs the causal attention through the flash kernel (kernel
-    11); the encoder and the cross-attention take the dense lane."""
+    11); the encoder and the cross-attention take the dense lane.
+    ``param_gather`` gathers each layer's params before it runs (the fsdp
+    serve gather, ``Ctx.param_gather``)."""
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    ctx = Ctx(cfg=cfg, positions=positions,
-              memory=_memory(params, cfg, batch), flash=flash)
+    ctx = Ctx(cfg=cfg, positions=positions, param_gather=param_gather,
+              memory=_memory(params, cfg, batch, param_gather), flash=flash)
     x = _embed(params, cfg, tokens)
     cache = []
     for gi, (pat, n) in enumerate(cfg.pattern_groups):
         gp = params["groups"][gi]
         entries = {f"s{i}": [] for i in range(len(pat))}
         for layer in range(n):
+            unit = _unit(gp, ctx, gi, len(pat), layer)
             for i, bt in enumerate(pat):
-                x, c = blocks.block_prefill(_layer(gp[f"s{i}"], layer), bt,
-                                            x, ctx)
+                x, c = blocks.block_prefill(unit[f"s{i}"], bt, x, ctx)
                 entries[f"s{i}"].append(c)
+            del unit     # a gathered layer freed before the next is gathered
         cache.append({s: {k: torch.stack([c[k] for c in cs])
                           for k in cs[0]} for s, cs in entries.items()})
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
@@ -353,18 +366,23 @@ def prefill(params: Tree, cfg: ArchConfig, batch: dict, *,
 
 
 def decode_step(params: Tree, cfg: ArchConfig, token: torch.Tensor,
-                pos: int, cache: tuple) -> tuple[torch.Tensor, tuple]:
+                pos: int, cache: tuple, seq_axes: tuple | None = None,
+                param_gather=None) -> tuple[torch.Tensor, tuple]:
     """token: (B,) int, pos: int -> (logits (B, V), cache). The cache is
-    updated in place and returned."""
-    ctx = Ctx(cfg=cfg)
+    updated in place and returned. ``seq_axes`` (``compat.Axis``
+    objects): the global K/V hold this rank's cut of the positions
+    (``attention.KVLayout``); ``param_gather`` as in ``prefill``."""
+    ctx = Ctx(cfg=cfg, seq_axes=seq_axes, param_gather=param_gather)
     x1 = _decode_embed(params, cfg, token, pos)
     for gi, (pat, n) in enumerate(cfg.pattern_groups):
         gp, gc = params["groups"][gi], cache[gi]
         for layer in range(n):
+            unit = _unit(gp, ctx, gi, len(pat), layer)
             for i, bt in enumerate(pat):
-                x1, _ = blocks.block_decode(_layer(gp[f"s{i}"], layer), bt,
-                                            x1, _layer(gc[f"s{i}"], layer),
+                x1, _ = blocks.block_decode(unit[f"s{i}"], bt, x1,
+                                            _layer(gc[f"s{i}"], layer),
                                             pos, ctx)
+            del unit     # a gathered layer freed before the next is gathered
     x1 = rms_norm(x1, params["final_norm"], cfg.norm_eps)
     return logits_of(params, cfg, x1)[:, 0], cache
 

@@ -26,9 +26,12 @@ takes no memory longer than the sequence).
 Decode has no kernel in the reference and stays einsums: a ``global``
 cache by position, a ``local`` one a ring of ``window`` slots, the
 rope-free lane of ``selfcross``, and the cross-attention against the
-memory's K/V, projected once at prefill (``memory_kv``). One card holds
-the whole cache, so the reference's sequence-sharded decode (its
-pmax/psum partial-softmax combine) has no counterpart here.
+memory's K/V, projected once at prefill (``memory_kv``). A global cache
+may be sharded along the sequence over data-parallel mesh axes
+(``KVLayout.seq_axes``: a long context at a batch too small to shard);
+each rank then attends to its own positions and the ranks combine their
+partial softmaxes (a ``pmax`` and two ``psum``s over the axes,
+``core/inc_agg.py``'s collectives) instead of gathering the cache.
 """
 from __future__ import annotations
 
@@ -37,6 +40,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from repro_torch import compat
+from repro_torch.core import inc_agg
 from repro_torch.kernels import ops
 from repro_torch.models.common import COMPUTE_DTYPE, apply_rope, dense_init
 
@@ -242,10 +247,23 @@ def attn_prefill(p: dict, x: torch.Tensor, *, n_kv: int, kind: str,
 
 @dataclass(frozen=True)
 class KVLayout:
-    """How the decode KV cache is laid out: the whole cache, of
-    ``length`` positions, on one card (the reference's ``seq_axes=None``;
-    its sequence-sharded cache needs more than one card)."""
-    length: int
+    """How the decode KV cache is laid out across the data-parallel mesh
+    axes. ``seq_axes=None``: every rank holds the full ``length`` positions
+    of its batch rows. ``seq_axes=(...)`` (``compat.Axis`` objects): the
+    cache's positions are cut over those axes, this rank holding
+    ``length`` of them from ``offset()``, and attention combines the
+    ranks' partial softmaxes."""
+    length: int                  # positions this rank holds
+    seq_axes: tuple | None = None
+
+    def offset(self) -> int:
+        """The first position this rank holds: its index over
+        ``seq_axes`` (the first axis major, as ``rules.shard_of`` cuts)
+        times ``length``."""
+        idx = 0
+        for ax in self.seq_axes or ():
+            idx = idx * compat.axis_size(ax) + compat.axis_index(ax)
+        return idx * self.length
 
 
 def decode_attn(p: dict, x1: torch.Tensor, k_cache: torch.Tensor,
@@ -257,10 +275,12 @@ def decode_attn(p: dict, x1: torch.Tensor, k_cache: torch.Tensor,
     ``selfcross`` layer), are written into the caches IN PLACE (the
     reference returns updated copies):
 
-      window=None: a global cache, slot ``pos``, when ``0 <= pos < L``;
-      window=W: a ring of W slots (L == W), slot ``pos % W``; slot j then
-      holds position ``pos - ((pos - j) % W)``, valid when that is >= 0
-      and within the window."""
+      window=None: a global cache, slot ``pos - offset`` when ``0 <= pos -
+      offset < L`` (only the rank that holds ``pos``, when the cache is
+      sequence-sharded), positions ``offset .. offset + L - 1``;
+      window=W: a ring of W slots (L == W, never sharded), slot ``pos %
+      W``; slot j then holds position ``pos - ((pos - j) % W)``, valid
+      when that is >= 0 and within the window."""
     pos = int(pos)
     q, k, v = qkv(p, x1)
     if rope:
@@ -279,26 +299,37 @@ def decode_attn(p: dict, x1: torch.Tensor, k_cache: torch.Tensor,
         valid = (p_j >= 0) & (p_j > pos - window)
         out = _decode_attend(q, k_cache, v_cache, valid, n_kv)
         return out_proj(p, out), k_cache, v_cache
-    if 0 <= pos < layout.length:
-        k_cache[:, pos] = k[:, 0]
-        v_cache[:, pos] = v[:, 0]
-    valid = torch.arange(layout.length, device=x1.device) <= pos
-    out = _decode_attend(q, k_cache, v_cache, valid, n_kv)
+    off = layout.offset()
+    if 0 <= pos - off < layout.length:
+        k_cache[:, pos - off] = k[:, 0]
+        v_cache[:, pos - off] = v[:, 0]
+    valid = off + torch.arange(layout.length, device=x1.device) <= pos
+    out = _decode_attend(q, k_cache, v_cache, valid, n_kv, layout.seq_axes)
     return out_proj(p, out), k_cache, v_cache
 
 
-def _decode_attend(q, k_cache, v_cache, valid, n_kv: int) -> torch.Tensor:
-    """q: (B,1,H,hd); cache: (B,L,KV,hd); valid: (L,) bool."""
+def _decode_attend(q, k_cache, v_cache, valid, n_kv: int,
+                   seq_axes: tuple | None = None) -> torch.Tensor:
+    """q: (B,1,H,hd); cache: (B,L,KV,hd); valid: (L,) bool. With
+    ``seq_axes`` the cache is this rank's positions, and the ranks
+    combine their partial softmaxes: the max of the scores by ``pmax``
+    (taken before the clamp, so a rank with no valid position takes the
+    others' max), the denominators and the fp32 outputs by ``psum``."""
     b, _, h, hd = q.shape
     qg = _group(q, n_kv)[:, 0]                        # (B,KV,G,hd)
     s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache).float() * (hd ** -0.5)
     s = s.masked_fill(~valid, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)                  # (B,KV,G,1)
+    if seq_axes is not None:
+        m = inc_agg._pmax(m, seq_axes)
     e = torch.exp(s - m.clamp(min=NEG_INF / 2))
     e = e.masked_fill(~valid, 0.0)
     den = e.sum(dim=-1)                               # (B,KV,G)
-    o = torch.einsum("bkgs,bskh->bkgh", e.to(v_cache.dtype), v_cache)
-    o = o.float() / den[..., None].clamp(min=1e-30)
+    o = torch.einsum("bkgs,bskh->bkgh", e.to(v_cache.dtype), v_cache).float()
+    if seq_axes is not None:
+        den = inc_agg._psum(den, seq_axes)
+        o = inc_agg._psum(o, seq_axes)
+    o = o / den[..., None].clamp(min=1e-30)
     return o.reshape(b, 1, h, hd).to(v_cache.dtype)
 
 

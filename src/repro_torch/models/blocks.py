@@ -54,6 +54,9 @@ class Ctx:
     positions: torch.Tensor | None = None     # (S,) for train/prefill
     memory: torch.Tensor | None = None        # (B,M,d) cross-attn memory
     flash: bool = False
+    # data-parallel mesh axes the decode's global K/V are sharded over
+    # along the sequence (``attention.KVLayout``), or None
+    seq_axes: tuple | None = None
     # FSDP hook: (scope, group_idx, one layer's params) -> gathered
     # params. Applied inside the layer loop (under the layer's
     # checkpoint), so only one layer's params are ever materialized; its
@@ -244,11 +247,15 @@ def block_decode(p: dict, bt: str, x1: torch.Tensor, cache: dict, pos: int,
         x1 = x1 + _gated(p, attn.decode_cross_attn(
             p["xattn"], xn, cache["mk"], cache["mv"], cfg.n_kv_heads))
     else:
+        # a local layer's ring is never sharded; the others' K/V (global,
+        # moe, selfcross's self-attention) follow ``ctx.seq_axes``
+        local = bt == "local"
         y, _, _ = attn.decode_attn(
             p["attn"], xn, cache["k"], cache["v"], pos,
             n_kv=cfg.n_kv_heads, theta=cfg.rope_theta,
-            layout=attn.KVLayout(cache["k"].shape[1]),
-            window=cfg.window if bt == "local" else None,
+            layout=attn.KVLayout(cache["k"].shape[1],
+                                 None if local else ctx.seq_axes),
+            window=cfg.window if local else None,
             rope=bt != "selfcross")
         x1 = x1 + y
         if bt == "selfcross":

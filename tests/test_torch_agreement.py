@@ -76,7 +76,7 @@ def one_rank():
     import torch.distributed as dist
 
     from repro_torch import compat
-    from repro_torch.launch.train import one_rank_group
+    from repro_torch.launch.mesh import one_rank_group
     with one_rank_group(torch.device("cpu")):
         yield compat.make_mesh((1,), ("data",), device="cpu") \
             .axes_of(("data",))

@@ -288,3 +288,26 @@ def test_quantized_gather_matches_jax(results, mesh):
         assert (a == b).mean() >= 0.99, dim
         for r in range(world):
             assert np.all(np.abs(a[r] - src) <= amax / 127.0), dim
+
+
+@pytest.mark.parametrize("shape,dim", [((40, 3, 500), 0), ((40, 3, 500), 1),
+                                       ((40, 3, 500), 2), ((7001,), 0)])
+def test_quantized_gather_blocks_equal_one_pass(shape, dim, monkeypatch):
+    """``all_gather_dim_q8`` over no rank takes the CPU's leaf a block of
+    dim-0 slices at a time, dequantizing each block from its fp32 values:
+    bit for bit the one-pass form (the reference's expression: the int8
+    grid, then times the row's scale, rounded to the leaf's dtype), in
+    several blocks along each dim, a ragged last block and a 1-D leaf."""
+    from repro_torch.core import inc_agg
+    monkeypatch.setattr(inc_agg, "_Q8_CPU_ELEMS", 4096)
+    rng = np.random.RandomState(31)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).bfloat16()
+    x[(0,) * x.dim()] = 0.0
+    y = torch.movedim(x, dim, 0).float()
+    amax = y.abs().amax(dim=tuple(range(1, y.dim()))) if y.dim() > 1 \
+        else y.abs()
+    scale = inc_agg._lead(inc_agg._int8_scale(amax), y.dim())
+    q = torch.clamp(torch.round(y / scale), -127, 127).to(torch.int8)
+    want = torch.movedim(q.float() * scale, 0, dim).to(x.dtype)
+    got = inc_agg.all_gather_dim_q8(x, dim, ())
+    assert got.is_contiguous() and torch.equal(got, want)

@@ -594,7 +594,7 @@ def test_fsdp_equals_zero1_on_one_rank(arch):
     from repro_torch.core.inc_agg import IncAggConfig
     from repro_torch.data import pipeline
     from repro_torch.launch import steps
-    from repro_torch.launch.train import one_rank_group
+    from repro_torch.launch.mesh import one_rank_group
     from repro_torch.models import api
     from repro_torch.optim.adamw import AdamWConfig
     cfg = get_arch(arch).reduced()

@@ -8,11 +8,18 @@ Random-init greedy decoding collapses onto one token, so tokens are held
 equal only where the port's top-2 logit gap is wider than the logit
 tolerance of tests/test_torch_model.py, up to a row's first step where it
 is not (after that the two runs feed different tokens).
+
+``serve`` runs through ``build_serve_step``'s programs: at one rank they
+are ``api.prefill`` and ``api.decode_step`` bit for bit; under two gloo
+ranks (spawned, each a batch row pair), teacher forced with the
+one-rank run's tokens, within the logit tolerance of one rank.
 """
 import dataclasses
 import os
 import subprocess
 import sys
+import time
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -240,6 +247,174 @@ def test_serve_cli_runs_on_the_cpu():
     assert lines[-1].startswith("sampled token ids[0]: [")
 
 
+# -- the serve step (build_serve_step) ----------------------------------------
+
+def _set_gates(params, cfg, gate=0.5) -> None:
+    """Every cross layer's gate set to ``gate`` (it starts at 0, where the
+    layer adds none of its attention)."""
+    for gi, (pat, _) in enumerate(cfg.pattern_groups):
+        for i, bt in enumerate(pat):
+            if bt == "cross":
+                params["groups"][gi][f"s{i}"]["gate"].fill_(gate)
+
+
+# (arch, mode): zero1, fsdp (llama's own: mproj and the layers gathered,
+# the leaves themselves at one rank), fsdp with an encoder (scope "enc")
+ONE_RANK = [("qwen2.5-3b", None), ("llama-3.2-vision-90b", None),
+            ("whisper-medium", "fsdp")]
+
+
+@pytest.mark.parametrize("arch,mode", ONE_RANK)
+def test_serve_at_one_rank_is_the_model_api(arch, mode):
+    """``serve`` at one rank (its prefill and decode programs) gives the
+    logits of ``api.prefill`` and greedy ``api.decode_step`` calls on the
+    same weights and prompt, bit for bit."""
+    cfg = tserve.model_config(arch, reduced=True)
+    params = api.init_params(4, cfg, device="cpu")
+    _set_gates(params, cfg)
+    got = tserve.serve(arch=arch, prompt_len=PROMPT, decode_n=DECODE,
+                       batch=BATCH, reduced=True, device="cpu",
+                       params=params, mode=mode)
+    tokens = pipeline.make_batch(pipeline.DataConfig(
+        vocab=cfg.vocab, batch=BATCH, seq_len=PROMPT - 1, kind="uniform"),
+        0)["tokens"]
+    logits, cache = api.prefill(params, cfg, pipeline.add_modality_stubs(
+        {"tokens": tokens}, cfg, BATCH), flash=True)
+    cache = tserve.grow_cache(cache, cfg, BATCH, PROMPT + DECODE)
+    every = [logits]
+    for i in range(DECODE):
+        logits, cache = api.decode_step(params, cfg, every[-1].argmax(-1),
+                                        PROMPT + i, cache)
+        every.append(logits)
+    assert torch.equal(got["logits"], torch.stack(every))
+
+
+# (arch, q8) served under two gloo ranks: zero1 (the batch's rows and the
+# logits gathered), fsdp with the plain and the int8 gather
+TWO_RANKS = [("qwen2.5-3b", False), ("llama-3.2-vision-90b", False),
+             ("llama-3.2-vision-90b", True)]
+TWO_BATCH, TWO_TIMEOUT = 4, 120
+
+
+def _two_rank_params(arch):
+    cfg = tserve.model_config(arch, reduced=True)
+    params = api.init_params(6, cfg, device="cpu")
+    _set_gates(params, cfg)
+    return params
+
+
+def _serve_rank(rank: int, out_dir: str) -> None:
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    out = Path(out_dir)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=2,
+                            timeout=timedelta(seconds=TWO_TIMEOUT))
+    try:
+        for arch, q8 in TWO_RANKS:
+            got = tserve.serve(
+                arch=arch, prompt_len=PROMPT, decode_n=DECODE,
+                batch=TWO_BATCH, reduced=True, device="cpu",
+                params=_two_rank_params(arch), q8=q8,
+                feed=torch.from_numpy(np.load(out / f"feed-{arch}-{q8}.npy")))
+            np.save(out / f"two-{arch}-{q8}-{rank}.npy",
+                    got["logits"].float().numpy())
+            assert (got["inc_telemetry"] is None) == (rank != 0)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """The one-rank runs (greedy) here, then the same under two spawned
+    gloo ranks fed the one-rank run's tokens: {case: (one, two)}."""
+    import torch.multiprocessing as mp
+    out = tmp_path_factory.mktemp("serve_two_ranks")
+    one = {}
+    for arch, q8 in TWO_RANKS:
+        run = tserve.serve(arch=arch, prompt_len=PROMPT, decode_n=DECODE,
+                           batch=TWO_BATCH, reduced=True, device="cpu",
+                           params=_two_rank_params(arch), q8=q8)
+        np.save(out / f"feed-{arch}-{q8}.npy", run["tokens"][:, :-1].numpy())
+        one[(arch, q8)] = run["logits"].float().numpy()
+    ctx = mp.start_processes(_serve_rank, args=(str(out),), nprocs=2,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + TWO_TIMEOUT
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"gloo ranks still running after "
+                                   f"{TWO_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=10)
+    return {case: (one[case], [np.load(out / f"two-{case[0]}-{case[1]}-"
+                                       f"{r}.npy") for r in range(2)])
+            for case in TWO_RANKS}
+
+
+@pytest.mark.parametrize("arch,q8", TWO_RANKS)
+def test_serve_under_two_ranks_matches_one_rank(two_ranks, arch, q8):
+    """Both ranks return the whole batch's logits, the same; teacher
+    forced, they are within the logit tolerance of one rank's at every
+    step."""
+    one, (r0, r1) = two_ranks[(arch, q8)]
+    assert r0.shape == one.shape == (DECODE + 1, TWO_BATCH, 512)
+    assert r0.tobytes() == r1.tobytes()
+    for t in range(DECODE + 1):
+        err = np.abs(r0[t] - one[t]).max() / np.abs(one[t]).max()
+        assert err < LOGIT_TOL, (arch, q8, t, err)
+
+
+def test_serve_cli_under_torch_distributed_run():
+    """``torch.distributed.run`` with two gloo ranks: the world comes from
+    the environment, and rank 0 alone prints."""
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.serve", "--arch",
+         "qwen2.5-3b", "--reduced", "--device", "cpu", "--prompt-len", "16",
+         "--decode", "2", "--batch", "2"], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=120, check=True)
+    lines = out.stdout.strip().splitlines()
+    assert sum(x.startswith("inc telemetry: tokens=4 ") for x in lines) == 1
+    assert lines[-1].startswith("sampled token ids[0]: [")
+
+
+def test_tensor_parallel_serve_raises():
+    """A mesh with a model axis above 1 is tensor parallelism: not
+    ported, for either program, and nothing falls back."""
+    from repro_torch.compat import Mesh
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    cfg = get_arch("qwen2.5-3b").reduced()
+    for kind in ("prefill", "decode"):
+        for shape, names in (((1, 2), ("data", "model")),
+                             ((1, 1, 2), ("pod", "data", "model"))):
+            with pytest.raises(NotImplementedError,
+                               match="tensor parallelism"):
+                steps.build_serve_step(
+                    cfg, ShapeConfig("s", 32, 2, kind),
+                    Mesh(shape, names, {}), device="cpu")
+
+
+def test_serve_step_refuses_shapes_that_do_not_split():
+    """A sequence-sharded decode (a batch that does not split over the
+    data ranks) whose cache length does not split either, and a prefill
+    batch that does not split."""
+    from repro_torch.compat import Mesh
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    cfg = get_arch("gemma3-27b").reduced()
+    mesh = Mesh((2, 1), ("data", "model"), {})
+    with pytest.raises(ValueError, match="sequence-sharded cache of 67"):
+        steps.build_serve_step(cfg, ShapeConfig("d", 67, 1, "decode"), mesh,
+                               device="cpu")
+    with pytest.raises(ValueError, match="prefill batch of 3"):
+        steps.build_serve_step(cfg, ShapeConfig("p", 64, 3, "prefill"), mesh,
+                               device="cpu")
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -284,3 +459,33 @@ def test_cuda_serve_matches_cpu(cuda, arch, layers, launches):
     for t in range(DECODE + 1):
         la, lb = card["logits"][t].float().cpu(), cpu["logits"][t].float()
         assert float((la - lb).abs().max() / lb.abs().max()) < LOGIT_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_seq_axes_at_one_rank_is_the_whole_cache(cuda):
+    """On the card, decode steps with ``seq_axes`` over a one-rank NCCL
+    mesh (the partial-softmax combine's pmax and psums, over one rank)
+    give the logits and cache of the same steps without, bit for bit."""
+    from repro_torch.launch.mesh import make_host_mesh, one_rank_group
+    cfg = tserve.model_config("gemma3-27b", reduced=True)
+    params = api.init_params(7, cfg, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (1, 64),
+                         generator=torch.Generator().manual_seed(8)).to(cuda)
+    _, cache = api.prefill(params, cfg, {"tokens": toks})
+    cache = tserve.grow_cache(cache, cfg, 1, 64 + DECODE)
+    copy = tuple({s: {k: t.clone() for k, t in e.items()}
+                  for s, e in g.items()} for g in cache)
+    with one_rank_group(cuda):
+        seq_axes = make_host_mesh(model=1).axes_of(("data",))
+        tok = toks[:, -1]
+        for i in range(DECODE):
+            a, _ = api.decode_step(params, cfg, tok, 64 + i, cache,
+                                   seq_axes=seq_axes)
+            b, _ = api.decode_step(params, cfg, tok, 64 + i, copy)
+            assert torch.equal(a, b), i
+            tok = a.argmax(-1)
+    for g, h in zip(cache, copy):
+        for s in g:
+            for k in g[s]:
+                assert torch.equal(g[s][k], h[s][k]), (s, k)
+

@@ -36,8 +36,8 @@ from repro_torch.configs.base import ShapeConfig, get_arch
 from repro_torch.core.inc_agg import MODES, IncAggConfig
 from repro_torch.data import pipeline
 from repro_torch.launch import steps
-from repro_torch.launch.train import (drawn_ahead, one_rank_group,
-                                     train_loop)
+from repro_torch.launch.mesh import one_rank_group
+from repro_torch.launch.train import drawn_ahead, train_loop
 from repro_torch.models import api
 from repro_torch.optim.adamw import AdamWConfig
 
