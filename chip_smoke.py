@@ -94,7 +94,7 @@
    telemetry pushes through sparse_addto and one commit a step. Prints
    the warm step time, tokens/s, peak memory, the card's busy share of
    one step and the device time of its three stages. Then one ``netrpc``
-   step at 2 full-width layers (B=2, S=256) on the card and on the CPU
+   step at 1 full-width layer (B=2, S=256) on the card and on the CPU
    from the same params and optimizer state: loss within 1e-3 and gnorm
    within 1e-2 (relative); AdamW's m and v, per leaf, within 3e-2
    (||card - CPU|| / ||CPU||, 1.4e-2 measured, on the v of the k bias:
@@ -123,8 +123,9 @@
    the plain one (``attn_local``, the band of two window-sized chunks),
    teacher forced, within the arch's tolerance (``SERVES``: twice the
    drift of the two lanes at the reduced width and full depth on the
-   CPU); and the first 6 (gemma3: five local layers and a global one)
-   and 3 (recurrentgemma: two RG-LRU layers and a local one) layers at
+   CPU); and the first 2 (gemma3: two local layers; 6 before phase v
+   came, with its first global one) and 3 (recurrentgemma: two RG-LRU
+   layers and a local one) layers at
    full width on the card against the CPU within 2e-2, at a prompt just
    past the window (1 040 and 2 064 tokens, B = 1), so the band, the
    ring pack and the kernel's window run. Kernel 11 joins the kernel
@@ -232,8 +233,8 @@
    step's loss within ``FSDP_TOL`` (2e-3, the reference's
    fsdp-vs-zero1 bound, ``tests/multidevice/md_train_equiv.py:52``) of
    phase j's zero1 netrpc loss on the same seed and batches; the three
-   launch counts equal that reckoning; then one fsdp netrpc step at 2
-   full-width layers (B = 2, S = 256) on the card and on the CPU, held as
+   launch counts equal that reckoning; then one fsdp netrpc step at 1
+   full-width layer (B = 2, S = 256) on the card and on the CPU, held as
    phase j's. Prints the warm step, one step's stage times (CUDA events)
    and the peak device memory, beside the card's name and power limit.
 
@@ -248,9 +249,20 @@
    fed q's tokens: prints max|q8 - plain| / max|plain| of the logits
    against q's run, the top-1 agreement, prefill seconds, decode tokens/s
    and peak memory, and fails if the logits are q's bit for bit; then
-   q's cut (5 layers, 1 x 256 tokens, 1 decode step) with q8 on the card
-   against the CPU within q's ``cut_tol``. One card is one rank: the
+   q's first 2 layers (both global; 1 x 256 tokens, 1 decode step) with
+   q8 on the card against the CPU within q's ``cut_tol``. One card is one rank: the
    combine and the gathers over several ranks run on gloo in the tests.
+17. Path, phase v: tensor parallelism. qwen2.5-3b at full width (d_model
+   2 048, 16 query heads, 2 KV heads, d_ff 11 008, vocab 152 064 padded)
+   and 2 layers: the prefill program on 2 x 256 tokens, 2 teacher-forced
+   decode steps and one netrpc train step (B=2 x S=256), on the card at
+   one rank, while 4 spawned gloo ranks do the same work on the host's
+   CPU over a (1, 4) mesh (each rank 4 query heads and the one KV head
+   they read, a quarter of the ff dim and of the vocab). Checks: 2 flash
+   launches; the logits of every step within phase i's card-vs-CPU
+   tolerance; loss, gnorm, the masters' update and m and v within phase
+   j's. One card is one rank: the card runs the one-rank path, and the
+   tensor-parallel ranks' kernel shapes are in the flash check.
 
 Launch counts are set to 0 just before each path run on the card and read
 just after it; every kernel must have launched in the path. The two
@@ -351,7 +363,7 @@ SERVES = {
               cut=2, cut_prompt=256, cut_batch=2, cut_decode=8,
               cut_tol=CPU_TOL),
     "l": dict(arch="gemma3-27b", prompt=2048, decode=32, batch=4,
-              lanes_tol=9e-2, cut=6, cut_prompt=1040, cut_batch=1,
+              lanes_tol=9e-2, cut=2, cut_prompt=1040, cut_batch=1,
               cut_decode=4, cut_tol=CPU_TOL),
     "m": dict(arch="recurrentgemma-9b", prompt=4096, decode=32, batch=2,
               lanes_tol=9e-2, cut=3, cut_prompt=2064, cut_batch=1,
@@ -375,24 +387,34 @@ SERVES = {
 # the same steps without
 U1_PROMPT, U1_STEPS = 2048, 8
 # phase u2: phase q's model and shapes in fsdp with the int8 gather (q8),
-# fed q's tokens; the card against the CPU at q's cut and tolerance with
-# U2_CUT_DECODE decode steps: on the CPU every call quantizes all 6.5 B
-# parameters of the cut, so the cut keeps to one decode step
-U2_CUT_DECODE = 1
+# fed q's tokens; the card against the CPU at q's tolerance, the first
+# U2_CUT layers (5, q's cut, before phase v came) and U2_CUT_DECODE decode
+# steps: on the CPU every call quantizes every parameter of the cut (3.8 B
+# at 2 layers), so the cut keeps to one decode step
+U2_CUT, U2_CUT_DECODE = 2, 1
 KEEP_SERVED = ("q",)
 SERVED: dict = {}      # phase q's tokens and logits, for phase u2
+# phase v: qwen2.5-3b at full width, V_LAYERS layers: a prefill of V_BATCH x
+# V_PROMPT tokens, V_DECODE teacher-forced decode steps and one netrpc
+# train step (V_BATCH x V_SEQ), on the card at one rank and on the host's
+# CPU over V_MODEL gloo ranks of a (1, V_MODEL) mesh (tensor parallelism:
+# 4 query heads and 1 KV head a rank, the mixed case), held within phase
+# i's (logits) and phase j's (the step) card-vs-CPU tolerances
+V_LAYERS, V_BATCH, V_PROMPT, V_DECODE, V_SEQ, V_MODEL = 2, 2, 256, 2, 256, 4
+V_TIMEOUT = 300        # the CPU ranks' limit, seconds
 # phase s: the runtime examples of s1, and s2's train_mini: its steps, the
 # fall of the loss over them (first - last, each mode), the bound on the
 # netrpc - xla-psum final-loss gap (set before the first run on the card)
 S_EXAMPLES = ("mapreduce", "monitoring", "paxos", "train_telemetry")
 MINI_STEPS, MINI_FALL, MINI_GAP = 300, 1.0, 5e-2
-# phase j: train at full width; the card-vs-CPU step at 2 layers
+# phase j: train at full width; the card-vs-CPU step (j's and t's) at 1
+# layer (2 before phase v came)
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 36, 1024, 2, 3
 # phase t: fsdp against phase j's zero1 netrpc losses, absolute, each step
 # (md_train_equiv.py's fsdp-vs-zero1 bound)
 FSDP_TOL = 2e-3
 TRAIN_J: dict = {}     # phase j's netrpc losses, for phase t
-TRAIN_SMALL_LAYERS, TRAIN_SMALL_SEQ, TRAIN_CPU_STEP = 2, 256, 5
+TRAIN_SMALL_LAYERS, TRAIN_SMALL_SEQ, TRAIN_CPU_STEP = 1, 256, 5
 # step 0's loss within [ln(vocab) - STEP0_BELOW, ln(vocab) + STEP0_ABOVE]
 STEP0_BELOW, STEP0_ABOVE = 0.5, 1.5
 MODES_TOL = 1e-3       # netrpc vs fp32-ring loss, relative, each step
@@ -409,12 +431,17 @@ FLASH_ATOL, FLASH_RTOL = 2e-2, 5e-2
 # and recurrentgemma-9b's (MQA, D = 256) at their prompts, phase n's
 # moonshot-v1-16b-a3b prefill (H = KV = 16), phase p's whisper-medium
 # decoder (H = KV = 16 at D = 64, S = 416) and phase q's
-# llama-3.2-vision-90b global layers (H = 64, KV = 8)
+# llama-3.2-vision-90b global layers (H = 64, KV = 8); then a
+# tensor-parallel rank's shapes: qwen2.5-3b's prefill at model 2 (8 query
+# heads, 1 KV head) and at model 4 (4 query heads and the one KV head they
+# read), phase l's local layers at model 2 and phase n's prefill at model 2
 FLASH_CHECKS = ((4, 16, 2, 2048, 128, None), (4, 16, 2, 2048, 128, 1024),
                 (2, 16, 2, 1000, 128, None), (1, 16, 1, 4096, 256, 2048),
                 (4, 32, 16, 2048, 128, 1024), (2, 16, 1, 4096, 256, 2048),
                 (4, 16, 16, 2048, 128, None), (4, 16, 16, 416, 64, None),
-                (4, 64, 8, 2048, 128, None))
+                (4, 64, 8, 2048, 128, None), (4, 8, 1, 2048, 128, None),
+                (4, 4, 1, 2048, 128, None), (4, 16, 8, 2048, 128, 1024),
+                (4, 8, 8, 2048, 128, None))
 REPLACES = {
     "fused_addto": "src/repro/kernels/fused_gpv.py:67",
     "fused_scatter": "src/repro/kernels/fused_gpv.py:113",
@@ -2141,7 +2168,8 @@ def modes_oracle(a: dict, b: dict, what: str) -> float:
 
 
 def step_pair(torch, mesh_card, mesh_cpu, shard: str = "zero1") -> None:
-    """One netrpc step at 2 full-width layers on the card and on the CPU
+    """One netrpc step at TRAIN_SMALL_LAYERS full-width layers on the card
+    and on the CPU
     from the same params, optimizer state and tokens, in the ``shard``
     mode (one rank: the state is whole in both)."""
     import copy as _copy
@@ -2247,7 +2275,7 @@ def profile_train(torch, run: dict, mesh) -> None:
 
 def check_train(torch, smi: str) -> dict:
     """Phase j on the card: both modes at full width, the profile of one
-    step, and the 2-layer step against the CPU."""
+    step, and the TRAIN_SMALL_LAYERS-layer step against the CPU."""
     from repro_torch import compat
     from repro_torch.launch.serve import model_config
     from repro_torch.launch.mesh import one_rank_group
@@ -2343,8 +2371,8 @@ def fsdp_stages(torch, run: dict, mesh) -> dict:
 
 def check_fsdp(torch, smi: str) -> dict:
     """Phase t on the card: fsdp at full width against phase j's zero1,
-    its gathers' launches, one step's stages, the 2-layer step against
-    the CPU."""
+    its gathers' launches, one step's stages, the TRAIN_SMALL_LAYERS-layer
+    step against the CPU."""
     from repro_torch import compat
     from repro_torch.launch.serve import model_config
     from repro_torch.launch.mesh import one_rank_group
@@ -2512,10 +2540,10 @@ def check_q8_serve(torch, smi: str) -> dict:
     print(f"path u2_q8_serve card: {smi}", flush=True)
     del params, run, plain
     torch.cuda.empty_cache()
-    small_cfg = model_config(sp["arch"], layers=sp["cut"])
+    small_cfg = model_config(sp["arch"], layers=U2_CUT)
     small = dict(arch=sp["arch"], prompt_len=sp["cut_prompt"],
                  decode_n=U2_CUT_DECODE, batch=sp["cut_batch"],
-                 layers=sp["cut"])
+                 layers=U2_CUT)
     p_card = api.init_params(SEED, small_cfg, device="cuda")
     set_gates(p_card, small_cfg, sp["gate"])
     p_cpu = api.map_tree(lambda t: t.cpu(), p_card)
@@ -2523,17 +2551,281 @@ def check_q8_serve(torch, smi: str) -> dict:
     t0 = time.perf_counter()
     cpu = serve_run("cpu", p_cpu, True, small, q8=True,
                     feed=card["tokens"][:, :-1])
-    serve_oracle(card, small, small_cfg.vocab, f"phase u2 ({sp['cut']} "
+    serve_oracle(card, small, small_cfg.vocab, f"phase u2 ({U2_CUT} "
                  f"layers)")
     got = lanes_check(card, cpu, small_cfg, sp["cut_tol"],
-                      f"phase u2: {sp['cut']} layers, q8, on the card "
+                      f"phase u2: {U2_CUT} layers, q8, on the card "
                       f"against the CPU")
-    print(f"path u2_q8_serve: {sp['cut']} layers at full width, S="
+    print(f"path u2_q8_serve: {U2_CUT} layers at full width, S="
           f"{sp['cut_prompt']}, B={sp['cut_batch']}, {U2_CUT_DECODE} decode "
           f"steps, q8: card vs CPU ({time.perf_counter() - t0:.3f} s: the "
           f"CPU's prefill {cpu['prefill_s']:.3f} s, decode "
           f"{cpu['decode_s']:.3f} s) {got}", flush=True)
     del p_card, p_cpu, card, cpu
+    torch.cuda.empty_cache()
+    return counts
+
+
+# -- phase v: tensor parallelism -----------------------------------------------
+
+def tp_work(torch, cfg, mesh, device, params, tokens, batch) -> dict:
+    """Phase v's work on ``mesh``, this process one rank: the prefill and
+    decode programs over ``params`` (the full tree; the rank keeps its
+    cut), the decode teacher forced with ``tokens``, then one netrpc train
+    step on ``batch`` from ``params`` and a fresh optimizer state (the
+    params are updated in place). Returns the logits of every step, the
+    step's metrics and the rank's shards of m, v and the masters' update,
+    with their specs, and the seconds of the serve and train parts (and
+    the train step's stages, ms)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.inc_agg import IncAggConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import grow_cache
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWConfig
+    total = V_PROMPT + V_DECODE
+    t0 = time.perf_counter()
+
+    def serve_prog(kind, s):
+        return steps.build_serve_step(cfg, ShapeConfig(kind, s, V_BATCH, kind),
+                                      mesh, flash=True, device=device)
+    pf, dec = serve_prog("prefill", V_PROMPT), serve_prog("decode", total)
+    mine = api.shard_tree(params, pf.meta["param_specs"], mesh)
+    logits, cache = pf.fn(mine, {"tokens": tokens[:, :V_PROMPT]})
+    cache = grow_cache(cache, cfg, V_BATCH // dec.meta["n_dp"], total,
+                       dec.meta["kv_heads"][1])
+    every = [logits]
+    for i in range(V_DECODE):
+        logits, cache = dec.fn(mine, tokens[:, V_PROMPT + i], V_PROMPT + i,
+                               cache)
+        every.append(logits)
+    out = {"logits": torch.stack(every).float().cpu()}
+    del cache, every, logits
+    t1 = time.perf_counter()
+    prog = steps.build_train_step(
+        cfg, ShapeConfig("v", V_SEQ, V_BATCH, "train"), mesh,
+        inc=IncAggConfig(mode="netrpc", precision=PRECISION),
+        opt_cfg=AdamWConfig(warmup_steps=5, total_steps=100), n_micro=1,
+        device=device)
+    opt = steps.init_opt(params, prog.meta["opt_specs"], mesh)
+    before = {n: t.clone() for n, t in api.named_leaves(opt["master"])}
+    _, opt, m = prog.fn(mine, opt, batch, TRAIN_CPU_STEP)
+    out["metrics"] = {k: float(v) for k, v in m.items()}
+    out["seconds"] = {"serve": t1 - t0, "train": time.perf_counter() - t1,
+                      **{f"{k} ms": v for k, v in
+                         prog.meta["clock"].ms().items()}}
+    out["state"] = {n: {"m": a, "v": b, "update": c - before[n]}
+                    for (n, a), (_, b), (_, c) in zip(
+                        api.named_leaves(opt["m"]), api.named_leaves(opt["v"]),
+                        api.named_leaves(opt["master"]))}
+    out["specs"] = prog.meta["opt_specs"]
+    return out
+
+
+def tp_inputs(cfg):
+    """Phase v's weights (drawn on the CPU from SEED), teacher-forced
+    tokens (V_BATCH, V_PROMPT + V_DECODE) and train batch."""
+    from repro_torch.data import pipeline
+    from repro_torch.models import api
+    params = api.init_params(SEED, cfg, device="cpu")
+    tokens = pipeline.make_batch(pipeline.DataConfig(
+        vocab=cfg.vocab, batch=V_BATCH, seq_len=V_PROMPT + V_DECODE - 1,
+        seed=SEED, kind="uniform"), 0)["tokens"]
+    batch = pipeline.make_batch(pipeline.DataConfig(
+        vocab=cfg.vocab, batch=V_BATCH, seq_len=V_SEQ, seed=SEED,
+        kind="uniform"), TRAIN_CPU_STEP)
+    return params, tokens, batch
+
+
+def _model_dim(spec) -> int | None:
+    """The dim of a leaf that ``spec`` cuts over "model", or None."""
+    from repro_torch.sharding import rules
+    dims = [d for d, e in enumerate(spec)
+            if "model" in rules._entry_axes(e)]
+    return dims[0] if dims else None
+
+
+def tp_rank(rank: int, world: int, out_dir: str, reduced: bool) -> None:
+    """One CPU rank of phase v's (1, world) gloo mesh: saves its shards of
+    the state (bf16; a leaf whole over "model" only from rank 0) and, rank
+    0, the logits, the metrics, the specs and the seconds, to
+    ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import model_config
+    from datetime import timedelta
+    torch.set_num_threads(max(1, 8 // world))
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=V_TIMEOUT))
+    try:
+        t0 = time.perf_counter()
+        cfg = model_config(ARCH, reduced=reduced, layers=V_LAYERS)
+        mesh = make_host_mesh(model=world, device="cpu")
+        params, tokens, batch = tp_inputs(cfg)
+        draw = time.perf_counter() - t0
+        out = tp_work(torch, cfg, mesh, "cpu", params, tokens, batch)
+        del params
+        t0 = time.perf_counter()
+        specs = {n: tuple(sp) for n, sp in out.pop("specs").items()}
+        state = {n: {k: t.bfloat16() for k, t in leaves.items()}
+                 for n, leaves in out.pop("state").items()
+                 if rank == 0 or _model_dim(specs[n]) is not None}
+        torch.save(state, f"{out_dir}/cpu-{rank}.pt")
+        if rank == 0:
+            out["seconds"].update(draw=draw, save=time.perf_counter() - t0)
+            torch.save({**out, "specs": specs}, f"{out_dir}/cpu.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_compare(torch, card: dict, cpu: dict, shards: list, vocab: int,
+               what: str) -> str:
+    """Phase i's logits tolerance and phase j's step tolerances, the card
+    (one rank) against the CPU ranks (``shards``: each rank's state): the
+    logits of every step, loss and gnorm, the masters' update (max|d| <=
+    2.5 lr, at most MASTER_FLIP_FRAC more than lr/100 apart) and m and v
+    per leaf."""
+    la, lb = card["logits"][..., :vocab], cpu["logits"][..., :vocab]
+    if la.shape != lb.shape or not bool(la.isfinite().all()):
+        fail(f"{what}: logits of the wrong shape or not finite")
+    err = max(float((la[t] - lb[t]).abs().max() / lb[t].abs().max())
+              for t in range(lb.shape[0]))
+    mc, mp = card["metrics"], cpu["metrics"]
+    lr = mp["lr"]
+    loss_err = abs(mc["loss"] / mp["loss"] - 1)
+    gnorm_err = abs(mc["gnorm"] / mp["gnorm"] - 1)
+    d_max, n_far, n_all = 0.0, 0, 0
+    mv_err, mv_worst = 0.0, ""
+    for n, whole in card["state"].items():
+        # on the card's device: the CPU ranks' shards go to it
+        dev = whole["m"].device
+        dim = _model_dim(cpu["specs"][n])
+        cuts = [s[n] for s in shards] if dim is not None else [shards[0][n]]
+        sq = {"m": [0.0, 0.0], "v": [0.0, 0.0]}
+        for r, cut in enumerate(cuts):
+            def mine(t):
+                if dim is None:
+                    return t.float()
+                c = t.shape[dim] // len(cuts)
+                return t.narrow(dim, r * c, c).float()
+            d = (mine(whole["update"]) - cut["update"].to(dev).float()).abs()
+            d_max = max(d_max, float(d.max()))
+            n_far += int((d > lr / 100).sum())
+            n_all += d.numel()
+            for k in ("m", "v"):
+                b = cut[k].to(dev).float()
+                sq[k][0] += float(torch.linalg.vector_norm(mine(whole[k]) - b)
+                                  ) ** 2
+                sq[k][1] += float(torch.linalg.vector_norm(b)) ** 2
+        for k, (num, den) in sq.items():
+            e = (num / den) ** 0.5 if den else float(num > 0)
+            if not e <= mv_err:
+                mv_err, mv_worst = e, f"{k} {n}"
+    far = n_far / n_all
+    got = (f"logits max|d|/max|ref| {err:.6f} (tolerance {CPU_TOL}); loss "
+           f"{mc['loss']:.6f} vs {mp['loss']:.6f} (rel {loss_err:.2e}, "
+           f"tolerance {TRAIN_LOSS_RTOL}), gnorm rel {gnorm_err:.2e} "
+           f"(tolerance {TRAIN_GNORM_RTOL}); masters' update: max|d| "
+           f"{d_max / lr:.4f} lr (tolerance 2.5), {far:.6f} of "
+           f"{n_all} more than lr/100 apart (tolerance "
+           f"{MASTER_FLIP_FRAC}); m and v: worst leaf {mv_worst}, "
+           f"||card - CPU|| / ||CPU|| {mv_err:.3e} (tolerance {MV_RTOL})")
+    if mc["lr"] != lr or err > CPU_TOL or loss_err > TRAIN_LOSS_RTOL \
+            or gnorm_err > TRAIN_GNORM_RTOL or d_max > 2.5 * lr \
+            or far > MASTER_FLIP_FRAC or not mv_err <= MV_RTOL:
+        fail(f"{what}: {got}")
+    return got
+
+
+def tp_pair(torch, device, reduced: bool, counted_run) -> tuple:
+    """Phase v's two runs: ``device`` at one rank (through
+    ``counted_run(run)``, which returns (result, counts)) while V_MODEL
+    spawned gloo ranks do the same work on the CPU; returns (the one-rank
+    run, the CPU ranks' (rank 0's outputs, each rank's state), counts,
+    the CPU ranks' seconds)."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from repro_torch import compat
+    from repro_torch.launch.mesh import one_rank_group
+    from repro_torch.launch.serve import model_config
+    from repro_torch.models import api
+    out = ROOT / "build" / "chip_smoke" / "phase_v"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(tp_rank, args=(V_MODEL, str(out), reduced),
+                             nprocs=V_MODEL, join=False,
+                             start_method="spawn")
+    try:
+        cfg = model_config(ARCH, reduced=reduced, layers=V_LAYERS)
+        params, tokens, batch = tp_inputs(cfg)
+        dev = torch.device(device)
+        params = api.map_tree(lambda t: t.to(dev), params)
+        with one_rank_group(dev):
+            mesh = compat.make_mesh((1, 1), ("data", "model"),
+                                    device=device)
+            one, counts = counted_run(lambda: tp_work(
+                torch, cfg, mesh, device, params, tokens.to(dev), batch))
+        del params
+        deadline = t0 + V_TIMEOUT
+        while not ctx.join(timeout=1):
+            if time.perf_counter() > deadline:
+                fail(f"phase v: the CPU ranks still ran after {V_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=10)
+    cpu_s = time.perf_counter() - t0
+    cpu = torch.load(out / "cpu.pt")
+    shards = [torch.load(out / f"cpu-{r}.pt", mmap=True)
+              for r in range(V_MODEL)]
+    shutil.rmtree(out, ignore_errors=True)
+    return one, (cpu, shards), counts, cpu_s
+
+
+def check_phase_v(torch, smi: str) -> dict:
+    """Phase v: qwen2.5-3b at full width and V_LAYERS layers, one rank on
+    the card against V_MODEL tensor-parallel gloo ranks on the CPU: the
+    prefill and decode programs' logits and one netrpc train step."""
+    from repro_torch.launch.serve import model_config
+    cfg = model_config(ARCH, layers=V_LAYERS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    secs = {}
+
+    def on_card(run):
+        result, counts, secs["card"] = counted(
+            torch, run, "phase v (serve and train at one rank)",
+            ("flash_attention", "quantize", "sat_add", "dequantize"))
+        return result, counts
+    card, (cpu, shards), counts, cpu_s = tp_pair(torch, "cuda", False,
+                                                 on_card)
+    if counts["flash_attention"] != V_LAYERS:
+        fail(f"phase v: {counts['flash_attention']} flash launches, not one "
+             f"a layer of the prefill")
+    t1 = time.perf_counter()
+    got = tp_compare(torch, card, cpu, shards, cfg.vocab, "phase v: one "
+                     "rank on the card against the tensor-parallel CPU ranks")
+    compare_s = time.perf_counter() - t1
+    print(f"path v_tensor_parallel: {ARCH}, {V_LAYERS} layers at full width "
+          f"(d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV "
+          f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}), prefill "
+          f"{V_BATCH} x {V_PROMPT} tokens, {V_DECODE} decode steps, one "
+          f"netrpc train step at B={V_BATCH} x S={V_SEQ}: the card at one "
+          f"rank ({secs['card']:.3f} s) against {V_MODEL} gloo ranks of a "
+          f"(1, {V_MODEL}) mesh on the host's CPU ({cpu_s:.3f} s from their "
+          f"spawn; rank 0: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in cpu["seconds"].items())
+          + f"; the comparison {compare_s:.3f} s): {got}; "
+          f"{time.perf_counter() - t0:.3f} s; launches {counts}", flush=True)
+    print(f"path v_tensor_parallel card: {smi}", flush=True)
+    del card, cpu, shards
     torch.cuda.empty_cache()
     return counts
 
@@ -2985,7 +3277,13 @@ def rehearse(scale_down: int = 64) -> None:
         fail("rehearsal of phase u2: the q8 gather changed nothing")
     print(f"rehearsal of phase u2: q8 vs plain "
           f"{lanes_err(q8, plain, cfg.vocab):.6f}", flush=True)
-    print("rehearsal: phases a-u ran on the CPU and met their oracles")
+    # phase v at the reduced width: one CPU rank against the V_MODEL ranks
+    one, (cpu, shards), _, cpu_s = tp_pair(torch, "cpu", True,
+                                           lambda run: (run(), {}))
+    print(f"rehearsal of phase v ({cpu_s:.3f} s): " + tp_compare(
+        torch, one, cpu, shards, model_config(ARCH, reduced=True).vocab,
+        "rehearsal of phase v"), flush=True)
+    print("rehearsal: phases a-v ran on the CPU and met their oracles")
 
 
 def lane_drift(draws: int = 3) -> None:
@@ -3116,7 +3414,8 @@ def main() -> int:
                          ("r", lambda t: check_wire(t, smi)),
                          ("s", lambda t: check_phase_s(t, smi)),
                          ("t", lambda t: check_fsdp(t, smi)),
-                         ("u", lambda t: check_phase_u(t, smi))):
+                         ("u", lambda t: check_phase_u(t, smi)),
+                         ("v", lambda t: check_phase_v(t, smi))):
         t0 = time.perf_counter()
         for name, c in check(torch).items():
             counts[name] = counts.get(name, 0) + c

@@ -14,8 +14,10 @@ ranks of ``torch.distributed.run``, NCCL on the card (one card a rank)
 and gloo with ``--device cpu``, else one rank), each rank holding its
 shards of the params (``--mode``: the arch's zero1 or fsdp by default;
 ``--q8-gather``: fsdp's int8 gather) and its rows of the batch.
-``--model-axis`` is 1: the reference's default of 2 is tensor
-parallelism, which is not ported yet. Prefill builds each rank's cache
+``--model-axis`` (2 by default, as the reference's) is cut to the world,
+as the reference cuts it to its devices: one card serves at a model axis
+of 1, two ranks at one data rank over a model axis of 2, each rank its
+cut of the heads, the ff dim and the vocab. Prefill builds each rank's cache
 (K/V of the attention layers, ``moe`` ones included, a ring of the
 window for a ``local`` layer, the state and conv tail of an ``rglru`` or
 ``ssd`` layer, the memory's K/V of a ``cross`` or ``selfcross`` layer),
@@ -101,11 +103,13 @@ def model_config(arch: str | ArchConfig, reduced: bool = False,
 
 
 def grow_cache(cache: tuple, cfg: ArchConfig, batch: int,
-               total: int) -> tuple:
+               total: int, kv_heads: int | None = None) -> tuple:
     """The prefill cache grown to its decode shape, ``api.cache_specs(cfg,
-    batch, total)``: a leaf of another shape is padded with zeros at the
-    end of each dim (a global K/V's sequence), a leaf of that shape is
-    kept as it is (a local ring, a recurrent state and conv tail)."""
+    batch, total)`` with ``kv_heads`` KV heads (a tensor-parallel rank's
+    count, the decode program's ``meta["kv_heads"][1]``; the config's by
+    default): a leaf of another shape is padded with zeros at the end of
+    each dim (a global K/V's sequence), a leaf of that shape is kept as it
+    is (a local ring, a recurrent state and conv tail)."""
     def grow(t, like):
         if t.shape == like.shape:
             return t
@@ -116,6 +120,8 @@ def grow_cache(cache: tuple, cfg: ArchConfig, batch: int,
         out = t.new_zeros(like.shape)
         out[tuple(slice(0, n) for n in t.shape)] = t
         return out
+    if kv_heads is not None:
+        cfg = replace(cfg, n_kv_heads=kv_heads)
     specs = api.cache_specs(cfg, batch, total)
     return tuple({s: {k: grow(t, sg[s][k]) for k, t in e.items()}
                   for s, e in g.items()} for g, sg in zip(cache, specs))
@@ -130,10 +136,10 @@ def serve(*, arch: str | ArchConfig, prompt_len: int, decode_n: int,
           batch: int, reduced: bool = False, flash: bool = True,
           device=None, layers: int | None = None, params=None, tokens=None,
           feed=None, seed: int = 0, mode: str | None = None,
-          q8: bool = False, model_axis: int = 1) -> dict:
+          q8: bool = False, model_axis: int = 2) -> dict:
     """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
     ``decode_n`` tokens greedily, through ``build_serve_step``'s programs
-    on a ``make_host_mesh(model_axis)`` mesh over the world
+    on a ``make_host_mesh(min(model_axis, world))`` mesh over the world
     (``world_group``). ``params`` (the full tree) and ``tokens`` (B,
     prompt_len) default to random weights from ``seed`` and a uniform
     batch; each rank keeps its shards of ``params``. ``feed`` (B,
@@ -157,7 +163,8 @@ def serve(*, arch: str | ArchConfig, prompt_len: int, decode_n: int,
     b = tokens.shape[0]
     inputs = pipeline.add_modality_stubs({"tokens": tokens}, cfg, b)
     with world_group(dev):
-        mesh = make_host_mesh(model=model_axis, device=dev)
+        mesh = make_host_mesh(model=min(model_axis, dist.get_world_size()),
+                              device=dev)
         lead = dist.get_rank() == 0
         kw = dict(mode=mode, q8=q8, flash=flash, device=dev)
         pf = steps.build_serve_step(
@@ -175,7 +182,8 @@ def serve(*, arch: str | ArchConfig, prompt_len: int, decode_n: int,
             if lead else None
         t0 = time.perf_counter()
         logits, cache = pf.fn(params, inputs)
-        cache = grow_cache(cache, cfg, b // pf.meta["n_dp"], total)
+        cache = grow_cache(cache, cfg, b // pf.meta["n_dp"], total,
+                           pf.meta["kv_heads"][1])
         _sync(dev)
         t1 = time.perf_counter()
         toks = [logits.argmax(-1)]
@@ -229,9 +237,9 @@ def main() -> None:
     ap.add_argument("--q8-gather", dest="q8", action="store_true",
                     help="fsdp's param gather in int8 (the reference's "
                     "REPRO_QUANTIZED_GATHER=1)")
-    ap.add_argument("--model-axis", type=int, default=1,
-                    help="the mesh's model axis; 1 until tensor "
-                    "parallelism is ported (the reference's default is 2)")
+    ap.add_argument("--model-axis", type=int, default=2,
+                    help="the mesh's model axis (tensor parallelism), cut "
+                    "to the world")
     args = ap.parse_args()
     serve(arch=args.arch, prompt_len=args.prompt_len, decode_n=args.decode,
           batch=args.batch, reduced=args.reduced, flash=args.flash,

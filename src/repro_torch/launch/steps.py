@@ -24,11 +24,14 @@ rows per rank) or sequence-sharded (a batch too small to split: the
 partial-softmax combine in ``models/attention.py``).
 
 The reference runs each step as one ``jit(shard_map(...))`` over a mesh,
-manual over the data axes; here it is eager PyTorch, one process a rank
+manual over the data axes and auto over "model", where GSPMD inserts the
+tensor-parallel collectives; here it is eager PyTorch, one process a rank
 of a ``compat.make_mesh`` mesh (NCCL on the card, gloo with
-``device="cpu"``), each holding its shards as plain tensors. Tensor
-parallelism (a "model" axis above 1) raises ``NotImplementedError``
-(ROADMAP: several cards).
+``device="cpu"``), each holding its shards as plain tensors, and the
+model axis' collectives are placed by hand (``sharding/tp.py``,
+``Ctx.model``). Tensor parallelism (a "model" axis above 1) runs for
+configs whose blocks are all ``blocks.TP_BLOCKS``; the other block types
+raise ``NotImplementedError`` (ROADMAP: several cards).
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 import repro_torch.api as inc
+from repro_torch import compat
 from repro_torch.api import DrainPolicy, IncFuture, IncRuntime
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core import inc_agg
@@ -48,7 +52,8 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import api
 from repro_torch.obs import hooks as _obs
 from repro_torch.optim import adamw
-from repro_torch.sharding import rules
+from repro_torch.models import blocks
+from repro_torch.sharding import rules, tp
 
 SEQ_SHARDED_BLOCKS = ("global", "moe", "selfcross")
 
@@ -458,10 +463,27 @@ class Program:
     meta: dict
 
 
-def _several_cards(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: tensor parallelism (a 'model' mesh "
-        f"axis above 1) comes with a later slice (ROADMAP: several cards)")
+def _model_axis(cfg: ArchConfig, mesh, n_model: int):
+    """The mesh's "model" axis when it holds more than one rank (tensor
+    parallelism), else None. Raises ``NotImplementedError`` naming the
+    first block type of ``cfg`` that is not ported for it."""
+    if n_model == 1:
+        return None
+    kinds = [bt for pat, _ in cfg.pattern_groups for bt in pat]
+    if cfg.is_encdec:
+        kinds.insert(0, "bidir")
+    for bt in kinds:
+        if bt not in blocks.TP_BLOCKS:
+            raise NotImplementedError(
+                f"tensor parallelism over a 'model' mesh axis of {n_model} "
+                f"is not ported for the {bt!r} block of {cfg.name} yet "
+                f"(ROADMAP: several cards)")
+    return mesh.axes["model"]
+
+
+def _model_cut(spec: rules.PartitionSpec) -> bool:
+    """Whether a leaf of ``spec`` is cut over the "model" axis."""
+    return any("model" in rules._entry_axes(e) for e in spec)
 
 
 def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
@@ -470,8 +492,11 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                      device=None) -> Program:
     """The train step of ``cfg`` at ``shape`` on ``mesh`` (a
     ``compat.make_mesh`` mesh over ("data", "model") or ("pod", "data",
-    "model"), any data size, model 1), its tensors on ``device`` (the
-    card by default). This process is one rank of the mesh.
+    "model"), any data size; a model axis above 1 for configs of
+    ``blocks.TP_BLOCKS`` only), its tensors on ``device`` (the card by
+    default). This process is one rank of the mesh; the ranks of one
+    data index take the same rows and hold their cuts of the leaves that
+    ``rules.tp_dim`` cuts.
 
     ``prog.fn(params, opt, batch, step)`` -> ``(params, opt, {"loss",
     "gnorm", "lr"})``, the metrics 0-d fp32 tensors. ``batch`` is the
@@ -495,9 +520,7 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     names = tuple(a for a in ("pod", "data") if a in mesh.names)
     axes = rules.MeshAxes(data=names)
     n_dp, n_model = axes.sizes(mesh)
-    if n_model != 1:
-        raise _several_cards(f"a mesh of {n_dp} data x {n_model} model "
-                             f"ranks")
+    model = _model_axis(cfg, mesh, n_model)
     manual = mesh.axes_of(names)
     if n_micro is None:
         n_micro = default_n_micro(cfg, shape, n_dp)
@@ -514,6 +537,9 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     ospecs = opt_specs(pspecs, dims, names)
     bspecs = _batch_specs(cfg, shape, names)
     fsdp = mode == "fsdp"
+    # the specs name "model" on a leaf's TP dim at any model size
+    cut = {name: model is not None and _model_cut(sp)
+           for name, sp in pspecs.items()}
 
     def grads_of(params, leaves, flat_d, mb):
         """fp32 gradient per leaf summed over the microbatches (in fsdp
@@ -545,9 +571,10 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                         gather_unstacked(params, dims, manual, inc, sink),
                         cfg, mb_i, remat=True,
                         param_gather=make_param_gather(dims, manual, inc,
-                                                       sink))
+                                                       sink), model=model)
                 else:
-                    loss, _ = api.train_loss(params, cfg, mb_i, remat=True)
+                    loss, _ = api.train_loss(params, cfg, mb_i, remat=True,
+                                             model=model)
                 grads = list(torch.autograd.grad(
                     loss, anchor + [leaves[j][1] for j in wrt],
                     allow_unused=True, materialize_grads=True))[len(anchor):]
@@ -568,10 +595,13 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                              manual) / torch.full_like(loss_sum, n_dp)
         return gacc, loss
 
-    def aggregate(gacc, flat_d):
+    def aggregate(gacc, flat_d, flat_cut):
         """Each leaf's mean over the ranks: INC reduce-scattered along its
         scatter dim (in fsdp already reduced by the gathers' backward),
-        or summed where it has none."""
+        or summed where it has none. The global norm sums the squares of
+        a scattered chunk over the data axes and, for a leaf cut over
+        "model", of every leaf over the model axis too; a leaf whole over
+        "model" is the same on each of its ranks and counts once."""
         inv = 1.0 / (n_micro * n_dp)
         agg = []
         for j, d in enumerate(flat_d):
@@ -584,12 +614,16 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
             else:
                 agg.append(inc_agg._psum(g, manual).mul_(inv))
             del g
-        sq_scat = sum(torch.sum(torch.square(g))
-                      for g, d in zip(agg, flat_d) if d >= 0)
-        sq_repl = sum(torch.sum(torch.square(g))
-                      for g, d in zip(agg, flat_d) if d < 0)
-        gnorm = torch.sqrt(inc_agg._psum(torch.as_tensor(
-            sq_scat, dtype=torch.float32, device=dev), manual) + sq_repl)
+        sq = {(s, c): torch.zeros((), dtype=torch.float32, device=dev)
+              for s in (True, False) for c in (True, False)}
+        for g, d, c in zip(agg, flat_d, flat_cut):
+            sq[(d >= 0, c)] = sq[(d >= 0, c)] + torch.sum(torch.square(g))
+        sq_scat, sq_repl = sq[(True, False)], sq[(False, False)]
+        if model is not None:
+            over = inc_agg._psum(torch.stack([sq[(True, True)],
+                                              sq[(False, True)]]), (model,))
+            sq_scat, sq_repl = sq_scat + over[0], sq_repl + over[1]
+        gnorm = torch.sqrt(inc_agg._psum(sq_scat, manual) + sq_repl)
         return agg, gnorm
 
     def update(opt, leaves, flat_d, agg, factor, lr, step):
@@ -617,6 +651,7 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         clock.marks = []
         leaves = api.named_leaves(params)
         flat_d = [dims[name] for name, _ in leaves]
+        flat_cut = [cut[name] for name, _ in leaves]
         # every input (the tokens, and whisper's frames or a VLM's
         # patches): this rank's rows of the global batch, split into the
         # microbatches along the batch dim
@@ -630,7 +665,7 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         clock.mark()
         gacc, loss = grads_of(params, leaves, flat_d, mb)   # local grads
         clock.mark()
-        agg, gnorm = aggregate(gacc, flat_d)           # INC aggregation
+        agg, gnorm = aggregate(gacc, flat_d, flat_cut)   # INC aggregation
         clock.mark()
         factor = adamw.clip_factor(gnorm, opt_cfg.grad_clip)
         lr = adamw.schedule(opt_cfg, step, device=dev)
@@ -687,23 +722,33 @@ def init_opt(params, specs: dict | None = None, mesh=None) -> dict:
 # ---------------------------------------------------------------------------
 
 def _cache_manual_specs(cfg: ArchConfig, shape: ShapeConfig,
-                        dp: tuple[str, ...], seq_sharded: bool):
+                        dp: tuple[str, ...], seq_sharded: bool,
+                        n_model: int = 1):
     """(the cache at the global shape as meta tensors, its specs: the same
     tree of PartitionSpecs). Batch-sharded, every leaf's rows (dim 1,
     after the layer dim) go by data rank; sequence-sharded, the K/V of
     ``SEQ_SHARDED_BLOCKS`` are cut along the sequence (dim 2) and the rest
     (local rings, recurrent states, a memory's K/V) is whole on every
-    rank. The reference's specs over "model" come with tensor
-    parallelism."""
+    rank. Over a model axis above 1 the K/V heads (dim 3) are cut over
+    "model" when they split, as in the reference. When they do not, the
+    reference cuts ``head_dim``; the port keeps on each rank, whole, the
+    KV heads its query heads read (``tp.kv_heads``, which ``shard_cache``
+    takes: no spec entry says it; ROADMAP, queue 3)."""
     cspecs = api.cache_specs(cfg, shape.global_batch, shape.seq_len)
     dp = dp if len(dp) > 1 else dp[0]
+    kv = cfg.n_kv_heads
 
     def spec(bt: str, key: str):
         if not seq_sharded:
-            return rules.P(None, dp)
-        if bt in SEQ_SHARDED_BLOCKS and key in ("k", "v"):
-            return rules.P(None, None, dp)
-        return rules.P()
+            entries = [None, dp]
+        elif bt in SEQ_SHARDED_BLOCKS and key in ("k", "v"):
+            entries = [None, None, dp]
+        else:
+            entries = []
+        if n_model > 1 and key in ("k", "v", "mk", "mv") \
+                and kv % n_model == 0 and kv >= n_model:
+            entries += [None] * (3 - len(entries)) + ["model"]
+        return rules.P(*entries)
     specs = tuple({s: {k: spec(pat[int(s[1:])], k) for k in e}
                    for s, e in g.items()}
                   for (pat, _), g in zip(cfg.pattern_groups, cspecs))
@@ -713,22 +758,35 @@ def _cache_manual_specs(cfg: ArchConfig, shape: ShapeConfig,
 def shard_cache(cache: tuple, program: Program) -> tuple:
     """This rank's shard of a full decode cache under the program's
     ``meta["cache_specs"]`` (``rules.shard_of``: a leaf that is not cut is
-    the caller's tensor, which the decode then writes in place)."""
-    specs = program.meta["cache_specs"]
-    return tuple({s: {k: rules.shard_of(t, sg[s][k], program.mesh)
-                      for k, t in e.items()} for s, e in g.items()}
-                 for g, sg in zip(cache, specs))
+    the caller's tensor, which the decode then writes in place); over a
+    model axis whose cut the specs do not say, the K/V keep the rank's
+    ``meta["kv_heads"]`` (first, count)."""
+    specs, mesh = program.meta["cache_specs"], program.mesh
+    first, count = program.meta["kv_heads"]
+
+    def one(key, t, spec):
+        t = rules.shard_of(t, spec, mesh)
+        if key not in ("k", "v") or _model_cut(spec) \
+                or count == t.shape[3]:
+            return t
+        return t.narrow(3, first, count).clone(
+            memory_format=torch.contiguous_format)
+    return tuple({s: {k: one(k, t, sg[s][k]) for k, t in e.items()}
+                  for s, e in g.items()} for g, sg in zip(cache, specs))
 
 
 def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                      mode: str | None = None, q8: bool = False,
                      flash: bool = True, device=None) -> Program:
     """The prefill or decode program of ``cfg`` (``shape.kind``) on
-    ``mesh`` (data axes of any size, model 1), its tensors on ``device``
-    (the card by default). This process is one rank of the mesh;
+    ``mesh`` (data axes of any size; a model axis above 1 for configs of
+    ``blocks.TP_BLOCKS`` only), its tensors on ``device`` (the card by
+    default). This process is one rank of the mesh;
     ``params`` are this rank's shards under ``meta["param_specs"]`` (in
     fsdp the scattered leaves are chunks: the non-stacked ones are
-    gathered whole at each call, each layer's inside the layer loop).
+    gathered whole at each call, each layer's inside the layer loop;
+    over "model" the leaves that ``rules.tp_dim`` cuts are this rank's
+    cut, and the cache holds the rank's ``meta["kv_heads"]``).
     The gather is ``all_gather_dim`` (the leaf itself when the data axes
     hold one rank, where the reference's XLA drops it), or with ``q8``
     the int8 ``all_gather_dim_q8``, which quantizes at one rank too (the
@@ -760,9 +818,9 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     names = tuple(a for a in ("pod", "data") if a in mesh.names)
     axes = rules.MeshAxes(data=names)
     n_dp, n_model = axes.sizes(mesh)
-    if n_model != 1:
-        raise _several_cards(f"a mesh of {n_dp} data x {n_model} model "
-                             f"ranks")
+    model = _model_axis(cfg, mesh, n_model)
+    kv_heads = tp.kv_heads(cfg.n_heads, cfg.n_kv_heads, n_model,
+                           0 if model is None else compat.axis_index(model))
     seq_sharded = shape.global_batch % n_dp != 0
     if seq_sharded and shape.kind == "prefill":
         raise ValueError(f"a prefill batch of {shape.global_batch} does not "
@@ -777,7 +835,7 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     shapes = api.param_shapes(cfg)
     dims = scatter_dims_tree(shapes, n_dp, n_model)
     pspecs = rules.param_specs(shapes, axes, mesh, mode)
-    _, cspecs = _cache_manual_specs(cfg, shape, names, seq_sharded)
+    _, cspecs = _cache_manual_specs(cfg, shape, names, seq_sharded, n_model)
     serve_inc = IncAggConfig(mode="xla-psum")
     fsdp = mode == "fsdp"
 
@@ -818,7 +876,8 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
 
     meta = {"mode": mode, "kind": shape.kind, "n_dp": n_dp,
             "n_model": n_model, "manual": names, "param_specs": pspecs,
-            "cache_specs": cspecs, "seq_sharded": seq_sharded}
+            "cache_specs": cspecs, "seq_sharded": seq_sharded,
+            "kv_heads": kv_heads}
     if shape.kind == "prefill":
         bspecs = _batch_specs(cfg, shape, names)
 
@@ -828,7 +887,8 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                 check_rows(f"batch[{k!r}]", v)
                 local[k] = rules.shard_of(v, bspecs[k], mesh).to(dev)
             logits, cache = api.prefill(prep(params), cfg, local,
-                                        flash=flash, param_gather=gather)
+                                        flash=flash, param_gather=gather,
+                                        model=model)
             return rows(logits), cache
         return Program(fn=prefill_fn, mesh=mesh, meta=meta)
 
@@ -841,6 +901,6 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         tok = rules.shard_of(token, tok_spec, mesh).to(dev)
         logits, cache = api.decode_step(prep(params), cfg, tok, pos, cache,
                                         seq_axes=seq_axes,
-                                        param_gather=gather)
+                                        param_gather=gather, model=model)
         return (logits if seq_sharded else rows(logits)), cache
     return Program(fn=decode_fn, mesh=mesh, meta=meta)

@@ -14,15 +14,18 @@ step (``launch/steps.py``, ``--mode zero1`` or ``fsdp``, by default the
 arch's ``rules.mode_for``), the CntFwd elastic quorum (``--quorum``; one
 vote a dp rank and step), the metric telemetry on the port's
 ``IncRuntime``, and checkpoint/restart with the step-parity exactly-once
-gate. Weights are random, from a seed. One process is one data-parallel
-rank of a ``make_host_mesh`` mesh over the world that
+gate. Weights are random, from a seed. One process is one rank of a
+``make_host_mesh`` mesh over the world that
 ``torch.distributed.run`` initialized (``RANK`` and ``WORLD_SIZE`` in the
 environment; on the card each rank takes ``cuda:LOCAL_RANK``); without
 that environment the loop makes a group of one rank (a free port on
 localhost) unless one is already initialized. Rank 0 alone runs the
 telemetry, as the reference's single controller does, and prints.
-``--model-axis`` is 1: the reference's default of 2 is tensor
-parallelism, which is not ported yet.
+``--model-axis`` (2 by default, as the reference's) is cut to the world,
+as the reference cuts it to its devices: ranks ``m * i .. m * i + m - 1``
+are the tensor-parallel ranks of data index ``i`` (``make_host_mesh``,
+row-major over ("data", "model")), so ``--nproc-per-node 2`` runs one data
+rank over a model axis of 2, and one card (one rank) a model axis of 1.
 """
 from __future__ import annotations
 
@@ -91,10 +94,10 @@ def train_loop(*, arch: str, inc_mode: str, steps_n: int, seq: int,
                resume: bool = True, data_kind: str = "bigram",
                log_every: int = 10, n_micro: int = 1, quorum: float = 1.0,
                device=None, layers: int | None = None,
-               mode: str | None = None, model_axis: int = 1) -> dict:
+               mode: str | None = None, model_axis: int = 2) -> dict:
     """Train ``arch`` for ``steps_n`` steps on ``device`` (the card by
-    default), this process one rank of a ``make_host_mesh(model_axis)``
-    mesh over the world (``world_group``), in ``mode`` (zero1 or fsdp;
+    default), this process one rank of a ``make_host_mesh(min(model_axis,
+    world))`` mesh over the world (``world_group``), in ``mode`` (zero1 or fsdp;
     the arch's by default). Returns the losses, gnorms and seconds of
     every step run, this rank's params and optimizer state, the
     telemetry summary (rank 0; None elsewhere) and the bigram loss
@@ -102,7 +105,8 @@ def train_loop(*, arch: str, inc_mode: str, steps_n: int, seq: int,
     dev = resolve_device(device)
     cfg = model_config(arch, reduced, layers)
     with world_group(dev):
-        mesh = make_host_mesh(model=model_axis, device=dev)
+        mesh = make_host_mesh(model=min(model_axis, dist.get_world_size()),
+                              device=dev)
         lead = dist.get_rank() == 0
         shape = ShapeConfig("cli_train", seq_len=seq, global_batch=batch,
                             kind="train")
@@ -204,9 +208,9 @@ def main() -> None:
                     help="cut the depth to N layers")
     ap.add_argument("--mode", choices=("zero1", "fsdp"), default=None,
                     help="the arch's (sharding.rules.mode_for) by default")
-    ap.add_argument("--model-axis", type=int, default=1,
-                    help="the mesh's model axis; 1 until tensor "
-                    "parallelism is ported (the reference's default is 2)")
+    ap.add_argument("--model-axis", type=int, default=2,
+                    help="the mesh's model axis (tensor parallelism), cut "
+                    "to the world")
     args = ap.parse_args()
     out = train_loop(arch=args.arch, inc_mode=args.inc_mode,
                      steps_n=args.steps, seq=args.seq, batch=args.batch,

@@ -35,6 +35,17 @@ holds ``tokens`` and, for the two families with a memory, ``frames`` or
 layer in ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint``
 on the reference's scan body), so only the layer inputs stay alive
 between the forward and the backward pass.
+
+``model`` (``forward``, ``train_loss``, ``prefill``, ``decode_step``) is
+the mesh's "model" axis under tensor parallelism (``Ctx.model``): the
+params are this rank's cut (``rules.tp_dim``). The embedding is then
+vocab-parallel: each rank looks up the ids in its rows of the table, the
+others' rows masked to zero, and the lookups are summed over the axis
+(exact: one term a token is not zero). The logits are this rank's vocab
+columns, their pad columns found by their global index, gathered whole
+over the axis (``tp.gather_model``), so the loss and the serve programs
+see the full logits on every rank: a rank holds (B, S, V) logits, not
+its (B, S, V / n) shard.
 """
 from __future__ import annotations
 
@@ -43,6 +54,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import compat
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import blocks
@@ -50,6 +62,7 @@ from repro_torch.models.blocks import Ctx
 from repro_torch.models.common import (COMPUTE_DTYPE, dense_init, rms_norm,
                                        rms_norm_init, sinusoid_freqs,
                                        sinusoidal_positions)
+from repro_torch.sharding import tp
 
 
 AUX_COEF = 0.01
@@ -186,19 +199,40 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
 # embeddings / memory / logits
 # ---------------------------------------------------------------------------
 
-def _scaled_embed(params: Tree, cfg: ArchConfig,
-                  tokens: torch.Tensor) -> torch.Tensor:
+def _vocab_model(w: torch.Tensor, cfg: ArchConfig, model):
+    """(the first vocab row this rank holds, the model axis) when the
+    vocab rows of ``w`` (V, d) are cut over ``model``, else (0, None)."""
+    if model is None or w.shape[0] == cfg.vocab_padded:
+        return 0, None
+    return compat.axis_index(model) * w.shape[0], model
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig,
+            model) -> torch.Tensor:
+    """The rows of ``tokens``; with the vocab cut over ``model``, each
+    rank's rows of its own ids (the others zero), summed over the axis."""
+    first, model = _vocab_model(table, cfg, model)
+    if model is None:
+        return table[tokens]
+    ids = tokens.long() - first
+    mine = (ids >= 0) & (ids < table.shape[0])
+    rows = table[ids.clamp(0, table.shape[0] - 1)]
+    return tp.from_model(rows.masked_fill(~mine[..., None], 0), model)
+
+
+def _scaled_embed(params: Tree, cfg: ArchConfig, tokens: torch.Tensor,
+                  model=None) -> torch.Tensor:
     """Embeddings times sqrt(d) rounded to bf16, as the reference's
     bf16 x bf16 product (a Python scalar, so no copy to the card)."""
-    x = params["embed"][tokens].to(COMPUTE_DTYPE)
+    x = _lookup(params["embed"], tokens, cfg, model).to(COMPUTE_DTYPE)
     return x * float(torch.tensor(cfg.d_model ** 0.5, dtype=COMPUTE_DTYPE))
 
 
-def _embed(params: Tree, cfg: ArchConfig,
-           tokens: torch.Tensor) -> torch.Tensor:
+def _embed(params: Tree, cfg: ArchConfig, tokens: torch.Tensor,
+           model=None) -> torch.Tensor:
     """(B, S) tokens -> (B, S, d); whisper's decoder adds its absolute
     sinusoidal positions."""
-    x = _scaled_embed(params, cfg, tokens)
+    x = _scaled_embed(params, cfg, tokens, model)
     if cfg.is_encdec:
         x = x + sinusoidal_positions(tokens.shape[1], cfg.d_model,
                                      x.device).to(COMPUTE_DTYPE)
@@ -206,10 +240,10 @@ def _embed(params: Tree, cfg: ArchConfig,
 
 
 def _decode_embed(params: Tree, cfg: ArchConfig, token: torch.Tensor,
-                  pos: int) -> torch.Tensor:
+                  pos: int, model=None) -> torch.Tensor:
     """(B,) tokens at ``pos`` -> (B, 1, d); whisper's position row is
     computed alone, as the reference does."""
-    x = _scaled_embed(params, cfg, token[:, None])
+    x = _scaled_embed(params, cfg, token[:, None], model)
     if cfg.is_encdec:
         ang = float(pos) * sinusoid_freqs(cfg.d_model, x.device)
         x = x + torch.cat([torch.sin(ang), torch.cos(ang)]).to(COMPUTE_DTYPE)
@@ -244,13 +278,24 @@ def encode(params: Tree, cfg: ArchConfig, frames: torch.Tensor,
     return rms_norm(x, params["enc"]["norm"], cfg.norm_eps)
 
 
-def logits_of(params: Tree, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def logits_of(params: Tree, cfg: ArchConfig, x: torch.Tensor,
+              model=None) -> torch.Tensor:
     """Logits over the PADDED vocab; padded columns are -1e30, so
-    softmax and argmax ignore them."""
+    softmax and argmax ignore them. With the vocab rows cut over
+    ``model``, this rank's columns (the pad ones found by their global
+    index: all of qwen2.5-3b's lie in the last rank's) gathered whole."""
     w = params["lm_head"] if "lm_head" in params else params["embed"]
-    logits = torch.einsum("bsd,vd->bsv", x, w)
-    logits[..., cfg.vocab:] = -1e30
-    return logits
+    first, model = _vocab_model(w, cfg, model)
+    logits = tp.column(tp.einsum("bsd,vd->bsv"), x, w, model)
+    pad = max(cfg.vocab - first, 0)
+    if model is None:
+        logits[..., pad:] = -1e30          # in place: the largest tensor
+    elif pad < logits.shape[-1]:
+        # out of place: autograd forbids writing into a custom Function's
+        # output
+        cols = torch.arange(logits.shape[-1], device=logits.device)
+        logits = logits.masked_fill(cols >= pad, -1e30)
+    return tp.gather_model(logits, -1, model)
 
 
 # ---------------------------------------------------------------------------
@@ -299,29 +344,32 @@ def _stack_train(params: Tree, cfg: ArchConfig, x: torch.Tensor, ctx: Ctx,
 
 
 def forward(params: Tree, cfg: ArchConfig, batch: dict, remat: bool = True,
-            param_gather=None) -> tuple[torch.Tensor, torch.Tensor]:
+            param_gather=None, model=None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """batch["tokens"]: (B, S) int -> (logits (B, S, V), aux), with the
     plain attention: the flash kernel has no backward. ``param_gather``
-    is the fsdp mode's per-layer gather (``Ctx.param_gather``)."""
+    is the fsdp mode's per-layer gather (``Ctx.param_gather``), ``model``
+    the model axis (``Ctx.model``)."""
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     ctx = Ctx(cfg=cfg, positions=positions, param_gather=param_gather,
-              memory=_memory(params, cfg, batch, param_gather))
-    x = _embed(params, cfg, tokens)
+              memory=_memory(params, cfg, batch, param_gather), model=model)
+    x = _embed(params, cfg, tokens, model)
     x, aux = _stack_train(params, cfg, x, ctx, remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return logits_of(params, cfg, x), aux
+    return logits_of(params, cfg, x, model), aux
 
 
 def train_loss(params: Tree, cfg: ArchConfig, batch: dict,
-               remat: bool = True, param_gather=None
+               remat: bool = True, param_gather=None, model=None
                ) -> tuple[torch.Tensor, dict]:
     """batch["tokens"]: (B, S+1) -> next-token cross-entropy (+ MoE aux),
-    the log-sum-exp in fp32."""
+    the log-sum-exp in fp32 over the whole vocab (under ``model`` the
+    gathered logits: the same loss on every rank of the axis)."""
     tokens = batch["tokens"]
     inp = {**batch, "tokens": tokens[:, :-1]}
     tgt = tokens[:, 1:].long()
-    logits, aux = forward(params, cfg, inp, remat, param_gather)
+    logits, aux = forward(params, cfg, inp, remat, param_gather, model)
     lse = torch.logsumexp(logits.float(), dim=-1)
     tl = torch.gather(logits, -1, tgt[..., None])[..., 0]
     ce = torch.mean(lse - tl.float())
@@ -337,18 +385,20 @@ def _unit(gp, ctx: Ctx, gi: int, n_slots: int, layer: int) -> dict:
 
 
 def prefill(params: Tree, cfg: ArchConfig, batch: dict, *,
-            flash: bool = False, param_gather=None
+            flash: bool = False, param_gather=None, model=None
             ) -> tuple[torch.Tensor, tuple]:
     """batch["tokens"]: (B, S) -> (last-position logits (B, V), cache).
     ``flash`` runs the causal attention through the flash kernel (kernel
     11); the encoder and the cross-attention take the dense lane.
     ``param_gather`` gathers each layer's params before it runs (the fsdp
-    serve gather, ``Ctx.param_gather``)."""
+    serve gather, ``Ctx.param_gather``); under ``model`` the cache holds
+    this rank's KV heads (``tp.kv_heads``) and the logits are whole."""
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     ctx = Ctx(cfg=cfg, positions=positions, param_gather=param_gather,
-              memory=_memory(params, cfg, batch, param_gather), flash=flash)
-    x = _embed(params, cfg, tokens)
+              memory=_memory(params, cfg, batch, param_gather), flash=flash,
+              model=model)
+    x = _embed(params, cfg, tokens, model)
     cache = []
     for gi, (pat, n) in enumerate(cfg.pattern_groups):
         gp = params["groups"][gi]
@@ -362,18 +412,20 @@ def prefill(params: Tree, cfg: ArchConfig, batch: dict, *,
         cache.append({s: {k: torch.stack([c[k] for c in cs])
                           for k in cs[0]} for s, cs in entries.items()})
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return logits_of(params, cfg, x)[:, 0], tuple(cache)
+    return logits_of(params, cfg, x, model)[:, 0], tuple(cache)
 
 
 def decode_step(params: Tree, cfg: ArchConfig, token: torch.Tensor,
                 pos: int, cache: tuple, seq_axes: tuple | None = None,
-                param_gather=None) -> tuple[torch.Tensor, tuple]:
+                param_gather=None, model=None) -> tuple[torch.Tensor, tuple]:
     """token: (B,) int, pos: int -> (logits (B, V), cache). The cache is
     updated in place and returned. ``seq_axes`` (``compat.Axis``
     objects): the global K/V hold this rank's cut of the positions
-    (``attention.KVLayout``); ``param_gather`` as in ``prefill``."""
-    ctx = Ctx(cfg=cfg, seq_axes=seq_axes, param_gather=param_gather)
-    x1 = _decode_embed(params, cfg, token, pos)
+    (``attention.KVLayout``); ``param_gather`` and ``model`` as in
+    ``prefill``."""
+    ctx = Ctx(cfg=cfg, seq_axes=seq_axes, param_gather=param_gather,
+              model=model)
+    x1 = _decode_embed(params, cfg, token, pos, model)
     for gi, (pat, n) in enumerate(cfg.pattern_groups):
         gp, gc = params["groups"][gi], cache[gi]
         for layer in range(n):
@@ -384,7 +436,7 @@ def decode_step(params: Tree, cfg: ArchConfig, token: torch.Tensor,
                                             pos, ctx)
             del unit     # a gathered layer freed before the next is gathered
     x1 = rms_norm(x1, params["final_norm"], cfg.norm_eps)
-    return logits_of(params, cfg, x1)[:, 0], cache
+    return logits_of(params, cfg, x1, model)[:, 0], cache
 
 
 def cache_specs(cfg: ArchConfig, batch: int, seq_len: int) -> tuple:

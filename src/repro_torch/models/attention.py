@@ -32,6 +32,12 @@ may be sharded along the sequence over data-parallel mesh axes
 each rank then attends to its own positions and the ranks combine their
 partial softmaxes (a ``pmax`` and two ``psum``s over the axes,
 ``core/inc_agg.py``'s collectives) instead of gathering the cache.
+
+Under tensor parallelism the caller hands over this rank's heads (its
+cut of wq, wk, wv and wo, ``blocks._tp_attn``) and the model axis as
+``model``: the projections to the heads are ``tp.column`` products and
+the output projection, whose contracting head dim is then cut, is summed
+over the axis (``tp.row``). Head counts come from the tensors' shapes.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ from repro_torch import compat
 from repro_torch.core import inc_agg
 from repro_torch.kernels import ops
 from repro_torch.models.common import COMPUTE_DTYPE, apply_rope, dense_init
+from repro_torch.sharding import tp
 
 NEG_INF = -1e30
 # above this seq len, causal attention loops over query chunks (peak
@@ -77,32 +84,38 @@ def init_attn(gen, d_model: int, n_heads: int, n_kv: int, head_dim: int,
     return p
 
 
-def qkv(p: dict, x: torch.Tensor, x_kv: torch.Tensor | None = None):
+def qkv(p: dict, x: torch.Tensor, x_kv: torch.Tensor | None = None,
+        model=None):
     """x: (B,S,d) -> q (B,S,H,hd), k/v (B,Skv,KV,hd) of ``x_kv`` (a
     memory (B,Skv,d)), or of ``x`` when it is None."""
-    k, v = memory_kv(p, x if x_kv is None else x_kv)
-    return query(p, x), k, v
+    k, v = memory_kv(p, x if x_kv is None else x_kv, model)
+    return query(p, x, model), k, v
 
 
-def query(p: dict, x: torch.Tensor) -> torch.Tensor:
+_PROJ = tp.einsum("bsd,dhk->bshk")
+
+
+def query(p: dict, x: torch.Tensor, model=None) -> torch.Tensor:
     """x: (B,S,d) -> q (B,S,H,hd)."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = tp.column(_PROJ, x, p["wq"], model)
     return q + p["bq"] if "bq" in p else q
 
 
-def memory_kv(p: dict, memory: torch.Tensor):
+def memory_kv(p: dict, memory: torch.Tensor, model=None):
     """K/V (B,M,KV,hd) of a memory (B,M,d): a cross-attention layer's,
     projected once at prefill for the decode cache."""
-    k = torch.einsum("bsd,dhk->bshk", memory, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", memory, p["wv"])
+    k = tp.column(_PROJ, memory, p["wk"], model)
+    v = tp.column(_PROJ, memory, p["wv"], model)
     if "bk" in p:
         k = k + p["bk"]
         v = v + p["bv"]
     return k, v
 
 
-def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+def out_proj(p: dict, o: torch.Tensor, model=None) -> torch.Tensor:
+    """o (B,S,H,hd) -> (B,S,d); with ``model`` (wo's heads cut over that
+    axis) the partial products summed over it."""
+    return tp.row(tp.einsum("bshk,hkd->bsd"), o, p["wo"], model)
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +125,8 @@ def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
 def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
     """(B,S,H,hd) -> (B,S,KV,G,hd)."""
     b, s, h, hd = q.shape
+    if h % n_kv:
+        raise ValueError(f"{h} query heads do not group over {n_kv} KV heads")
     return q.reshape(b, s, n_kv, h // n_kv, hd)
 
 
@@ -197,33 +212,38 @@ def attn_local(q, k, v, n_kv: int, window: int) -> torch.Tensor:
 def attn_train(p: dict, x: torch.Tensor, *, n_kv: int, kind: str,
                theta: float, positions: torch.Tensor,
                window: int | None = None, flash: bool = False,
-               memory: torch.Tensor | None = None) -> torch.Tensor:
+               memory: torch.Tensor | None = None, model=None
+               ) -> torch.Tensor:
     """One attention sub-layer over a full sequence (``kind`` "global",
     "local", "bidir" or "cross"; ``window`` is the local kind's, ``memory``
     (B,M,d) the cross kind's). ``flash`` routes the causal kinds through
-    ``ops.flash_attention`` (kernel 11)."""
+    ``ops.flash_attention`` (kernel 11); ``model`` as in the module's
+    docstring."""
     return attn_prefill(p, x, n_kv=n_kv, kind=kind, theta=theta,
                         positions=positions, window=window, flash=flash,
-                        memory=memory)[0]
+                        memory=memory, model=model)[0]
 
 
 def attn_prefill(p: dict, x: torch.Tensor, *, n_kv: int, kind: str,
                  theta: float, positions: torch.Tensor,
                  window: int | None = None, flash: bool = False,
-                 memory: torch.Tensor | None = None, k_roped: bool = True):
+                 memory: torch.Tensor | None = None, k_roped: bool = True,
+                 model=None):
     """``attn_train`` that also returns the K and V it attended to (roped
     for the causal kinds unless ``k_roped`` is False, the memory's for
     ``cross``): the decode cache entry, which the reference projects a
-    second time (``blocks._roped_kv``, ``memory_kv``) from the same input."""
+    second time (``blocks._roped_kv``, ``memory_kv``) from the same input.
+    With ``model`` they are this rank's KV heads."""
     if kind not in ("global", "local", "bidir", "cross"):
         raise ValueError(f"attention kind {kind!r}")
     if kind == "local" and not window:
         raise ValueError("local attention needs a window")
     if kind == "cross" and memory is None:
         raise ValueError("cross attention needs a memory")
-    q, k, v = qkv(p, x, memory if kind == "cross" else None)
+    q, k, v = qkv(p, x, memory if kind == "cross" else None, model)
     if kind in ("bidir", "cross"):
-        return out_proj(p, attn_full(q, k, v, n_kv, causal=False)), k, v
+        return out_proj(p, attn_full(q, k, v, n_kv, causal=False),
+                        model), k, v
     q = apply_rope(q, positions, theta)
     k, k_raw = apply_rope(k, positions, theta), k
     if kind == "local":
@@ -238,7 +258,7 @@ def attn_prefill(p: dict, x: torch.Tensor, *, n_kv: int, kind: str,
         o = attn_causal_chunked(q, k, v, n_kv)
     else:
         o = attn_full(q, k, v, n_kv, causal=True)
-    return out_proj(p, o), k if k_roped else k_raw, v
+    return out_proj(p, o, model), k if k_roped else k_raw, v
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +289,7 @@ class KVLayout:
 def decode_attn(p: dict, x1: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, pos: int, *, n_kv: int, theta: float,
                 layout: KVLayout, window: int | None = None,
-                rope: bool = True):
+                rope: bool = True, model=None):
     """x1: (B,1,d); caches (B,L,KV,hd). Returns (out (B,1,d), k_cache,
     v_cache). The new token's K/V, roped unless ``rope`` is False (a
     ``selfcross`` layer), are written into the caches IN PLACE (the
@@ -280,9 +300,12 @@ def decode_attn(p: dict, x1: torch.Tensor, k_cache: torch.Tensor,
       sequence-sharded), positions ``offset .. offset + L - 1``;
       window=W: a ring of W slots (L == W, never sharded), slot ``pos %
       W``; slot j then holds position ``pos - ((pos - j) % W)``, valid
-      when that is >= 0 and within the window."""
+      when that is >= 0 and within the window.
+
+    With ``model`` the caches hold this rank's KV heads (``tp.kv_heads``)
+    and the output is summed over that axis."""
     pos = int(pos)
-    q, k, v = qkv(p, x1)
+    q, k, v = qkv(p, x1, model=model)
     if rope:
         posb = torch.full((x1.shape[0], 1), pos, device=x1.device)
         q = apply_rope(q, posb, theta)
@@ -298,14 +321,14 @@ def decode_attn(p: dict, x1: torch.Tensor, k_cache: torch.Tensor,
         p_j = pos - torch.remainder(pos - idx, window)
         valid = (p_j >= 0) & (p_j > pos - window)
         out = _decode_attend(q, k_cache, v_cache, valid, n_kv)
-        return out_proj(p, out), k_cache, v_cache
+        return out_proj(p, out, model), k_cache, v_cache
     off = layout.offset()
     if 0 <= pos - off < layout.length:
         k_cache[:, pos - off] = k[:, 0]
         v_cache[:, pos - off] = v[:, 0]
     valid = off + torch.arange(layout.length, device=x1.device) <= pos
     out = _decode_attend(q, k_cache, v_cache, valid, n_kv, layout.seq_axes)
-    return out_proj(p, out), k_cache, v_cache
+    return out_proj(p, out, model), k_cache, v_cache
 
 
 def _decode_attend(q, k_cache, v_cache, valid, n_kv: int,

@@ -27,6 +27,18 @@ pre-norm residual layer:
 
 M is ``cfg.frontend_tokens``. ``block_decode`` updates the cache entry IN
 PLACE and returns it (the reference returns a new one).
+
+Tensor parallelism (``Ctx.model``, the mesh's model axis) is ported for
+``TP_BLOCKS``: each rank holds its cut of every leaf that ``rules.tp_dim``
+cuts, and the attention and the FFN place the model axis' collectives
+(``sharding/tp.py``) where their leaves are cut. Whether a sub-layer is
+cut is read from its leaves' shapes: the attention when wq's heads are
+(wo's are then too), the SwiGLU when w1's ff is, the MoE when its
+experts' ff is. A sub-layer that is not cut runs whole on every rank,
+with no collective. When the query heads are cut and the KV heads are
+not, the rank projects only the KV heads its query heads read
+(``tp.kv_heads``), from the whole wk and wv through ``tp.to_model``. The
+other block types raise ``NotImplementedError`` under a model axis.
 """
 from __future__ import annotations
 
@@ -35,12 +47,17 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from repro_torch import compat
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn
 from repro_torch.models.common import COMPUTE_DTYPE, rms_norm, rms_norm_init
 from repro_torch.models.rglru import init_rglru, rglru_decode, rglru_train
 from repro_torch.models.ssm import init_mamba2, mamba2_decode, mamba2_train
+from repro_torch.sharding import tp
+
+# block types that run under a model axis above 1
+TP_BLOCKS = ("global", "local", "moe")
 
 
 @dataclass(frozen=True)
@@ -62,6 +79,9 @@ class Ctx:
     # checkpoint), so only one layer's params are ever materialized; its
     # backward is the INC reduce-scatter (see launch/steps.py).
     param_gather: object = None
+    # the mesh's "model" axis (``compat.Axis``) when it holds more than
+    # one rank: tensor parallelism; the params are this rank's cut
+    model: object = None
 
     def gather(self, scope: str, gi: int, pslice):
         if self.param_gather is None:
@@ -111,21 +131,50 @@ def init_block(gen, bt: str, cfg: ArchConfig, *, lead: tuple = (),
 # train / prefill (full sequence)
 # ---------------------------------------------------------------------------
 
-def _attn_kwargs(bt: str, ctx: Ctx) -> dict:
+def _tp_check(bt: str, ctx: Ctx) -> None:
+    if ctx.model is not None and bt not in TP_BLOCKS:
+        raise NotImplementedError(
+            f"tensor parallelism (a 'model' mesh axis above 1) is not ported "
+            f"for the {bt!r} block yet (ROADMAP: several cards)")
+
+
+def _tp_attn(p: dict, ctx: Ctx) -> tuple[dict, object]:
+    """(the attention params this rank computes with, the model axis when
+    wq's heads are cut, else None). With wq cut and wk/wv whole, the K/V
+    projections (and their biases) are narrowed to the KV heads this
+    rank's query heads read, after ``tp.to_model``: each rank's gradient
+    of the whole leaf is then summed over the axis."""
+    cfg, ax = ctx.cfg, ctx.model
+    if ax is None or p["wq"].shape[-2] == cfg.n_heads:
+        return p, None
+    if p["wk"].shape[-2] == cfg.n_kv_heads:
+        first, count = tp.kv_heads(cfg.n_heads, cfg.n_kv_heads,
+                                   compat.axis_size(ax),
+                                   compat.axis_index(ax))
+        p = dict(p)
+        for name in ("wk", "wv", "bk", "bv"):
+            if name in p:
+                p[name] = tp.to_model(p[name], ax).narrow(-2, first, count)
+    return p, ax
+
+
+def _attn_kwargs(bt: str, ctx: Ctx, p: dict) -> dict:
     """The self-attention of a block: ``local``'s window, ``bidir``'s own
-    kind, ``global`` for the rest (moe, selfcross)."""
+    kind, ``global`` for the rest (moe, selfcross); the KV heads are those
+    of ``p``, the params the rank computes with."""
     cfg = ctx.cfg
     kind = bt if bt in ("local", "bidir") else "global"
     # the reference caches a selfcross layer's self K before rope (whisper's
     # decoder has sinusoidal positions), though its prefill attends roped
-    return {"n_kv": cfg.n_kv_heads, "kind": kind, "theta": cfg.rope_theta,
+    return {"n_kv": p["wk"].shape[-2], "kind": kind,
+            "theta": cfg.rope_theta,
             "positions": ctx.positions, "window": cfg.window,
             "flash": ctx.flash, "k_roped": bt != "selfcross"}
 
 
 def _cross(p: dict, x: torch.Tensor, ctx: Ctx):
     """Cross-attention of ``x`` (normed) to the memory: (y, its K/V)."""
-    return attn.attn_prefill(p, x, n_kv=ctx.cfg.n_kv_heads, kind="cross",
+    return attn.attn_prefill(p, x, n_kv=p["wk"].shape[-2], kind="cross",
                              theta=ctx.cfg.rope_theta,
                              positions=ctx.positions, memory=ctx.memory)
 
@@ -164,7 +213,9 @@ def _mixer(p: dict, bt: str, x: torch.Tensor, ctx: Ctx):
     if bt == "cross":
         y, mk, mv = _cross(p["xattn"], xn, ctx)
         return x + _gated(p, y), {"mk": mk, "mv": mv}
-    y, k, v = attn.attn_prefill(p["attn"], xn, **_attn_kwargs(bt, ctx))
+    pa, model = _tp_attn(p["attn"], ctx)
+    y, k, v = attn.attn_prefill(pa, xn, model=model,
+                                **_attn_kwargs(bt, ctx, pa))
     x = x + y
     if bt == "local":
         return x, {"k": _ring_pack(k, ctx.cfg.window),
@@ -182,24 +233,35 @@ def _gated(p: dict, y: torch.Tensor) -> torch.Tensor:
     return torch.tanh(p["gate"]).to(y.dtype) * y
 
 
-def _ffn(p: dict, bt: str, x: torch.Tensor, cfg: ArchConfig):
+def _ff_model(w1: torch.Tensor, ctx: Ctx):
+    """The model axis when ``w1``'s ff dim (last) is cut, else None."""
+    if ctx.model is None or w1.shape[-1] == ctx.cfg.d_ff:
+        return None
+    return ctx.model
+
+
+def _ffn(p: dict, bt: str, x: torch.Tensor, ctx: Ctx):
     """The block's second half, residual included: (x, the MoE aux loss,
     None for the other types)."""
+    cfg = ctx.cfg
     if bt == "ssd":
         return x, None
     xn = rms_norm(x, p["n3" if bt == "selfcross" else "n2"], cfg.norm_eps)
     if bt == "moe":
-        y, aux = ffn.moe_apply(p["moe"], xn, top_k=cfg.top_k,
-                               capacity_factor=cfg.capacity_factor)
+        y, aux = ffn.moe_apply(
+            p["moe"], xn, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor,
+            model=_ff_model(p["moe"]["experts"]["w1"], ctx))
         return x + y, aux
     if bt in ("selfcross", "bidir"):
         return x + ffn.gelu_mlp(p["mlp"], xn), None
-    return x + ffn.swiglu(p["mlp"], xn), None
+    return x + ffn.swiglu(p["mlp"], xn, _ff_model(p["mlp"]["w1"], ctx)), None
 
 
 def _block(p: dict, bt: str, x: torch.Tensor, ctx: Ctx):
+    _tp_check(bt, ctx)
     x, entry = _mixer(p, bt, x, ctx)
-    x, aux = _ffn(p, bt, x, ctx.cfg)
+    x, aux = _ffn(p, bt, x, ctx)
     return x, entry, aux
 
 
@@ -231,6 +293,7 @@ def block_decode(p: dict, bt: str, x1: torch.Tensor, cache: dict, pos: int,
     """One token through the block; the cache entry is updated in place
     and returned (a memory's K/V are only read)."""
     cfg = ctx.cfg
+    _tp_check(bt, ctx)
     xn = rms_norm(x1, p["n1"], cfg.norm_eps)
     if bt in ("rglru", "ssd"):
         if bt == "rglru":
@@ -245,24 +308,25 @@ def block_decode(p: dict, bt: str, x1: torch.Tensor, cache: dict, pos: int,
         x1 = x1 + y
     elif bt == "cross":
         x1 = x1 + _gated(p, attn.decode_cross_attn(
-            p["xattn"], xn, cache["mk"], cache["mv"], cfg.n_kv_heads))
+            p["xattn"], xn, cache["mk"], cache["mv"], cache["mk"].shape[-2]))
     else:
         # a local layer's ring is never sharded; the others' K/V (global,
         # moe, selfcross's self-attention) follow ``ctx.seq_axes``
         local = bt == "local"
+        pa, model = _tp_attn(p["attn"], ctx)
         y, _, _ = attn.decode_attn(
-            p["attn"], xn, cache["k"], cache["v"], pos,
-            n_kv=cfg.n_kv_heads, theta=cfg.rope_theta,
+            pa, xn, cache["k"], cache["v"], pos,
+            n_kv=pa["wk"].shape[-2], theta=cfg.rope_theta,
             layout=attn.KVLayout(cache["k"].shape[1],
                                  None if local else ctx.seq_axes),
             window=cfg.window if local else None,
-            rope=bt != "selfcross")
+            rope=bt != "selfcross", model=model)
         x1 = x1 + y
         if bt == "selfcross":
             x1 = x1 + attn.decode_cross_attn(
                 p["xattn"], rms_norm(x1, p["n2"], cfg.norm_eps),
-                cache["mk"], cache["mv"], cfg.n_kv_heads)
-    x1, _ = _ffn(p, bt, x1, cfg)
+                cache["mk"], cache["mv"], cache["mk"].shape[-2])
+    x1, _ = _ffn(p, bt, x1, ctx)
     return x1, cache
 
 

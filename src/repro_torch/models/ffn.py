@@ -16,6 +16,15 @@ scatter-add meets a token's copies, as a gather and a loop over top_k,
 not an atomic scatter-add: the card's sums do not depend on a launch's
 timing. Nothing in the layer waits for the card (no ``bincount``, no
 data-dependent shape).
+
+Under tensor parallelism (``model``, the mesh's model axis, given when
+the caller's weights are this rank's cut of the ff dim) w1 and w3 are
+``tp.column`` products and the product that contracts the cut ff dim (w2)
+is summed over the axis straight after it (``tp.row``). In the MoE the
+router and the dispatch run whole on every rank, the experts' w1 and w3
+take the capacity buffer, and their w2 output is summed straight after
+its ``bmm``, before the gates and the bf16 slot sum, where GSPMD puts the
+reference's sum.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import dense_init
+from repro_torch.sharding import tp
 
 
 def init_swiglu(gen, d: int, ff: int, *, lead: tuple = (),
@@ -32,9 +42,10 @@ def init_swiglu(gen, d: int, ff: int, *, lead: tuple = (),
             "w2": dense_init(gen, lead + (ff, d), fan_in=ff, device=device)}
 
 
-def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ p["w1"]) * (x @ p["w3"])
-    return h @ p["w2"]
+def swiglu(p: dict, x: torch.Tensor, model=None) -> torch.Tensor:
+    h = F.silu(tp.column(tp.MATMUL, x, p["w1"], model)) \
+        * tp.column(tp.MATMUL, x, p["w3"], model)
+    return tp.row(tp.MATMUL, h, p["w2"], model)
 
 
 def init_gelu_mlp(gen, d: int, ff: int, *, lead: tuple = (),
@@ -96,9 +107,10 @@ def route(router: torch.Tensor, xf: torch.Tensor, top_k: int):
 
 
 def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float) -> tuple[torch.Tensor, torch.Tensor]:
+              capacity_factor: float, model=None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,d) -> (y (B,S,d), the Switch load-balance loss E * sum_e
-    f_e * mean_prob_e, fp32)."""
+    f_e * mean_prob_e, fp32). ``model`` as in the module's docstring."""
     b, s, d = x.shape
     e = p["router"].shape[-1]
     t = b * s
@@ -124,8 +136,9 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
     buf = x.new_zeros((e * cap + 1, d)).index_put((dest,), xf[tok_s])
     buf = buf[:-1].reshape(e, cap, d)
     w = p["experts"]
-    h = F.silu(torch.bmm(buf, w["w1"])) * torch.bmm(buf, w["w3"])
-    out = torch.bmm(h, w["w2"]).reshape(e * cap, d)
+    h = F.silu(tp.column(tp.BMM, buf, w["w1"], model)) \
+        * tp.column(tp.BMM, buf, w["w3"], model)
+    out = tp.row(tp.BMM, h, w["w2"], model).reshape(e * cap, d)
     out = torch.cat([out, out.new_zeros((1, d))])            # dropped: 0
     y_s = out[dest] * gates.reshape(-1)[order][:, None].to(x.dtype)
 

@@ -312,10 +312,11 @@ def _serve_rank(rank: int, out_dir: str) -> None:
                             timeout=timedelta(seconds=TWO_TIMEOUT))
     try:
         for arch, q8 in TWO_RANKS:
+            # two data ranks: the zero1 rows and the fsdp gathers
             got = tserve.serve(
                 arch=arch, prompt_len=PROMPT, decode_n=DECODE,
                 batch=TWO_BATCH, reduced=True, device="cpu",
-                params=_two_rank_params(arch), q8=q8,
+                params=_two_rank_params(arch), q8=q8, model_axis=1,
                 feed=torch.from_numpy(np.load(out / f"feed-{arch}-{q8}.npy")))
             np.save(out / f"two-{arch}-{q8}-{rank}.npy",
                     got["logits"].float().numpy())
@@ -384,16 +385,18 @@ def test_serve_cli_under_torch_distributed_run():
 
 
 def test_tensor_parallel_serve_raises():
-    """A mesh with a model axis above 1 is tensor parallelism: not
-    ported, for either program, and nothing falls back."""
+    """A mesh with a model axis above 1 is tensor parallelism: ported for
+    the global, local and moe blocks only (``tests/test_torch_tp.py``);
+    for either program an arch with another block type raises, naming it,
+    and nothing falls back."""
     from repro_torch.compat import Mesh
     from repro_torch.configs.base import ShapeConfig, get_arch
-    cfg = get_arch("qwen2.5-3b").reduced()
+    cfg = get_arch("mamba2-780m").reduced()
     for kind in ("prefill", "decode"):
         for shape, names in (((1, 2), ("data", "model")),
                              ((1, 1, 2), ("pod", "data", "model"))):
             with pytest.raises(NotImplementedError,
-                               match="tensor parallelism"):
+                               match="tensor parallelism.*'ssd'"):
                 steps.build_serve_step(
                     cfg, ShapeConfig("s", 32, 2, kind),
                     Mesh(shape, names, {}), device="cpu")

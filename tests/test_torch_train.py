@@ -332,7 +332,8 @@ def test_drawn_ahead_depth_follows_draw_and_step(monkeypatch, draw_s,
 def test_train_defaults_to_the_card():
     """Without a card, the train loop raises unless given device='cpu';
     the fsdp mode builds (grok's by ``mode_for``), and tensor
-    parallelism (a model axis above 1) is not ported."""
+    parallelism (a model axis above 1) is not ported for the rglru
+    block."""
     if torch.cuda.is_available():
         assert steps.Program is not None
     else:
@@ -349,7 +350,8 @@ def test_train_defaults_to_the_card():
         with pytest.raises(NotImplementedError,
                            match="tensor parallelism.*ROADMAP"):
             steps.build_train_step(
-                cfg, ShapeConfig("t", 8, 2, "train"),
+                get_arch("recurrentgemma-9b").reduced(),
+                ShapeConfig("t", 8, 2, "train"),
                 compat.Mesh((1, 2), ("data", "model"), {}), **kw)
 
 
