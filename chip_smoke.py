@@ -263,6 +263,18 @@
    tolerance; loss, gnorm, the masters' update and m and v within phase
    j's. One card is one rank: the card runs the one-rank path, and the
    tensor-parallel ranks' kernel shapes are in the flash check.
+18. Path, phase w: tensor parallelism of the other block types, phase v's
+   machinery over a (1, 2) mesh of 2 gloo ranks on the host's CPU against
+   the card at one rank, each model at full width: whisper-medium with 1
+   ``bidir`` encoder layer over the 1 500 stub frames and 1 ``selfcross``
+   decoder layer, mamba2-780m at 2 ``ssd`` layers (each with one netrpc
+   train step at B=2 x S=128), and recurrentgemma-9b's first 3 layers
+   (``rglru``, ``rglru``, ``local``; serve only, its decode program 2 048
+   positions long so the local ring holds its window); the prefill
+   program on 2 x 128 tokens and 2 teacher-forced decode steps. Checks:
+   1 flash launch (whisper's selfcross prefill), the logits and the step
+   within phase v's tolerances; prints its seconds against its budget
+   of 120 s from the spawn of the CPU ranks.
 
 Launch counts are set to 0 just before each path run on the card and read
 just after it; every kernel must have launched in the path. The two
@@ -394,14 +406,30 @@ U1_PROMPT, U1_STEPS = 2048, 8
 U2_CUT, U2_CUT_DECODE = 2, 1
 KEEP_SERVED = ("q",)
 SERVED: dict = {}      # phase q's tokens and logits, for phase u2
-# phase v: qwen2.5-3b at full width, V_LAYERS layers: a prefill of V_BATCH x
-# V_PROMPT tokens, V_DECODE teacher-forced decode steps and one netrpc
-# train step (V_BATCH x V_SEQ), on the card at one rank and on the host's
-# CPU over V_MODEL gloo ranks of a (1, V_MODEL) mesh (tensor parallelism:
-# 4 query heads and 1 KV head a rank, the mixed case), held within phase
-# i's (logits) and phase j's (the step) card-vs-CPU tolerances
-V_LAYERS, V_BATCH, V_PROMPT, V_DECODE, V_SEQ, V_MODEL = 2, 2, 256, 2, 256, 4
+# phases v and w: tensor parallelism. Each case is a model at full width cut
+# to ``layers`` (whisper's encoder to ``enc_layers``): a prefill of batch x
+# prompt tokens, ``decode`` teacher-forced decode steps of a decode program
+# whose cache holds ``total`` positions (a local layer's ring holds its
+# window once the program's length reaches it: recurrentgemma-9b's 2 048)
+# and, where ``seq`` is set, one netrpc train step (batch x seq), on the
+# card at one rank and
+# on the host's CPU over the gloo ranks of a (1, ranks) mesh, held within
+# phase i's (logits) and phase j's (the step) card-vs-CPU tolerances.
+# v: qwen2.5-3b over 4 ranks (4 query heads and 1 KV head a rank, the
+# mixed case); w: over 2 ranks, whisper-medium (a bidir encoder layer and
+# a selfcross decoder layer over the 1 500 stub frames), mamba2-780m (two
+# ssd layers) and recurrentgemma-9b's first three layers (rglru, rglru,
+# local; serve only: its AdamW state at full width would not fit the CPU
+# ranks' budget)
+TP_CASE = ("arch", "layers", "enc_layers", "batch", "prompt", "decode",
+           "total", "seq")
+V_CASES = ((ARCH, 2, None, 2, 256, 2, 258, 256),)
+W_CASES = (("whisper-medium", 1, 1, 2, 128, 2, 130, 128),
+           ("mamba2-780m", 2, None, 2, 128, 2, 130, 128),
+           ("recurrentgemma-9b", 3, None, 2, 128, 2, 2048, None))
+V_MODEL, W_MODEL = 4, 2
 V_TIMEOUT = 300        # the CPU ranks' limit, seconds
+W_BUDGET = 120         # phase w's seconds from the spawn of its CPU ranks
 # phase s: the runtime examples of s1, and s2's train_mini: its steps, the
 # fall of the loss over them (first - last, each mode), the bound on the
 # netrpc - xla-psum final-loss gap (set before the first run on the card)
@@ -434,14 +462,19 @@ FLASH_ATOL, FLASH_RTOL = 2e-2, 5e-2
 # llama-3.2-vision-90b global layers (H = 64, KV = 8); then a
 # tensor-parallel rank's shapes: qwen2.5-3b's prefill at model 2 (8 query
 # heads, 1 KV head) and at model 4 (4 query heads and the one KV head they
-# read), phase l's local layers at model 2 and phase n's prefill at model 2
+# read), phase l's local layers at model 2 and phase n's prefill at model 2;
+# then at model 2 phase p's whisper-medium decoder (8 heads), phase q's
+# llama-3.2-vision-90b global layers (32 query heads, 4 KV heads) and
+# phase m's recurrentgemma-9b local layers (8 query heads reading its one
+# KV head, whole)
 FLASH_CHECKS = ((4, 16, 2, 2048, 128, None), (4, 16, 2, 2048, 128, 1024),
                 (2, 16, 2, 1000, 128, None), (1, 16, 1, 4096, 256, 2048),
                 (4, 32, 16, 2048, 128, 1024), (2, 16, 1, 4096, 256, 2048),
                 (4, 16, 16, 2048, 128, None), (4, 16, 16, 416, 64, None),
                 (4, 64, 8, 2048, 128, None), (4, 8, 1, 2048, 128, None),
                 (4, 4, 1, 2048, 128, None), (4, 16, 8, 2048, 128, 1024),
-                (4, 8, 8, 2048, 128, None))
+                (4, 8, 8, 2048, 128, None), (4, 8, 8, 416, 64, None),
+                (4, 32, 4, 2048, 128, None), (2, 8, 1, 4096, 256, 2048))
 REPLACES = {
     "fused_addto": "src/repro/kernels/fused_gpv.py:67",
     "fused_scatter": "src/repro/kernels/fused_gpv.py:113",
@@ -2566,44 +2599,65 @@ def check_q8_serve(torch, smi: str) -> dict:
     return counts
 
 
-# -- phase v: tensor parallelism -----------------------------------------------
+# -- phases v and w: tensor parallelism ---------------------------------------
 
-def tp_work(torch, cfg, mesh, device, params, tokens, batch) -> dict:
-    """Phase v's work on ``mesh``, this process one rank: the prefill and
-    decode programs over ``params`` (the full tree; the rank keeps its
-    cut), the decode teacher forced with ``tokens``, then one netrpc train
-    step on ``batch`` from ``params`` and a fresh optimizer state (the
-    params are updated in place). Returns the logits of every step, the
-    step's metrics and the rank's shards of m, v and the masters' update,
-    with their specs, and the seconds of the serve and train parts (and
-    the train step's stages, ms)."""
+def tp_case(case: tuple) -> dict:
+    return dict(zip(TP_CASE, case))
+
+
+def tp_config(case: dict, reduced: bool):
+    """The case's model: at full width (the reduced width when
+    ``reduced``), cut to its layers (whisper's encoder to its
+    ``enc_layers``)."""
+    from dataclasses import replace
+
+    from repro_torch.launch.serve import model_config
+    cfg = model_config(case["arch"], reduced=reduced, layers=case["layers"])
+    if case["enc_layers"] is not None:
+        cfg = replace(cfg, enc_layers=case["enc_layers"])
+    return cfg
+
+
+def tp_work(torch, cfg, mesh, device, params, tokens, batch, case) -> dict:
+    """One tensor-parallel case's work on ``mesh``, this process one rank:
+    the prefill and decode programs over ``params`` (the full tree; the
+    rank keeps its cut), the decode teacher forced with ``tokens``
+    (with the frames or patches of the arch), then, where the case trains,
+    one netrpc train step on ``batch`` from ``params`` and a fresh
+    optimizer state (the params are updated in place). Returns the logits
+    of every step, the step's metrics and the rank's shards of m, v and the
+    masters' update, with their specs, and the seconds of the serve and
+    train parts (and the train step's stages, ms)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.inc_agg import IncAggConfig
     from repro_torch.launch import steps
     from repro_torch.launch.serve import grow_cache
     from repro_torch.models import api
     from repro_torch.optim.adamw import AdamWConfig
-    total = V_PROMPT + V_DECODE
+    b, prompt, total = case["batch"], case["prompt"], case["total"]
     t0 = time.perf_counter()
 
     def serve_prog(kind, s):
-        return steps.build_serve_step(cfg, ShapeConfig(kind, s, V_BATCH, kind),
+        return steps.build_serve_step(cfg, ShapeConfig(kind, s, b, kind),
                                       mesh, flash=True, device=device)
-    pf, dec = serve_prog("prefill", V_PROMPT), serve_prog("decode", total)
+    pf, dec = serve_prog("prefill", prompt), serve_prog("decode", total)
     mine = api.shard_tree(params, pf.meta["param_specs"], mesh)
-    logits, cache = pf.fn(mine, {"tokens": tokens[:, :V_PROMPT]})
-    cache = grow_cache(cache, cfg, V_BATCH // dec.meta["n_dp"], total,
-                       dec.meta["kv_heads"][1])
+    logits, cache = pf.fn(mine, {**tokens, "tokens":
+                                 tokens["tokens"][:, :prompt]})
+    cache = grow_cache(cache, cfg, b // dec.meta["n_dp"], total)
     every = [logits]
-    for i in range(V_DECODE):
-        logits, cache = dec.fn(mine, tokens[:, V_PROMPT + i], V_PROMPT + i,
-                               cache)
+    for i in range(case["decode"]):
+        logits, cache = dec.fn(mine, tokens["tokens"][:, prompt + i],
+                               prompt + i, cache)
         every.append(logits)
     out = {"logits": torch.stack(every).float().cpu()}
     del cache, every, logits
     t1 = time.perf_counter()
+    out["seconds"] = {"serve": t1 - t0}
+    if batch is None:
+        return out
     prog = steps.build_train_step(
-        cfg, ShapeConfig("v", V_SEQ, V_BATCH, "train"), mesh,
+        cfg, ShapeConfig("v", case["seq"], b, "train"), mesh,
         inc=IncAggConfig(mode="netrpc", precision=PRECISION),
         opt_cfg=AdamWConfig(warmup_steps=5, total_steps=100), n_micro=1,
         device=device)
@@ -2611,9 +2665,8 @@ def tp_work(torch, cfg, mesh, device, params, tokens, batch) -> dict:
     before = {n: t.clone() for n, t in api.named_leaves(opt["master"])}
     _, opt, m = prog.fn(mine, opt, batch, TRAIN_CPU_STEP)
     out["metrics"] = {k: float(v) for k, v in m.items()}
-    out["seconds"] = {"serve": t1 - t0, "train": time.perf_counter() - t1,
-                      **{f"{k} ms": v for k, v in
-                         prog.meta["clock"].ms().items()}}
+    out["seconds"].update(train=time.perf_counter() - t1, **{
+        f"{k} ms": v for k, v in prog.meta["clock"].ms().items()})
     out["state"] = {n: {"m": a, "v": b, "update": c - before[n]}
                     for (n, a), (_, b), (_, c) in zip(
                         api.named_leaves(opt["m"]), api.named_leaves(opt["v"]),
@@ -2622,18 +2675,22 @@ def tp_work(torch, cfg, mesh, device, params, tokens, batch) -> dict:
     return out
 
 
-def tp_inputs(cfg):
-    """Phase v's weights (drawn on the CPU from SEED), teacher-forced
-    tokens (V_BATCH, V_PROMPT + V_DECODE) and train batch."""
+def tp_inputs(cfg, case: dict):
+    """A case's weights (drawn on the CPU from SEED), teacher-forced
+    tokens (batch, prompt + decode) with the arch's stub frames or patches,
+    and train batch (None where the case does not train)."""
     from repro_torch.data import pipeline
     from repro_torch.models import api
+    b = case["batch"]
     params = api.init_params(SEED, cfg, device="cpu")
-    tokens = pipeline.make_batch(pipeline.DataConfig(
-        vocab=cfg.vocab, batch=V_BATCH, seq_len=V_PROMPT + V_DECODE - 1,
-        seed=SEED, kind="uniform"), 0)["tokens"]
-    batch = pipeline.make_batch(pipeline.DataConfig(
-        vocab=cfg.vocab, batch=V_BATCH, seq_len=V_SEQ, seed=SEED,
-        kind="uniform"), TRAIN_CPU_STEP)
+    tokens = pipeline.add_modality_stubs(pipeline.make_batch(
+        pipeline.DataConfig(vocab=cfg.vocab, batch=b,
+                            seq_len=case["prompt"] + case["decode"] - 1,
+                            seed=SEED, kind="uniform"), 0), cfg, b)
+    batch = None if case["seq"] is None else pipeline.add_modality_stubs(
+        pipeline.make_batch(pipeline.DataConfig(
+            vocab=cfg.vocab, batch=b, seq_len=case["seq"], seed=SEED,
+            kind="uniform"), TRAIN_CPU_STEP), cfg, b)
     return params, tokens, batch
 
 
@@ -2645,38 +2702,41 @@ def _model_dim(spec) -> int | None:
     return dims[0] if dims else None
 
 
-def tp_rank(rank: int, world: int, out_dir: str, reduced: bool) -> None:
-    """One CPU rank of phase v's (1, world) gloo mesh: saves its shards of
-    the state (bf16; a leaf whole over "model" only from rank 0) and, rank
-    0, the logits, the metrics, the specs and the seconds, to
-    ``out_dir``."""
+def tp_rank(rank: int, world: int, out_dir: str, reduced: bool,
+            cases: tuple) -> None:
+    """One CPU rank of a (1, world) gloo mesh, each of ``cases`` in turn:
+    saves its shards of the state (bf16; a leaf whole over "model" only
+    from rank 0) and, rank 0, the logits, the metrics, the specs and the
+    seconds, to ``out_dir``."""
     import torch
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.serve import model_config
     from datetime import timedelta
     torch.set_num_threads(max(1, 8 // world))
     dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
                             rank=rank, world_size=world,
                             timeout=timedelta(seconds=V_TIMEOUT))
     try:
-        t0 = time.perf_counter()
-        cfg = model_config(ARCH, reduced=reduced, layers=V_LAYERS)
         mesh = make_host_mesh(model=world, device="cpu")
-        params, tokens, batch = tp_inputs(cfg)
-        draw = time.perf_counter() - t0
-        out = tp_work(torch, cfg, mesh, "cpu", params, tokens, batch)
-        del params
-        t0 = time.perf_counter()
-        specs = {n: tuple(sp) for n, sp in out.pop("specs").items()}
-        state = {n: {k: t.bfloat16() for k, t in leaves.items()}
-                 for n, leaves in out.pop("state").items()
-                 if rank == 0 or _model_dim(specs[n]) is not None}
-        torch.save(state, f"{out_dir}/cpu-{rank}.pt")
-        if rank == 0:
-            out["seconds"].update(draw=draw, save=time.perf_counter() - t0)
-            torch.save({**out, "specs": specs}, f"{out_dir}/cpu.pt")
+        for i, case in enumerate(map(tp_case, cases)):
+            t0 = time.perf_counter()
+            cfg = tp_config(case, reduced)
+            params, tokens, batch = tp_inputs(cfg, case)
+            draw = time.perf_counter() - t0
+            out = tp_work(torch, cfg, mesh, "cpu", params, tokens, batch,
+                          case)
+            del params
+            t0 = time.perf_counter()
+            specs = {n: tuple(sp) for n, sp in out.pop("specs", {}).items()}
+            state = {n: {k: t.bfloat16() for k, t in leaves.items()}
+                     for n, leaves in out.pop("state", {}).items()
+                     if rank == 0 or _model_dim(specs[n]) is not None}
+            torch.save(state, f"{out_dir}/cpu-{i}-{rank}.pt")
+            if rank == 0:
+                out["seconds"].update(draw=draw,
+                                      save=time.perf_counter() - t0)
+                torch.save({**out, "specs": specs}, f"{out_dir}/cpu-{i}.pt")
     finally:
         dist.destroy_process_group()
 
@@ -2685,14 +2745,19 @@ def tp_compare(torch, card: dict, cpu: dict, shards: list, vocab: int,
                what: str) -> str:
     """Phase i's logits tolerance and phase j's step tolerances, the card
     (one rank) against the CPU ranks (``shards``: each rank's state): the
-    logits of every step, loss and gnorm, the masters' update (max|d| <=
-    2.5 lr, at most MASTER_FLIP_FRAC more than lr/100 apart) and m and v
-    per leaf."""
+    logits of every step and, where the case trains, loss and gnorm, the
+    masters' update (max|d| <= 2.5 lr, at most MASTER_FLIP_FRAC more than
+    lr/100 apart) and m and v per leaf."""
     la, lb = card["logits"][..., :vocab], cpu["logits"][..., :vocab]
     if la.shape != lb.shape or not bool(la.isfinite().all()):
         fail(f"{what}: logits of the wrong shape or not finite")
     err = max(float((la[t] - lb[t]).abs().max() / lb[t].abs().max())
               for t in range(lb.shape[0]))
+    got = f"logits max|d|/max|ref| {err:.6f} (tolerance {CPU_TOL})"
+    if "metrics" not in card:
+        if err > CPU_TOL:
+            fail(f"{what}: {got}")
+        return got
     mc, mp = card["metrics"], cpu["metrics"]
     lr = mp["lr"]
     loss_err = abs(mc["loss"] / mp["loss"] - 1)
@@ -2725,14 +2790,13 @@ def tp_compare(torch, card: dict, cpu: dict, shards: list, vocab: int,
             if not e <= mv_err:
                 mv_err, mv_worst = e, f"{k} {n}"
     far = n_far / n_all
-    got = (f"logits max|d|/max|ref| {err:.6f} (tolerance {CPU_TOL}); loss "
-           f"{mc['loss']:.6f} vs {mp['loss']:.6f} (rel {loss_err:.2e}, "
-           f"tolerance {TRAIN_LOSS_RTOL}), gnorm rel {gnorm_err:.2e} "
-           f"(tolerance {TRAIN_GNORM_RTOL}); masters' update: max|d| "
-           f"{d_max / lr:.4f} lr (tolerance 2.5), {far:.6f} of "
-           f"{n_all} more than lr/100 apart (tolerance "
-           f"{MASTER_FLIP_FRAC}); m and v: worst leaf {mv_worst}, "
-           f"||card - CPU|| / ||CPU|| {mv_err:.3e} (tolerance {MV_RTOL})")
+    got += (f"; loss {mc['loss']:.6f} vs {mp['loss']:.6f} (rel "
+            f"{loss_err:.2e}, tolerance {TRAIN_LOSS_RTOL}), gnorm rel "
+            f"{gnorm_err:.2e} (tolerance {TRAIN_GNORM_RTOL}); masters' "
+            f"update: max|d| {d_max / lr:.4f} lr (tolerance 2.5), "
+            f"{far:.6f} of {n_all} more than lr/100 apart (tolerance "
+            f"{MASTER_FLIP_FRAC}); m and v: worst leaf {mv_worst}, "
+            f"||card - CPU|| / ||CPU|| {mv_err:.3e} (tolerance {MV_RTOL})")
     if mc["lr"] != lr or err > CPU_TOL or loss_err > TRAIN_LOSS_RTOL \
             or gnorm_err > TRAIN_GNORM_RTOL or d_max > 2.5 * lr \
             or far > MASTER_FLIP_FRAC or not mv_err <= MV_RTOL:
@@ -2740,93 +2804,137 @@ def tp_compare(torch, card: dict, cpu: dict, shards: list, vocab: int,
     return got
 
 
-def tp_pair(torch, device, reduced: bool, counted_run) -> tuple:
-    """Phase v's two runs: ``device`` at one rank (through
-    ``counted_run(run)``, which returns (result, counts)) while V_MODEL
-    spawned gloo ranks do the same work on the CPU; returns (the one-rank
-    run, the CPU ranks' (rank 0's outputs, each rank's state), counts,
-    the CPU ranks' seconds)."""
+def tp_pair(torch, device, reduced: bool, counted_run, cases: tuple,
+            world: int, label: str) -> tuple:
+    """A tensor-parallel phase's two runs: ``device`` at one rank (all of
+    ``cases`` through one ``counted_run(run)``, which returns (result,
+    counts)) while ``world`` spawned gloo ranks do the same work on the
+    CPU; returns (for each case, the one-rank run and the CPU ranks'
+    (rank 0's outputs, each rank's state)), counts, the CPU ranks'
+    seconds from their spawn)."""
     import shutil
 
     import torch.multiprocessing as mp
 
     from repro_torch import compat
     from repro_torch.launch.mesh import one_rank_group
-    from repro_torch.launch.serve import model_config
     from repro_torch.models import api
-    out = ROOT / "build" / "chip_smoke" / "phase_v"
+    out = ROOT / "build" / "chip_smoke" / f"phase_{label}"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     t0 = time.perf_counter()
-    ctx = mp.start_processes(tp_rank, args=(V_MODEL, str(out), reduced),
-                             nprocs=V_MODEL, join=False,
-                             start_method="spawn")
+    ctx = mp.start_processes(tp_rank, args=(world, str(out), reduced, cases),
+                             nprocs=world, join=False, start_method="spawn")
+    dev = torch.device(device)
+
+    def run():
+        ones = []
+        mesh = compat.make_mesh((1, 1), ("data", "model"), device=device)
+        for case in map(tp_case, cases):
+            cfg = tp_config(case, reduced)
+            params, tokens, batch = tp_inputs(cfg, case)
+            params = api.map_tree(lambda t: t.to(dev), params)
+            tokens = {k: v.to(dev) for k, v in tokens.items()}
+            ones.append(tp_work(torch, cfg, mesh, device, params, tokens,
+                                batch, case))
+            del params
+        return ones
     try:
-        cfg = model_config(ARCH, reduced=reduced, layers=V_LAYERS)
-        params, tokens, batch = tp_inputs(cfg)
-        dev = torch.device(device)
-        params = api.map_tree(lambda t: t.to(dev), params)
         with one_rank_group(dev):
-            mesh = compat.make_mesh((1, 1), ("data", "model"),
-                                    device=device)
-            one, counts = counted_run(lambda: tp_work(
-                torch, cfg, mesh, device, params, tokens.to(dev), batch))
-        del params
+            ones, counts = counted_run(run)
         deadline = t0 + V_TIMEOUT
         while not ctx.join(timeout=1):
             if time.perf_counter() > deadline:
-                fail(f"phase v: the CPU ranks still ran after {V_TIMEOUT} s")
+                fail(f"phase {label}: the CPU ranks still ran after "
+                     f"{V_TIMEOUT} s")
     finally:
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()
             p.join(timeout=10)
     cpu_s = time.perf_counter() - t0
-    cpu = torch.load(out / "cpu.pt")
-    shards = [torch.load(out / f"cpu-{r}.pt", mmap=True)
-              for r in range(V_MODEL)]
+    pairs = []
+    for i, one in enumerate(ones):
+        cpu = torch.load(out / f"cpu-{i}.pt")
+        shards = [torch.load(out / f"cpu-{i}-{r}.pt", mmap=True)
+                  for r in range(world)]
+        pairs.append((one, (cpu, shards)))
     shutil.rmtree(out, ignore_errors=True)
-    return one, (cpu, shards), counts, cpu_s
+    return pairs, counts, cpu_s
 
 
-def check_phase_v(torch, smi: str) -> dict:
-    """Phase v: qwen2.5-3b at full width and V_LAYERS layers, one rank on
-    the card against V_MODEL tensor-parallel gloo ranks on the CPU: the
-    prefill and decode programs' logits and one netrpc train step."""
-    from repro_torch.launch.serve import model_config
-    cfg = model_config(ARCH, layers=V_LAYERS)
+def check_tp_phase(torch, smi: str, label: str, cases: tuple, world: int,
+                   flash_launches: int) -> dict:
+    """Phase v or w: each case at full width, one rank on the card against
+    ``world`` tensor-parallel gloo ranks on the CPU: the prefill and
+    decode programs' logits and, where it trains, one netrpc train step;
+    the card's flash launches must be ``flash_launches``."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     secs = {}
+    trains = any(tp_case(c)["seq"] is not None for c in cases)
 
     def on_card(run):
         result, counts, secs["card"] = counted(
-            torch, run, "phase v (serve and train at one rank)",
-            ("flash_attention", "quantize", "sat_add", "dequantize"))
+            torch, run, f"phase {label} (serve and train at one rank)",
+            ("flash_attention",) + (("quantize", "sat_add", "dequantize")
+                                    if trains else ()))
         return result, counts
-    card, (cpu, shards), counts, cpu_s = tp_pair(torch, "cuda", False,
-                                                 on_card)
-    if counts["flash_attention"] != V_LAYERS:
-        fail(f"phase v: {counts['flash_attention']} flash launches, not one "
-             f"a layer of the prefill")
-    t1 = time.perf_counter()
-    got = tp_compare(torch, card, cpu, shards, cfg.vocab, "phase v: one "
-                     "rank on the card against the tensor-parallel CPU ranks")
-    compare_s = time.perf_counter() - t1
-    print(f"path v_tensor_parallel: {ARCH}, {V_LAYERS} layers at full width "
-          f"(d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV "
-          f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}), prefill "
-          f"{V_BATCH} x {V_PROMPT} tokens, {V_DECODE} decode steps, one "
-          f"netrpc train step at B={V_BATCH} x S={V_SEQ}: the card at one "
-          f"rank ({secs['card']:.3f} s) against {V_MODEL} gloo ranks of a "
-          f"(1, {V_MODEL}) mesh on the host's CPU ({cpu_s:.3f} s from their "
-          f"spawn; rank 0: " + ", ".join(
-              f"{k} {v:.3f}" for k, v in cpu["seconds"].items())
-          + f"; the comparison {compare_s:.3f} s): {got}; "
+    pairs, counts, cpu_s = tp_pair(torch, "cuda", False, on_card, cases,
+                                   world, label)
+    if counts["flash_attention"] != flash_launches:
+        fail(f"phase {label}: {counts['flash_attention']} flash launches, "
+             f"not {flash_launches}: one a layer of the prefill that takes "
+             f"the kernel")
+    for (card, (cpu, shards)), case in zip(pairs, map(tp_case, cases)):
+        cfg = tp_config(case, False)
+        t1 = time.perf_counter()
+        got = tp_compare(torch, card, cpu, shards, cfg.vocab,
+                         f"phase {label} {case['arch']}: one rank on the "
+                         f"card against the tensor-parallel CPU ranks")
+        train = "" if case["seq"] is None else (
+            f", one netrpc train step at B={case['batch']} x "
+            f"S={case['seq']}")
+        enc = "" if case["enc_layers"] is None else \
+            f" and {case['enc_layers']} encoder layer(s)"
+        print(f"path {label}_tensor_parallel {case['arch']}: "
+              f"{case['layers']} layers{enc} at full width (d_model "
+              f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV "
+              f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}), prefill "
+              f"{case['batch']} x {case['prompt']} tokens, {case['decode']} "
+              f"decode steps{train}: the card at one rank (serve "
+              + ", ".join(f"{k} {v:.3f}" for k, v in card["seconds"].items())
+              + f") against {world} gloo ranks of a (1, {world}) mesh on "
+              f"the host's CPU (rank 0: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in cpu["seconds"].items())
+              + f"; the comparison {time.perf_counter() - t1:.3f} s): {got}",
+              flush=True)
+    print(f"path {label}_tensor_parallel: the card's run {secs['card']:.3f} "
+          f"s, the CPU ranks {cpu_s:.3f} s from their spawn; "
           f"{time.perf_counter() - t0:.3f} s; launches {counts}", flush=True)
-    print(f"path v_tensor_parallel card: {smi}", flush=True)
-    del card, cpu, shards
+    print(f"path {label}_tensor_parallel card: {smi}", flush=True)
+    del pairs
     torch.cuda.empty_cache()
+    return counts
+
+
+def check_phase_v(torch, smi: str) -> dict:
+    """Phase v: qwen2.5-3b at full width over a (1, V_MODEL) mesh."""
+    return check_tp_phase(torch, smi, "v", V_CASES, V_MODEL,
+                          V_CASES[0][1])
+
+
+def check_phase_w(torch, smi: str) -> dict:
+    """Phase w: whisper-medium, mamba2-780m and recurrentgemma-9b at full
+    width over a (1, W_MODEL) mesh; the flash kernel runs in whisper's
+    selfcross prefill (its bidir encoder and cross-attention, mamba's
+    ssd layers and recurrentgemma's local layer at a prompt inside its
+    window take none)."""
+    t0 = time.perf_counter()
+    counts = check_tp_phase(torch, smi, "w", W_CASES, W_MODEL, 1)
+    secs = time.perf_counter() - t0
+    print(f"path w_tensor_parallel: {secs:.3f} s of the phase's budget of "
+          f"{W_BUDGET} s", flush=True)
     return counts
 
 
@@ -3277,13 +3385,19 @@ def rehearse(scale_down: int = 64) -> None:
         fail("rehearsal of phase u2: the q8 gather changed nothing")
     print(f"rehearsal of phase u2: q8 vs plain "
           f"{lanes_err(q8, plain, cfg.vocab):.6f}", flush=True)
-    # phase v at the reduced width: one CPU rank against the V_MODEL ranks
-    one, (cpu, shards), _, cpu_s = tp_pair(torch, "cpu", True,
-                                           lambda run: (run(), {}))
-    print(f"rehearsal of phase v ({cpu_s:.3f} s): " + tp_compare(
-        torch, one, cpu, shards, model_config(ARCH, reduced=True).vocab,
-        "rehearsal of phase v"), flush=True)
-    print("rehearsal: phases a-v ran on the CPU and met their oracles")
+    # phases v and w at the reduced width: one CPU rank against the ranks
+    for label, cases, world in (("v", V_CASES, V_MODEL),
+                                ("w", W_CASES, W_MODEL)):
+        pairs, _, cpu_s = tp_pair(torch, "cpu", True,
+                                  lambda run: (run(), {}), cases, world,
+                                  label)
+        for (one, (cpu, shards)), case in zip(pairs, map(tp_case, cases)):
+            print(f"rehearsal of phase {label} {case['arch']} ({cpu_s:.3f} "
+                  f"s): " + tp_compare(
+                      torch, one, cpu, shards,
+                      tp_config(case, True).vocab,
+                      f"rehearsal of phase {label}"), flush=True)
+    print("rehearsal: phases a-w ran on the CPU and met their oracles")
 
 
 def lane_drift(draws: int = 3) -> None:
@@ -3415,7 +3529,8 @@ def main() -> int:
                          ("s", lambda t: check_phase_s(t, smi)),
                          ("t", lambda t: check_fsdp(t, smi)),
                          ("u", lambda t: check_phase_u(t, smi)),
-                         ("v", lambda t: check_phase_v(t, smi))):
+                         ("v", lambda t: check_phase_v(t, smi)),
+                         ("w", lambda t: check_phase_w(t, smi))):
         t0 = time.perf_counter()
         for name, c in check(torch).items():
             counts[name] = counts.get(name, 0) + c

@@ -368,8 +368,8 @@ def all_gather_dim(x: torch.Tensor, dim: int, dp_axes: tuple[Axis, ...],
 _Q8_CPU_ELEMS = 1 << 21
 
 
-def all_gather_dim_q8(x: torch.Tensor, dim: int, dp_axes: tuple[Axis, ...]
-                      ) -> torch.Tensor:
+def all_gather_dim_q8(x: torch.Tensor, dim: int, dp_axes: tuple[Axis, ...],
+                      model: Axis | None = None) -> torch.Tensor:
     """Quantized parameter gather (ZeRO++-style, beyond-paper): the local
     shard is block-quantized to int8 with one fp32 scale per row along
     ``dim`` (the max over every other dim) — the same shared-scale scheme
@@ -377,9 +377,14 @@ def all_gather_dim_q8(x: torch.Tensor, dim: int, dp_axes: tuple[Axis, ...]
     (bf16), and dequantized locally. It quantizes at one rank too, where
     each block is dequantized as soon as it is quantized, from its fp32
     values, which are the int8 values exactly (a gather over one rank is
-    the identity)."""
+    the identity). With ``model`` (the leaf also cut over that axis) a
+    row's max is taken over the axis too: the reference's, whose gather
+    sees the leaf whole over "model"."""
     axes = [ax for ax in reversed(dp_axes) if compat.axis_size(ax) > 1]
-    scale = _int8_scale(_row_amax(torch.movedim(x, dim, 0)).float())
+    amax = _row_amax(torch.movedim(x, dim, 0)).float()
+    if model is not None:
+        amax = _pmax(amax, (model,))
+    scale = _int8_scale(amax)
     at = [1] * x.dim()
     at[dim] = -1                      # the scales broadcast along dim
     n = x.shape[0]

@@ -17,7 +17,8 @@ shards of the params (``--mode``: the arch's zero1 or fsdp by default;
 ``--model-axis`` (2 by default, as the reference's) is cut to the world,
 as the reference cuts it to its devices: one card serves at a model axis
 of 1, two ranks at one data rank over a model axis of 2, each rank its
-cut of the heads, the ff dim and the vocab. Prefill builds each rank's cache
+cut of the heads, the ff dim, the vocab and the recurrent widths, for
+every config. Prefill builds each rank's cache
 (K/V of the attention layers, ``moe`` ones included, a ring of the
 window for a ``local`` layer, the state and conv tail of an ``rglru`` or
 ``ssd`` layer, the memory's K/V of a ``cross`` or ``selfcross`` layer),
@@ -103,27 +104,28 @@ def model_config(arch: str | ArchConfig, reduced: bool = False,
 
 
 def grow_cache(cache: tuple, cfg: ArchConfig, batch: int,
-               total: int, kv_heads: int | None = None) -> tuple:
-    """The prefill cache grown to its decode shape, ``api.cache_specs(cfg,
-    batch, total)`` with ``kv_heads`` KV heads (a tensor-parallel rank's
-    count, the decode program's ``meta["kv_heads"][1]``; the config's by
-    default): a leaf of another shape is padded with zeros at the end of
-    each dim (a global K/V's sequence), a leaf of that shape is kept as it
-    is (a local ring, a recurrent state and conv tail)."""
-    def grow(t, like):
-        if t.shape == like.shape:
+               total: int) -> tuple:
+    """The prefill cache of ``batch`` rows grown to its decode length: a
+    self-attention's K/V (not a local ring) padded with zeros along the
+    sequence to the ``total`` positions of ``api.cache_specs(cfg, batch,
+    total)``; every other leaf kept as it is (a local ring, a recurrent
+    state and conv tail, a memory's K/V). Only the sequence grows: the
+    other dims are the leaf's own, a tensor-parallel rank's KV heads
+    (``meta["kv_heads"]``) or its cut of a recurrent state."""
+    def grow(key, t, like):
+        if t.shape[1] != batch:
+            raise ValueError(f"a cache leaf of {t.shape[1]} rows, not "
+                             f"{batch}")
+        if key not in ("k", "v") or t.shape[2] == like.shape[2]:
             return t
-        if t.dim() != like.dim() or any(a > b for a, b in
-                                        zip(t.shape, like.shape)):
+        if t.shape[2] > like.shape[2]:
             raise ValueError(f"a cache leaf of shape {tuple(t.shape)} does "
-                             f"not grow to {tuple(like.shape)}")
-        out = t.new_zeros(like.shape)
-        out[tuple(slice(0, n) for n in t.shape)] = t
+                             f"not grow to {like.shape[2]} positions")
+        out = t.new_zeros(t.shape[:2] + like.shape[2:3] + t.shape[3:])
+        out[:, :, :t.shape[2]] = t
         return out
-    if kv_heads is not None:
-        cfg = replace(cfg, n_kv_heads=kv_heads)
     specs = api.cache_specs(cfg, batch, total)
-    return tuple({s: {k: grow(t, sg[s][k]) for k, t in e.items()}
+    return tuple({s: {k: grow(k, t, sg[s][k]) for k, t in e.items()}
                   for s, e in g.items()} for g, sg in zip(cache, specs))
 
 
@@ -182,8 +184,7 @@ def serve(*, arch: str | ArchConfig, prompt_len: int, decode_n: int,
             if lead else None
         t0 = time.perf_counter()
         logits, cache = pf.fn(params, inputs)
-        cache = grow_cache(cache, cfg, b // pf.meta["n_dp"], total,
-                           pf.meta["kv_heads"][1])
+        cache = grow_cache(cache, cfg, b // pf.meta["n_dp"], total)
         _sync(dev)
         t1 = time.perf_counter()
         toks = [logits.argmax(-1)]

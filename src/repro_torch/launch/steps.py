@@ -29,9 +29,12 @@ tensor-parallel collectives; here it is eager PyTorch, one process a rank
 of a ``compat.make_mesh`` mesh (NCCL on the card, gloo with
 ``device="cpu"``), each holding its shards as plain tensors, and the
 model axis' collectives are placed by hand (``sharding/tp.py``,
-``Ctx.model``). Tensor parallelism (a "model" axis above 1) runs for
-configs whose blocks are all ``blocks.TP_BLOCKS``; the other block types
-raise ``NotImplementedError`` (ROADMAP: several cards).
+``Ctx.model``). Tensor parallelism (a "model" axis above 1) runs every
+block type (``blocks.TP_BLOCKS``); a config whose cuts do not line up (a
+rank's query heads that read more than one KV head, an SSD ``d_inner``
+that splits where its heads do not, an RG-LRU width that splits where
+its gate blocks do not) raises ``NotImplementedError`` when its step is
+built.
 """
 from __future__ import annotations
 
@@ -52,7 +55,7 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import api
 from repro_torch.obs import hooks as _obs
 from repro_torch.optim import adamw
-from repro_torch.models import blocks
+from repro_torch.models import rglru
 from repro_torch.sharding import rules, tp
 
 SEQ_SHARDED_BLOCKS = ("global", "moe", "selfcross")
@@ -465,19 +468,29 @@ class Program:
 
 def _model_axis(cfg: ArchConfig, mesh, n_model: int):
     """The mesh's "model" axis when it holds more than one rank (tensor
-    parallelism), else None. Raises ``NotImplementedError`` naming the
-    first block type of ``cfg`` that is not ported for it."""
+    parallelism), else None. Raises ``NotImplementedError`` where the
+    cuts of ``rules.tp_dim`` do not line up: a rank's query heads that
+    read more than one KV head (``tp.kv_heads``), an SSD ``d_inner`` or
+    an RG-LRU width cut where its heads or gate blocks are not."""
     if n_model == 1:
         return None
-    kinds = [bt for pat, _ in cfg.pattern_groups for bt in pat]
-    if cfg.is_encdec:
-        kinds.insert(0, "bidir")
-    for bt in kinds:
-        if bt not in blocks.TP_BLOCKS:
+    kinds = {bt for pat, _ in cfg.pattern_groups for bt in pat}
+    if cfg.n_heads:
+        for r in range(n_model):
+            tp.kv_heads(cfg.n_heads, cfg.n_kv_heads, n_model, r)
+
+    def splits(n: int) -> bool:
+        return n % n_model == 0 and n >= n_model
+    rnn = cfg.rnn_width or cfg.d_model
+    for bt, width, parts in (
+            ("ssd", cfg.ssm_heads * cfg.ssm_head_dim, cfg.ssm_heads),
+            ("rglru", rnn, rglru.N_GATE_BLOCKS if rnn % rglru.N_GATE_BLOCKS
+             == 0 else 1)):
+        if bt in kinds and splits(width) and not splits(parts):
             raise NotImplementedError(
-                f"tensor parallelism over a 'model' mesh axis of {n_model} "
-                f"is not ported for the {bt!r} block of {cfg.name} yet "
-                f"(ROADMAP: several cards)")
+                f"tensor parallelism over {n_model} ranks: the {bt!r} "
+                f"block of {cfg.name} cuts its width of {width} but not its "
+                f"{parts} heads or gate blocks")
     return mesh.axes["model"]
 
 
@@ -492,9 +505,8 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                      device=None) -> Program:
     """The train step of ``cfg`` at ``shape`` on ``mesh`` (a
     ``compat.make_mesh`` mesh over ("data", "model") or ("pod", "data",
-    "model"), any data size; a model axis above 1 for configs of
-    ``blocks.TP_BLOCKS`` only), its tensors on ``device`` (the card by
-    default). This process is one rank of the mesh; the ranks of one
+    "model"), any data and model size), its tensors on ``device`` (the
+    card by default). This process is one rank of the mesh; the ranks of one
     data index take the same rows and hold their cuts of the leaves that
     ``rules.tp_dim`` cuts.
 
@@ -729,27 +741,30 @@ def _cache_manual_specs(cfg: ArchConfig, shape: ShapeConfig,
     after the layer dim) go by data rank; sequence-sharded, the K/V of
     ``SEQ_SHARDED_BLOCKS`` are cut along the sequence (dim 2) and the rest
     (local rings, recurrent states, a memory's K/V) is whole on every
-    rank. Over a model axis above 1 the K/V heads (dim 3) are cut over
-    "model" when they split, as in the reference. When they do not, the
-    reference cuts ``head_dim``; the port keeps on each rank, whole, the
-    KV heads its query heads read (``tp.kv_heads``, which ``shard_cache``
-    takes: no spec entry says it; ROADMAP, queue 3)."""
+    rank. Over a model axis above 1, as in the reference, the K/V heads
+    (dim 3) are cut over "model" when they split, and a recurrent state's
+    dim 2 (the SSD heads, the RG-LRU width) when it splits; the conv
+    tails stay whole. When the KV heads do not split, the reference cuts
+    ``head_dim``; the port keeps on each rank, whole, the KV heads its
+    query heads read (``tp.kv_heads``, which ``shard_cache`` takes: no
+    spec entry says it; ROADMAP, queue 3)."""
     cspecs = api.cache_specs(cfg, shape.global_batch, shape.seq_len)
     dp = dp if len(dp) > 1 else dp[0]
-    kv = cfg.n_kv_heads
 
-    def spec(bt: str, key: str):
+    def spec(bt: str, key: str, leaf: torch.Tensor):
         if not seq_sharded:
             entries = [None, dp]
         elif bt in SEQ_SHARDED_BLOCKS and key in ("k", "v"):
             entries = [None, None, dp]
         else:
             entries = []
-        if n_model > 1 and key in ("k", "v", "mk", "mv") \
-                and kv % n_model == 0 and kv >= n_model:
-            entries += [None] * (3 - len(entries)) + ["model"]
+        dim = {"k": 3, "v": 3, "mk": 3, "mv": 3, "state": 2}.get(key)
+        if n_model > 1 and dim is not None \
+                and leaf.shape[dim] % n_model == 0 \
+                and leaf.shape[dim] >= n_model:
+            entries += [None] * (dim - len(entries)) + ["model"]
         return rules.P(*entries)
-    specs = tuple({s: {k: spec(pat[int(s[1:])], k) for k in e}
+    specs = tuple({s: {k: spec(pat[int(s[1:])], k, t) for k, t in e.items()}
                    for s, e in g.items()}
                   for (pat, _), g in zip(cfg.pattern_groups, cspecs))
     return cspecs, specs
@@ -759,14 +774,14 @@ def shard_cache(cache: tuple, program: Program) -> tuple:
     """This rank's shard of a full decode cache under the program's
     ``meta["cache_specs"]`` (``rules.shard_of``: a leaf that is not cut is
     the caller's tensor, which the decode then writes in place); over a
-    model axis whose cut the specs do not say, the K/V keep the rank's
-    ``meta["kv_heads"]`` (first, count)."""
+    model axis whose cut the specs do not say, the K/V (the memory's too)
+    keep the rank's ``meta["kv_heads"]`` (first, count)."""
     specs, mesh = program.meta["cache_specs"], program.mesh
     first, count = program.meta["kv_heads"]
 
     def one(key, t, spec):
         t = rules.shard_of(t, spec, mesh)
-        if key not in ("k", "v") or _model_cut(spec) \
+        if key not in ("k", "v", "mk", "mv") or _model_cut(spec) \
                 or count == t.shape[3]:
             return t
         return t.narrow(3, first, count).clone(
@@ -779,14 +794,14 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                      mode: str | None = None, q8: bool = False,
                      flash: bool = True, device=None) -> Program:
     """The prefill or decode program of ``cfg`` (``shape.kind``) on
-    ``mesh`` (data axes of any size; a model axis above 1 for configs of
-    ``blocks.TP_BLOCKS`` only), its tensors on ``device`` (the card by
-    default). This process is one rank of the mesh;
+    ``mesh`` (data and model axes of any size), its tensors on
+    ``device`` (the card by default). This process is one rank of the mesh;
     ``params`` are this rank's shards under ``meta["param_specs"]`` (in
     fsdp the scattered leaves are chunks: the non-stacked ones are
     gathered whole at each call, each layer's inside the layer loop;
     over "model" the leaves that ``rules.tp_dim`` cuts are this rank's
-    cut, and the cache holds the rank's ``meta["kv_heads"]``).
+    cut, and the cache holds the rank's ``meta["kv_heads"]`` and its cut
+    of the recurrent states; the conv tails are whole).
     The gather is ``all_gather_dim`` (the leaf itself when the data axes
     hold one rank, where the reference's XLA drops it), or with ``q8``
     the int8 ``all_gather_dim_q8``, which quantizes at one rank too (the
@@ -839,9 +854,11 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     serve_inc = IncAggConfig(mode="xla-psum")
     fsdp = mode == "fsdp"
 
-    def gather_leaf(leaf, d):
+    def gather_leaf(name, leaf, d):
         if q8:
-            return inc_agg.all_gather_dim_q8(leaf, d, manual)
+            cut = model is not None and _model_cut(pspecs[name])
+            return inc_agg.all_gather_dim_q8(leaf, d, manual,
+                                             model if cut else None)
         if n_dp == 1:
             return leaf
         return inc_agg.all_gather_dim(leaf, d, manual, serve_inc)
@@ -851,7 +868,7 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         stack dim, so scatter dims shift by -1)."""
         prefix = f"groups.{gi}." if scope == "groups" else "enc.blocks."
         return _named_map(pslice, lambda name, leaf: gather_leaf(
-            leaf, dims[name] - 1) if dims[name] >= 1 else leaf, prefix)
+            name, leaf, dims[name] - 1) if dims[name] >= 1 else leaf, prefix)
 
     def prep(params):
         """The params with the non-stacked scattered leaves gathered (in
@@ -859,7 +876,7 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         if not fsdp:
             return params
         return api.plain_tree(params, lambda name, leaf: gather_leaf(
-            leaf, dims[name]) if dims[name] >= 0
+            name, leaf, dims[name]) if dims[name] >= 0
             and not rules._is_stacked(name) else leaf)
 
     gather = hook if fsdp else None

@@ -45,7 +45,9 @@ others' rows masked to zero, and the lookups are summed over the axis
 columns, their pad columns found by their global index, gathered whole
 over the axis (``tp.gather_model``), so the loss and the serve programs
 see the full logits on every rank: a rank holds (B, S, V) logits, not
-its (B, S, V / n) shard.
+its (B, S, V / n) shard. The memory of the cross layers is whole on
+every rank: the VLM's ``mproj`` columns are gathered after their
+product, and whisper's encoder runs tensor-parallel to a whole output.
 """
 from __future__ import annotations
 
@@ -251,31 +253,43 @@ def _decode_embed(params: Tree, cfg: ArchConfig, token: torch.Tensor,
 
 
 def _memory(params: Tree, cfg: ArchConfig, batch: dict,
-            param_gather=None) -> torch.Tensor | None:
+            param_gather=None, model=None) -> torch.Tensor | None:
     """What the cross-attention attends to: the projected patches (vlm),
-    the encoder's output (whisper), else None."""
+    the encoder's output (whisper), else None. With ``mproj``'s output
+    dim cut over ``model`` the rank's columns are gathered whole (their
+    backward takes the rank's slice of a cotangent that is whole on every
+    rank: the cross layers' K/V products sum theirs over the axis)."""
     if cfg.family == "vlm":
-        return (batch["patches"].to(COMPUTE_DTYPE)
-                @ params["mproj"]).to(COMPUTE_DTYPE)
+        w = params["mproj"]
+        cut = tp.cut(w.shape[-1], cfg.d_model, model)
+        mem = tp.column(tp.MATMUL, batch["patches"].to(COMPUTE_DTYPE), w,
+                        cut)
+        return tp.gather_model(mem, -1, cut).to(COMPUTE_DTYPE)
     if cfg.is_encdec:
-        return encode(params, cfg, batch["frames"], param_gather)
+        return encode(params, cfg, batch["frames"], param_gather, model)
     return None
 
 
 def encode(params: Tree, cfg: ArchConfig, frames: torch.Tensor,
-           param_gather=None) -> torch.Tensor:
+           param_gather=None, model=None) -> torch.Tensor:
     """Whisper's encoder over stub frame embeddings (B, M, d): sinusoidal
     positions, the ``bidir`` layers (each gathered by ``param_gather``
-    under scope "enc" first), then its own final norm."""
+    under scope "enc" first), then its own final norm. Under ``model``
+    the layers run tensor-parallel, and the norm's scale, which
+    ``rules.tp_dim`` cuts by its name ("norm", the SSD's), is gathered
+    whole first."""
     m = frames.shape[1]
     x = frames.to(COMPUTE_DTYPE) + sinusoidal_positions(
         m, cfg.d_model, frames.device).to(COMPUTE_DTYPE)
     ctx = Ctx(cfg=cfg, positions=torch.arange(m, device=frames.device),
-              param_gather=param_gather)
+              param_gather=param_gather, model=model)
     for layer in _unbind(params["enc"]["blocks"]):
         x, _ = blocks.block_train(ctx.gather("enc", 0, layer), "bidir", x,
                                   ctx)
-    return rms_norm(x, params["enc"]["norm"], cfg.norm_eps)
+    scale = params["enc"]["norm"]
+    scale = tp.gather_model(scale, 0, tp.cut(scale.shape[-1], cfg.d_model,
+                                             model))
+    return rms_norm(x, scale, cfg.norm_eps)
 
 
 def logits_of(params: Tree, cfg: ArchConfig, x: torch.Tensor,
@@ -353,7 +367,8 @@ def forward(params: Tree, cfg: ArchConfig, batch: dict, remat: bool = True,
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     ctx = Ctx(cfg=cfg, positions=positions, param_gather=param_gather,
-              memory=_memory(params, cfg, batch, param_gather), model=model)
+              memory=_memory(params, cfg, batch, param_gather, model),
+              model=model)
     x = _embed(params, cfg, tokens, model)
     x, aux = _stack_train(params, cfg, x, ctx, remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -396,8 +411,8 @@ def prefill(params: Tree, cfg: ArchConfig, batch: dict, *,
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     ctx = Ctx(cfg=cfg, positions=positions, param_gather=param_gather,
-              memory=_memory(params, cfg, batch, param_gather), flash=flash,
-              model=model)
+              memory=_memory(params, cfg, batch, param_gather, model),
+              flash=flash, model=model)
     x = _embed(params, cfg, tokens, model)
     cache = []
     for gi, (pat, n) in enumerate(cfg.pattern_groups):

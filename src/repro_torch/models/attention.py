@@ -357,9 +357,11 @@ def _decode_attend(q, k_cache, v_cache, valid, n_kv: int,
 
 
 def decode_cross_attn(p: dict, x1: torch.Tensor, k_mem: torch.Tensor,
-                      v_mem: torch.Tensor, n_kv: int) -> torch.Tensor:
+                      v_mem: torch.Tensor, n_kv: int, model=None
+                      ) -> torch.Tensor:
     """x1: (B,1,d) against the memory's K/V (B,M,KV,hd), every position
-    valid; no rope. Returns (B,1,d)."""
+    valid; no rope. Returns (B,1,d). With ``model`` the K/V hold this
+    rank's KV heads and the output is summed over that axis."""
     valid = torch.ones(k_mem.shape[1], dtype=torch.bool, device=x1.device)
-    return out_proj(p, _decode_attend(query(p, x1), k_mem, v_mem, valid,
-                                      n_kv))
+    return out_proj(p, _decode_attend(query(p, x1, model), k_mem, v_mem,
+                                      valid, n_kv), model)

@@ -28,17 +28,23 @@ pre-norm residual layer:
 M is ``cfg.frontend_tokens``. ``block_decode`` updates the cache entry IN
 PLACE and returns it (the reference returns a new one).
 
-Tensor parallelism (``Ctx.model``, the mesh's model axis) is ported for
-``TP_BLOCKS``: each rank holds its cut of every leaf that ``rules.tp_dim``
-cuts, and the attention and the FFN place the model axis' collectives
+Tensor parallelism (``Ctx.model``, the mesh's model axis) runs every
+block type (``TP_BLOCKS``): each rank holds its cut of every leaf that
+``rules.tp_dim`` cuts, and the attention (self and cross), the FFN and
+the recurrent mixers place the model axis' collectives
 (``sharding/tp.py``) where their leaves are cut. Whether a sub-layer is
 cut is read from its leaves' shapes: the attention when wq's heads are
-(wo's are then too), the SwiGLU when w1's ff is, the MoE when its
-experts' ff is. A sub-layer that is not cut runs whole on every rank,
-with no collective. When the query heads are cut and the KV heads are
-not, the rank projects only the KV heads its query heads read
-(``tp.kv_heads``), from the whole wk and wv through ``tp.to_model``. The
-other block types raise ``NotImplementedError`` under a model axis.
+(wo's are then too), the SwiGLU and the GELU MLP when w1's ff is, the
+MoE when its experts' ff is, the RG-LRU when w_in_a's width is, the SSD
+when w_x's ``d_inner`` is (its heads with it: the rank's head count is
+w_dt's). A sub-layer that is not cut runs whole on every rank, with no
+collective. When the query heads are cut and the KV heads are not, the
+rank projects only the KV heads its query heads read (``tp.kv_heads``),
+from the whole wk and wv through ``tp.to_model``: the self-attention's
+K/V, and a cross layer's of the memory. The recurrent caches keep their
+conv tails whole, as the reference does: ``block_prefill`` gathers the
+rank's tail channels over the axis (the train path, which drops the
+tail, gathers none).
 """
 from __future__ import annotations
 
@@ -56,8 +62,9 @@ from repro_torch.models.rglru import init_rglru, rglru_decode, rglru_train
 from repro_torch.models.ssm import init_mamba2, mamba2_decode, mamba2_train
 from repro_torch.sharding import tp
 
-# block types that run under a model axis above 1
-TP_BLOCKS = ("global", "local", "moe")
+# block types that run under a model axis above 1: all of them
+TP_BLOCKS = ("global", "local", "moe", "ssd", "rglru", "cross", "selfcross",
+             "bidir")
 
 
 @dataclass(frozen=True)
@@ -131,13 +138,6 @@ def init_block(gen, bt: str, cfg: ArchConfig, *, lead: tuple = (),
 # train / prefill (full sequence)
 # ---------------------------------------------------------------------------
 
-def _tp_check(bt: str, ctx: Ctx) -> None:
-    if ctx.model is not None and bt not in TP_BLOCKS:
-        raise NotImplementedError(
-            f"tensor parallelism (a 'model' mesh axis above 1) is not ported "
-            f"for the {bt!r} block yet (ROADMAP: several cards)")
-
-
 def _tp_attn(p: dict, ctx: Ctx) -> tuple[dict, object]:
     """(the attention params this rank computes with, the model axis when
     wq's heads are cut, else None). With wq cut and wk/wv whole, the K/V
@@ -173,10 +173,13 @@ def _attn_kwargs(bt: str, ctx: Ctx, p: dict) -> dict:
 
 
 def _cross(p: dict, x: torch.Tensor, ctx: Ctx):
-    """Cross-attention of ``x`` (normed) to the memory: (y, its K/V)."""
-    return attn.attn_prefill(p, x, n_kv=p["wk"].shape[-2], kind="cross",
+    """Cross-attention of ``x`` (normed) to the memory: (y, its K/V, the
+    rank's KV heads under a model axis)."""
+    pa, model = _tp_attn(p, ctx)
+    return attn.attn_prefill(pa, x, n_kv=pa["wk"].shape[-2], kind="cross",
                              theta=ctx.cfg.rope_theta,
-                             positions=ctx.positions, memory=ctx.memory)
+                             positions=ctx.positions, memory=ctx.memory,
+                             model=model)
 
 
 def _ring_pack(k: torch.Tensor, window: int) -> torch.Tensor:
@@ -194,21 +197,50 @@ def _ring_pack(k: torch.Tensor, window: int) -> torch.Tensor:
     return out
 
 
-def _ssd_kwargs(cfg: ArchConfig) -> dict:
-    return {"n_heads": cfg.ssm_heads, "head_dim": cfg.ssm_head_dim,
-            "d_state": cfg.ssm_state, "norm_eps": cfg.norm_eps}
+def _mix_model(p: dict, bt: str, ctx: Ctx):
+    """The model axis when a recurrent mixer's leaves are cut (w_in_a's
+    RG-LRU width, w_x's ``d_inner``), else None."""
+    cfg = ctx.cfg
+    whole = (cfg.rnn_width or cfg.d_model) if bt == "rglru" else \
+        cfg.ssm_heads * cfg.ssm_head_dim
+    w = p["mix"]["w_in_a" if bt == "rglru" else "w_x"]
+    return tp.cut(w.shape[-1], whole, ctx.model)
+
+
+def _ssd_kwargs(p: dict, ctx: Ctx) -> dict:
+    """The SSD mixer's sizes; the head count is the rank's (w_dt's)."""
+    cfg = ctx.cfg
+    return {"n_heads": p["mix"]["w_dt"].shape[-1],
+            "head_dim": cfg.ssm_head_dim, "d_state": cfg.ssm_state,
+            "norm_eps": cfg.norm_eps, "model": _mix_model(p, "ssd", ctx)}
+
+
+def _whole_tail(bt: str, conv: torch.Tensor, ctx: Ctx, model
+                ) -> torch.Tensor:
+    """A recurrent mixer's conv tail (B, K-1, C) with this rank's channels
+    gathered whole over ``model``: the RG-LRU's all of them, the SSD's x
+    columns (B and C are whole)."""
+    if model is None:
+        return conv
+    if bt == "rglru":
+        return tp.gather_model(conv, -1, model)
+    bc = 2 * ctx.cfg.ssm_state
+    x = conv[..., :conv.shape[-1] - bc]
+    return torch.cat([tp.gather_model(x, -1, model), conv[..., x.shape[-1]:]],
+                     dim=-1)
 
 
 def _mixer(p: dict, bt: str, x: torch.Tensor, ctx: Ctx):
     """The block's attention or recurrent half, residual included: (x,
-    cache entry)."""
+    cache entry; a recurrent conv tail holds the rank's channels)."""
     eps = ctx.cfg.norm_eps
     xn = rms_norm(x, p["n1"], eps)
     if bt == "rglru":
-        y, state, conv = rglru_train(p["mix"], xn)
+        y, state, conv = rglru_train(p["mix"], xn,
+                                     _mix_model(p, "rglru", ctx))
         return x + y, {"state": state, "conv": conv}
     if bt == "ssd":
-        y, state, conv = mamba2_train(p["mix"], xn, **_ssd_kwargs(ctx.cfg))
+        y, state, conv = mamba2_train(p["mix"], xn, **_ssd_kwargs(p, ctx))
         return x + y, {"state": state, "conv": conv}
     if bt == "cross":
         y, mk, mv = _cross(p["xattn"], xn, ctx)
@@ -235,9 +267,7 @@ def _gated(p: dict, y: torch.Tensor) -> torch.Tensor:
 
 def _ff_model(w1: torch.Tensor, ctx: Ctx):
     """The model axis when ``w1``'s ff dim (last) is cut, else None."""
-    if ctx.model is None or w1.shape[-1] == ctx.cfg.d_ff:
-        return None
-    return ctx.model
+    return tp.cut(w1.shape[-1], ctx.cfg.d_ff, ctx.model)
 
 
 def _ffn(p: dict, bt: str, x: torch.Tensor, ctx: Ctx):
@@ -254,12 +284,12 @@ def _ffn(p: dict, bt: str, x: torch.Tensor, ctx: Ctx):
             model=_ff_model(p["moe"]["experts"]["w1"], ctx))
         return x + y, aux
     if bt in ("selfcross", "bidir"):
-        return x + ffn.gelu_mlp(p["mlp"], xn), None
+        return x + ffn.gelu_mlp(p["mlp"], xn,
+                                _ff_model(p["mlp"]["w1"], ctx)), None
     return x + ffn.swiglu(p["mlp"], xn, _ff_model(p["mlp"]["w1"], ctx)), None
 
 
 def _block(p: dict, bt: str, x: torch.Tensor, ctx: Ctx):
-    _tp_check(bt, ctx)
     x, entry = _mixer(p, bt, x, ctx)
     x, aux = _ffn(p, bt, x, ctx)
     return x, entry, aux
@@ -269,8 +299,12 @@ def block_prefill(p: dict, bt: str, x: torch.Tensor, ctx: Ctx
                   ) -> tuple[torch.Tensor, dict]:
     """Returns (x_out, cache_entry): the roped K/V of the normed input (a
     ring for ``local``, un-roped for ``selfcross``), the memory's K/V, or
-    the recurrent state and conv tail."""
+    the recurrent state and conv tail (under a model axis the rank's
+    state and the whole tail)."""
     x, entry, _ = _block(p, bt, x, ctx)
+    if bt in ("rglru", "ssd"):
+        entry["conv"] = _whole_tail(bt, entry["conv"], ctx,
+                                    _mix_model(p, bt, ctx))
     return x, entry
 
 
@@ -293,22 +327,22 @@ def block_decode(p: dict, bt: str, x1: torch.Tensor, cache: dict, pos: int,
     """One token through the block; the cache entry is updated in place
     and returned (a memory's K/V are only read)."""
     cfg = ctx.cfg
-    _tp_check(bt, ctx)
     xn = rms_norm(x1, p["n1"], cfg.norm_eps)
     if bt in ("rglru", "ssd"):
         if bt == "rglru":
             y, state, conv = rglru_decode(p["mix"], xn, cache["state"],
-                                          cache["conv"])
+                                          cache["conv"],
+                                          _mix_model(p, "rglru", ctx))
         else:
             y, state, conv = mamba2_decode(p["mix"], xn, cache["state"],
-                                           cache["conv"], **_ssd_kwargs(cfg))
+                                           cache["conv"],
+                                           **_ssd_kwargs(p, ctx))
         # new tensors (the window was built by torch.cat): no overlap
         cache["state"].copy_(state)
         cache["conv"].copy_(conv)
         x1 = x1 + y
     elif bt == "cross":
-        x1 = x1 + _gated(p, attn.decode_cross_attn(
-            p["xattn"], xn, cache["mk"], cache["mv"], cache["mk"].shape[-2]))
+        x1 = x1 + _gated(p, _decode_cross(p["xattn"], xn, cache, ctx))
     else:
         # a local layer's ring is never sharded; the others' K/V (global,
         # moe, selfcross's self-attention) follow ``ctx.seq_axes``
@@ -323,11 +357,20 @@ def block_decode(p: dict, bt: str, x1: torch.Tensor, cache: dict, pos: int,
             rope=bt != "selfcross", model=model)
         x1 = x1 + y
         if bt == "selfcross":
-            x1 = x1 + attn.decode_cross_attn(
-                p["xattn"], rms_norm(x1, p["n2"], cfg.norm_eps),
-                cache["mk"], cache["mv"], cache["mk"].shape[-2])
+            x1 = x1 + _decode_cross(p["xattn"],
+                                    rms_norm(x1, p["n2"], cfg.norm_eps),
+                                    cache, ctx)
     x1, _ = _ffn(p, bt, x1, ctx)
     return x1, cache
+
+
+def _decode_cross(p: dict, xn: torch.Tensor, cache: dict, ctx: Ctx
+                  ) -> torch.Tensor:
+    """One token's cross-attention to the memory's cached K/V (the rank's
+    KV heads under a model axis)."""
+    pa, model = _tp_attn(p, ctx)
+    return attn.decode_cross_attn(pa, xn, cache["mk"], cache["mv"],
+                                  cache["mk"].shape[-2], model)
 
 
 # ---------------------------------------------------------------------------

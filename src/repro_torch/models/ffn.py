@@ -18,9 +18,11 @@ timing. Nothing in the layer waits for the card (no ``bincount``, no
 data-dependent shape).
 
 Under tensor parallelism (``model``, the mesh's model axis, given when
-the caller's weights are this rank's cut of the ff dim) w1 and w3 are
-``tp.column`` products and the product that contracts the cut ff dim (w2)
-is summed over the axis straight after it (``tp.row``). In the MoE the
+the caller's weights are this rank's cut of the ff dim) w1 and w3 (the
+GELU MLP's w1 and b1) are ``tp.column`` products and the product that
+contracts the cut ff dim (w2) is summed over the axis straight after it
+(``tp.row``); the GELU MLP's b2, which is whole, is added once after
+that sum. In the MoE the
 router and the dispatch run whole on every rank, the experts' w1 and w3
 take the capacity buffer, and their w2 output is summed straight after
 its ``bmm``, before the gates and the bf16 slot sum, where GSPMD puts the
@@ -60,9 +62,12 @@ def init_gelu_mlp(gen, d: int, ff: int, *, lead: tuple = (),
                               device=device)}
 
 
-def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = F.gelu((x @ p["w1"] + p["b1"]).to(x.dtype), approximate="tanh")
-    return (h @ p["w2"] + p["b2"]).to(x.dtype)
+def gelu_mlp(p: dict, x: torch.Tensor, model=None) -> torch.Tensor:
+    """With ``model`` (w1, b1 and w2 cut on ff) b2, which is whole, is
+    added once, after the sum over the axis: the one-rank rounding."""
+    h = F.gelu((tp.column(tp.MATMUL, x, p["w1"], model) + p["b1"])
+               .to(x.dtype), approximate="tanh")
+    return (tp.row(tp.MATMUL, h, p["w2"], model) + p["b2"]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -14,14 +14,24 @@ are block-diagonal, as in Griffin.
 Dtypes follow the reference: ``w_in_a``, ``w_in_b``, ``wr``, ``wi`` and
 ``w_out`` are bf16; ``conv_w``, ``conv_b``, ``br``, ``bi`` and ``lam``
 fp32; the gates, the recurrence and its state are fp32.
+
+Under tensor parallelism (``model``, the mesh's model axis, given when
+the caller's leaves are this rank's cut of the RG-LRU width) w_in_a and
+w_in_b are ``tp.column`` products and w_out's output is summed over the
+axis (``tp.row``); the conv, the gates' blocks and the scan run on the
+rank's channels with no collective. The decode cache's conv tail stays
+whole, as the reference's: a decode step gathers the new input's
+channels over the axis before the window and convolves the rank's.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import compat
 from repro_torch.models.common import dense_init, draw
 from repro_torch.models.ssm import causal_conv1d, conv1d_step
+from repro_torch.sharding import tp
 
 _C = 8.0
 N_GATE_BLOCKS = 16
@@ -94,31 +104,41 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def rglru_train(p: dict, x: torch.Tensor):
+def rglru_train(p: dict, x: torch.Tensor, model=None):
     """x: (B,S,d_model) -> (y (B,S,d_model), final_state (B,rnn) fp32,
     conv_tail (B,K-1,rnn)): the tail is the pre-conv inputs of the last
-    K-1 positions, the decode conv window's start."""
-    xin = x @ p["w_in_a"]
+    K-1 positions, the decode conv window's start. With ``model`` the
+    state and the tail are this rank's channels."""
+    xin = tp.column(tp.MATMUL, x, p["w_in_a"], model)
     xa = F.silu(causal_conv1d(xin, p["conv_w"], p["conv_b"])).to(x.dtype)
     a, gated = _gates(p, xa)
     h = linear_scan(a, gated)
-    xb = F.gelu((x @ p["w_in_b"]).float(), approximate="tanh")
-    y = (h * xb).to(x.dtype) @ p["w_out"]
+    xb = F.gelu(tp.column(tp.MATMUL, x, p["w_in_b"], model).float(),
+                approximate="tanh")
+    y = tp.row(tp.MATMUL, (h * xb).to(x.dtype), p["w_out"], model)
     k = p["conv_w"].shape[0]
     return y, h[:, -1, :], xin[:, -(k - 1):, :]
 
 
 def rglru_decode(p: dict, x1: torch.Tensor, state: torch.Tensor,
-                 conv_state: torch.Tensor):
+                 conv_state: torch.Tensor, model=None):
     """x1: (B,1,d_model); state: (B,rnn) fp32; conv_state: (B,K-1,rnn).
-    Returns (y (B,1,d_model), new state, new conv_state), new tensors."""
-    xa_in = (x1 @ p["w_in_a"])[:, 0]
+    Returns (y (B,1,d_model), new state, new conv_state), new tensors.
+    With ``model`` the state is this rank's channels and the conv tail
+    whole."""
+    xa_in = tp.gather_model(
+        tp.column(tp.MATMUL, x1, p["w_in_a"], model)[:, 0], -1, model)
     window = torch.cat([conv_state, xa_in[:, None, :].to(conv_state.dtype)],
                        dim=1)
-    xa = F.silu(conv1d_step(window, p["conv_w"], p["conv_b"])).to(x1.dtype)
+    mine = window
+    if tp.active(model) is not None:
+        c = state.shape[-1]
+        mine = window.narrow(-1, compat.axis_index(model) * c, c)
+    xa = F.silu(conv1d_step(mine, p["conv_w"], p["conv_b"])).to(x1.dtype)
     conv_state = window[:, 1:]
     a, gated = _gates(p, xa)
     state = a * state + gated
-    xb = F.gelu((x1[:, 0] @ p["w_in_b"]).float(), approximate="tanh")
-    y = (state * xb).to(x1.dtype) @ p["w_out"]
+    xb = F.gelu(tp.column(tp.MATMUL, x1[:, 0], p["w_in_b"], model).float(),
+                approximate="tanh")
+    y = tp.row(tp.MATMUL, (state * xb).to(x1.dtype), p["w_out"], model)
     return y[:, None, :], state, conv_state

@@ -12,13 +12,28 @@ component (z, x, B, C, dt), as the reference stores it.
 Decode is the recurrent form: an O(1) state update a token,
 h <- exp(dt*A) h + dt * x B^T, y = C h + D x. ``causal_conv1d`` and
 ``conv1d_step`` compute in fp32; ``models/rglru.py`` uses them too.
+
+Under tensor parallelism (``model``, the mesh's model axis, given when
+the caller's leaves are this rank's cut of the heads and ``d_inner``)
+each rank runs the SSD of its own heads: w_z, w_x and w_dt are
+``tp.column`` products and w_out's output is summed over the axis
+(``tp.row``); w_B and w_C and their convs stay whole, and B and C enter
+the rank's heads through ``tp.to_model``, so their gradients are whole
+on every rank. The gated RMS norm runs over the rank's columns of
+``d_inner``: its sum of squares is summed over the axis both ways
+(``tp.sum_model``) and divided by the whole ``d_inner``. The decode
+cache's conv tail (x|B|C) stays whole, as the reference's: a decode step
+gathers the new x columns over the axis before the window and convolves
+the rank's.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import compat
 from repro_torch.models.common import dense_init, draw, rms_norm
+from repro_torch.sharding import tp
 
 SSD_CHUNK = 256
 
@@ -111,7 +126,10 @@ def ssd_chunked(x_h: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     diff = ct[..., :, None] - ct[..., None, :]               # (b,c,h,l,l)
     li = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                device=x_h.device))
-    decay = torch.where(li, torch.exp(diff), 0.0)
+    # masked before the exp (the reference takes where(li, exp(diff), 0)):
+    # above the diagonal diff passes 88 on a long chunk, and exp's inf
+    # there gives a NaN gradient through a where; exp(-inf) is 0
+    decay = torch.exp(diff.masked_fill(~li, -torch.inf))
     y_diag = torch.einsum("bchls,bcls,bcshp->bclhp", decay, cb, x_dt)
 
     # chunk states, then the sequential inter-chunk recurrence, which
@@ -134,48 +152,74 @@ def ssd_chunked(x_h: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return (y_diag + y_off).reshape(b, s, h, p), state
 
 
-def _project(p: dict, x: torch.Tensor):
-    return (x @ p["w_z"], x @ p["w_x"], x @ p["w_B"], x @ p["w_C"],
-            x @ p["w_dt"])
+def _project(p: dict, x: torch.Tensor, model=None):
+    def cut(w):
+        return tp.column(tp.MATMUL, x, p[w], model)
+    return cut("w_z"), cut("w_x"), x @ p["w_B"], x @ p["w_C"], cut("w_dt")
+
+
+def _gated_norm(y: torch.Tensor, scale: torch.Tensor, eps: float,
+                model=None) -> torch.Tensor:
+    """``rms_norm`` of (B, S, d_inner); with ``model`` over the rank's
+    columns of ``d_inner``, the fp32 sum of squares summed over the axis
+    and divided by the whole width."""
+    if tp.active(model) is None:
+        return rms_norm(y, scale, eps)
+    x32 = y.float()
+    ss = tp.sum_model(x32.square().sum(dim=-1, keepdim=True), model)
+    var = ss / (y.shape[-1] * compat.axis_size(model))
+    return (x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
+            ).to(y.dtype)
 
 
 def mamba2_train(p: dict, x: torch.Tensor, *, n_heads: int, head_dim: int,
-                 d_state: int, norm_eps: float, chunk: int = SSD_CHUNK):
+                 d_state: int, norm_eps: float, chunk: int = SSD_CHUNK,
+                 model=None):
     """x: (B,S,d_model) -> (y (B,S,d_model), final state (B,H,P,N) fp32,
     conv tail (B,K-1,d_inner+2N)): the tail is the pre-conv x|B|C inputs
-    of the last K-1 positions, the decode conv window's start."""
+    of the last K-1 positions, the decode conv window's start. With
+    ``model``, ``n_heads`` is the rank's count, and the state and the
+    tail's x columns are the rank's."""
     d_inner = n_heads * head_dim
-    z, xc_in, b_in, c_in, dt = _project(p, x)
+    z, xc_in, b_in, c_in, dt = _project(p, x, model)
     xc = F.silu(causal_conv1d(xc_in, p["conv_x"], p["conv_bx"]))
-    bmat = F.silu(causal_conv1d(b_in, p["conv_B"], p["conv_bB"]))
-    cmat = F.silu(causal_conv1d(c_in, p["conv_C"], p["conv_bC"]))
+    bmat = tp.to_model(F.silu(causal_conv1d(b_in, p["conv_B"],
+                                            p["conv_bB"])), model)
+    cmat = tp.to_model(F.silu(causal_conv1d(c_in, p["conv_C"],
+                                            p["conv_bC"])), model)
     dtp = F.softplus(dt.float() + p["dt_bias"])
     a = -torch.exp(p["A_log"])
     x_h = xc.reshape(*xc.shape[:2], n_heads, head_dim)
     y, final = ssd_chunked(x_h, dtp, a, bmat, cmat, chunk)
     y = y + p["D"][None, None, :, None] * x_h
     y = y.reshape(*x.shape[:2], d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"], norm_eps)
+    y = _gated_norm(y * F.silu(z), p["norm"], norm_eps, model)
     k = p["conv_x"].shape[0]
     conv_tail = torch.cat([xc_in, b_in, c_in], dim=-1)[:, -(k - 1):, :]
-    return y @ p["w_out"], final, conv_tail
+    return tp.row(tp.MATMUL, y, p["w_out"], model), final, conv_tail
 
 
 def mamba2_decode(p: dict, x1: torch.Tensor, ssm_state: torch.Tensor,
                   conv_state: torch.Tensor, *, n_heads: int, head_dim: int,
-                  d_state: int, norm_eps: float):
+                  d_state: int, norm_eps: float, model=None):
     """x1: (B,1,d_model); ssm_state: (B,H,P,N) fp32; conv_state:
     (B,K-1,d_inner+2N), the pre-conv x|B|C inputs. Returns (y
-    (B,1,d_model), new state, new conv_state), new tensors."""
+    (B,1,d_model), new state, new conv_state), new tensors. With
+    ``model``, ``n_heads`` and the state are the rank's and the conv
+    tail is whole."""
     d_inner = n_heads * head_dim
-    z, xc_in, b_in, c_in, dt = _project(p, x1[:, 0])
-    new_in = torch.cat([xc_in, b_in, c_in], dim=-1)
+    z, xc_in, b_in, c_in, dt = _project(p, x1[:, 0], model)
+    new_in = torch.cat([tp.gather_model(xc_in, -1, model), b_in, c_in],
+                       dim=-1)
     window = torch.cat([conv_state, new_in[:, None, :].to(conv_state.dtype)],
                        dim=1)
     conv_state = window[:, 1:]
-    wx = window[..., :d_inner]
-    wb = window[..., d_inner:d_inner + d_state]
-    wc = window[..., d_inner + d_state:]
+    whole = window.shape[-1] - 2 * d_state
+    first = 0 if tp.active(model) is None else \
+        compat.axis_index(model) * d_inner
+    wx = window[..., first:first + d_inner]
+    wb = window[..., whole:whole + d_state]
+    wc = window[..., whole + d_state:]
     xc = F.silu(conv1d_step(wx, p["conv_x"], p["conv_bx"]))
     bvec = F.silu(conv1d_step(wb, p["conv_B"], p["conv_bB"]))
     cvec = F.silu(conv1d_step(wc, p["conv_C"], p["conv_bC"]))
@@ -188,5 +232,5 @@ def mamba2_decode(p: dict, x1: torch.Tensor, ssm_state: torch.Tensor,
     y = torch.einsum("bhpn,bn->bhp", ssm_state, cvec)
     y = y + p["D"][None, :, None] * x_h
     y = y.reshape(-1, 1, d_inner).to(x1.dtype)
-    y = rms_norm(y * F.silu(z[:, None, :]), p["norm"], norm_eps)
-    return y @ p["w_out"], ssm_state, conv_state
+    y = _gated_norm(y * F.silu(z[:, None, :]), p["norm"], norm_eps, model)
+    return tp.row(tp.MATMUL, y, p["w_out"], model), ssm_state, conv_state

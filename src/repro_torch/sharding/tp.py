@@ -14,7 +14,12 @@ group (``compat.Mesh.axes["model"].group``):
   from_model    all-reduce forward, identity backward: the partial sums
                 of a product whose contracting dim is cut over "model";
   gather_model  all-gather along ``dim`` forward, this rank's slice
-                backward (the vocab-parallel logits).
+                backward (the vocab-parallel logits, the projected
+                memory, the encoder's final norm scale, the conv tails
+                of the recurrent caches);
+  sum_model     all-reduce forward and backward: a statistic summed
+                over the ranks' cuts that cut work on every rank then
+                uses (the SSD's gated RMS norm over a cut ``d_inner``).
 
 The rule that places them: an all-reduce follows a product whose
 contracting dim is cut over "model", straight after that product, and
@@ -81,6 +86,17 @@ class _FromModel(torch.autograd.Function):
         return ct, None
 
 
+class _SumModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _sum(ct, ctx.group), None
+
+
 class _GatherModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
@@ -109,6 +125,21 @@ def from_model(x: torch.Tensor, axis) -> torch.Tensor:
     if active(axis) is None:
         return x
     return _FromModel.apply(x, axis.group)
+
+
+def cut(n: int, whole: int, axis):
+    """``axis`` when a leaf's dim of ``n`` is this rank's cut of a dim of
+    ``whole`` (shorter), else None: whether a sub-layer runs cut is read
+    from its leaves' shapes."""
+    return None if axis is None or n == whole else axis
+
+
+def sum_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """The sum of ``x`` over ``axis``; its backward sums the cotangents
+    over the axis too (``to_model(from_model(x))``)."""
+    if active(axis) is None:
+        return x
+    return _SumModel.apply(x, axis.group)
 
 
 def gather_model(x: torch.Tensor, dim: int, axis) -> torch.Tensor:

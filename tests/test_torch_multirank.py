@@ -620,23 +620,3 @@ def test_fsdp_equals_zero1_on_one_rank(arch):
     assert got["zero1"].keys() == got["fsdp"].keys()
     for k, t in got["zero1"].items():
         assert torch.equal(t, got["fsdp"][k]), k
-
-
-def test_tensor_parallel_mesh_raises():
-    """A mesh with a model axis above 1 is tensor parallelism: ported for
-    the global, local and moe blocks only (``tests/test_torch_tp.py``);
-    an arch with another block type raises, naming it, and nothing falls
-    back."""
-    from repro_torch.compat import Mesh
-    from repro_torch.configs.base import ShapeConfig, get_arch
-    from repro_torch.core.inc_agg import IncAggConfig
-    from repro_torch.launch import steps
-    from repro_torch.optim.adamw import AdamWConfig
-    for shape, names in (((2, 2), ("data", "model")),
-                         ((1, 2, 2), ("pod", "data", "model"))):
-        with pytest.raises(NotImplementedError,
-                           match="tensor parallelism.*'rglru'"):
-            steps.build_train_step(
-                get_arch("recurrentgemma-9b").reduced(),
-                ShapeConfig("t", SEQ, BATCH, "train"), Mesh(shape, names, {}),
-                inc=IncAggConfig(), opt_cfg=AdamWConfig(), device="cpu")

@@ -384,24 +384,6 @@ def test_serve_cli_under_torch_distributed_run():
     assert lines[-1].startswith("sampled token ids[0]: [")
 
 
-def test_tensor_parallel_serve_raises():
-    """A mesh with a model axis above 1 is tensor parallelism: ported for
-    the global, local and moe blocks only (``tests/test_torch_tp.py``);
-    for either program an arch with another block type raises, naming it,
-    and nothing falls back."""
-    from repro_torch.compat import Mesh
-    from repro_torch.configs.base import ShapeConfig, get_arch
-    cfg = get_arch("mamba2-780m").reduced()
-    for kind in ("prefill", "decode"):
-        for shape, names in (((1, 2), ("data", "model")),
-                             ((1, 1, 2), ("pod", "data", "model"))):
-            with pytest.raises(NotImplementedError,
-                               match="tensor parallelism.*'ssd'"):
-                steps.build_serve_step(
-                    cfg, ShapeConfig("s", 32, 2, kind),
-                    Mesh(shape, names, {}), device="cpu")
-
-
 def test_serve_step_refuses_shapes_that_do_not_split():
     """A sequence-sharded decode (a batch that does not split over the
     data ranks) whose cache length does not split either, and a prefill

@@ -51,8 +51,8 @@ against the one-rank sums, cuts and slices; ``make_host_mesh`` with
 ``shard_of``/``unshard`` round trips at each mesh; the pad columns of
 qwen2.5-3b's full vocab (151 936 of 152 064) at model 4, all in the last
 rank's shard; ``tp.kv_heads`` and the mixed-KV cache of each rank; no
-all-reduce after a ``wo`` that is not cut; a model axis above 1 with the
-other block types raises.
+all-reduce after a ``wo`` that is not cut. The other block types are
+``test_torch_tp_families.py``'s.
 
 The JAX package is imported only inside the tests and the subprocesses.
 Every gloo group has a timeout.
@@ -238,8 +238,7 @@ def _serve_cases(label, mesh, rank, out, deadline):
         else:
             pf = build("prefill", PROMPT)
             logits, cache = pf.fn(params, {"tokens": toks[:, :PROMPT]})
-            cache = grow_cache(cache, cfg, b // dec.meta["n_dp"], total,
-                               dec.meta["kv_heads"][1])
+            cache = grow_cache(cache, cfg, b // dec.meta["n_dp"], total)
         every = [logits]
         for i in range(DEC):
             logits, cache = dec.fn(params, toks[:, PROMPT + i], PROMPT + i,
@@ -740,44 +739,3 @@ def test_no_all_reduce_after_an_uncut_wo(units):
         assert int(res[f"mixer/{QWEN}/wq_rows"]) == 1
         assert _rel(res[f"mixer/{QWEN}/tp"], res[f"mixer/{QWEN}/one"]) \
             < LOGIT_TOL
-
-
-@pytest.mark.parametrize("bt", ["rglru", "ssd", "bidir", "selfcross",
-                                "cross"])
-def test_other_block_types_raise_under_a_model_axis(bt):
-    """A block type not ported to tensor parallelism raises, naming the
-    type, rather than running replicated."""
-    from repro_torch.configs.base import get_arch
-    from repro_torch.models import blocks
-    from repro_torch.models.blocks import Ctx
-    arch = {"rglru": "recurrentgemma-9b", "ssd": "mamba2-780m",
-            "bidir": "whisper-medium", "selfcross": "whisper-medium",
-            "cross": "llama-3.2-vision-90b"}[bt]
-    cfg = get_arch(arch).reduced()
-    p = blocks.init_block(None, bt, cfg, device="meta")
-    x = torch.zeros((1, 4, cfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match=f"'{bt}' block"):
-        blocks.block_train(p, bt, x, Ctx(cfg=cfg, positions=torch.arange(4),
-                                         model=object()))
-
-
-@pytest.mark.parametrize("arch,bt", [("recurrentgemma-9b", "rglru"),
-                                     ("mamba2-780m", "ssd"),
-                                     ("whisper-medium", "bidir"),
-                                     ("llama-3.2-vision-90b", "cross")])
-def test_builders_raise_for_other_block_types(arch, bt):
-    from repro_torch.compat import Mesh
-    from repro_torch.configs.base import ShapeConfig, get_arch
-    from repro_torch.core.inc_agg import IncAggConfig
-    from repro_torch.launch import steps
-    from repro_torch.optim.adamw import AdamWConfig
-    cfg = get_arch(arch).reduced()
-    mesh = Mesh((1, 2), ("data", "model"), {})
-    with pytest.raises(NotImplementedError, match=f"'{bt}' block of {arch}"):
-        steps.build_train_step(cfg, ShapeConfig("t", 8, 2, "train"), mesh,
-                               inc=IncAggConfig(), opt_cfg=AdamWConfig(),
-                               device="cpu")
-    for kind in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError, match=f"'{bt}' block"):
-            steps.build_serve_step(cfg, ShapeConfig(kind, 8, 2, kind), mesh,
-                                   device="cpu")

@@ -331,9 +331,7 @@ def test_drawn_ahead_depth_follows_draw_and_step(monkeypatch, draw_s,
     assert peak[0] == deepest
 def test_train_defaults_to_the_card():
     """Without a card, the train loop raises unless given device='cpu';
-    the fsdp mode builds (grok's by ``mode_for``), and tensor
-    parallelism (a model axis above 1) is not ported for the rglru
-    block."""
+    the fsdp mode builds (grok's by ``mode_for``)."""
     if torch.cuda.is_available():
         assert steps.Program is not None
     else:
@@ -347,12 +345,6 @@ def test_train_defaults_to_the_card():
         prog = steps.build_train_step(cfg, ShapeConfig("t", 8, 2, "train"),
                                       m, **kw)
         assert prog.meta["mode"] == "fsdp"
-        with pytest.raises(NotImplementedError,
-                           match="tensor parallelism.*ROADMAP"):
-            steps.build_train_step(
-                get_arch("recurrentgemma-9b").reduced(),
-                ShapeConfig("t", 8, 2, "train"),
-                compat.Mesh((1, 2), ("data", "model"), {}), **kw)
 
 
 def test_loss_and_remat_match_reference():
