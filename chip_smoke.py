@@ -275,6 +275,17 @@
    1 flash launch (whisper's selfcross prefill), the logits and the step
    within phase v's tolerances; prints its seconds against its budget
    of 120 s from the spawn of the CPU ranks.
+19. Phase x (run after j): the dry run (``launch/dryrun.py``'s
+   ``count_program``) in a child process on a fake world of one rank:
+   ``roofline.analysis``'s counter over phase i's prefill program and
+   phase j's netrpc train step, on the meta device at their shapes.
+   Checks: kernel 11's records a prefill equal i's launches (36), kernels
+   7/6/8's a step j's launches over its 3 steps (14 each), the dry run's
+   peak within 15% of i's and j's ``max_memory_allocated``, and 30 s.
+   Prints the FLOPs, HBM bytes, roofline time and peak beside the
+   measured seconds and peak, the roofline share (the larger of the
+   compute and memory terms over the measured seconds) and the card's
+   ``total_memory``.
 
 Launch counts are set to 0 just before each path run on the card and read
 just after it; every kernel must have launched in the path. The two
@@ -302,8 +313,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+# the H100's peak terms and kernel 11's work, as the dry run counts them
+from repro_torch.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.roofline import PEAK_FLOPS as BF16_FLOPS  # noqa: E402
+from repro_torch.roofline import flash_work  # noqa: E402
+from repro_torch.roofline.flash_model import flashed_layers  # noqa: E402
 SEG = 40_000                   # slots per register segment (paper §6.1)
 SCATTER_K = 65_536
 PRECISION = 8
@@ -442,6 +456,11 @@ TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 36, 1024, 2, 3
 # (md_train_equiv.py's fsdp-vs-zero1 bound)
 FSDP_TOL = 2e-3
 TRAIN_J: dict = {}     # phase j's netrpc losses, for phase t
+# phase x: the dry run of i's prefill program and j's train step on the
+# meta device, against i's and j's measured seconds, peaks and launches
+# (kernel 11 a prefill, kernels 7/6/8 a step); the peaks within X_PEAK_RTOL
+MEASURED: dict = {}
+X_PEAK_RTOL, X_BUDGET = 0.15, 30.0
 TRAIN_SMALL_LAYERS, TRAIN_SMALL_SEQ, TRAIN_CPU_STEP = 1, 256, 5
 # step 0's loss within [ln(vocab) - STEP0_BELOW, ln(vocab) + STEP0_ABOVE]
 STEP0_BELOW, STEP0_ABOVE = 0.5, 1.5
@@ -1235,15 +1254,6 @@ def flash_inputs(torch, b, h, kv, s, d, seed):
                  .bfloat16() for n in (h, kv, kv))
 
 
-def flash_work(b, h, kv, s, d, window) -> tuple[int, int]:
-    """(operations, bytes) of one causal call: two products over the
-    (q, k) pairs with 0 <= qpos - kpos < window; q, k, v read once and out
-    written once, in bf16."""
-    w = s if window is None else min(window, s)
-    pairs = w * (w + 1) // 2 + (s - w) * w
-    return 4 * d * b * h * pairs, 2 * b * s * (2 * h + 2 * kv) * d
-
-
 def check_flash(torch) -> dict:
     """Kernel 11 against its plain version at FLASH_CHECKS, each case then
     timed beside PyTorch's scaled_dot_product_attention (the yardstick;
@@ -1841,10 +1851,7 @@ def flash_layers(cfg, prompt: int) -> int:
     tokens: every global, moe and selfcross layer (its self-attention),
     and a local one when the prompt is longer than its window (the
     reference's routing); never a cross layer or the encoder."""
-    return sum(n * sum(bt in ("global", "moe", "selfcross")
-                       or (bt == "local" and prompt > cfg.window)
-                       for bt in pat)
-               for pat, n in cfg.pattern_groups)
+    return sum(flashed_layers(cfg, prompt))
 
 
 def moe_layers(cfg) -> int:
@@ -2079,6 +2086,10 @@ def check_serve(torch, smi: str, phase: str) -> dict:
           f"peak device memory {peak / 2 ** 30:.3f} GiB; launches {counts}",
           flush=True)
     print(f"path {label} card: {smi}", flush=True)
+    if phase == "i":
+        MEASURED["i"] = {"s": run["prefill_s"], "peak": peak,
+                         "launches": {"flash_attention":
+                                      counts["flash_attention"]}}
     if phase in KEEP_SERVED:
         SERVED[phase] = {"tokens": run["tokens"].cpu(),
                          "logits": run["logits"].cpu()}
@@ -2340,6 +2351,9 @@ def check_train(torch, smi: str) -> dict:
               f"peak device memory {peak / 2 ** 30:.3f} GiB; {leaves} "
               f"scattered leaves; launches {counts}", flush=True)
         print(f"path j_train card: {smi}", flush=True)
+        MEASURED["j"] = {"s": warm, "peak": peak, "launches": {
+            n: counts[n] // TRAIN_STEPS
+            for n in ("quantize", "sat_add", "dequantize")}}
         profile_train(torch, run, mesh)
         netrpc_losses = {"losses": run["losses"]}
         TRAIN_J["losses"] = list(run["losses"])
@@ -2359,6 +2373,95 @@ def check_train(torch, smi: str) -> dict:
         step_pair(torch, mesh, compat.make_mesh((1, 1), ("data", "model"),
                                                 device="cpu"))
     return {k: counts[k] + ring_counts[k] for k in counts}
+
+
+# -- phase x: the dry run of phases i and j -----------------------------------
+
+def dryrun_programs(reduced: bool = False) -> None:
+    """Phase x's child process: a fake world of one rank, and the counter
+    of ``roofline.analysis`` over phase i's prefill program (flash) and
+    phase j's netrpc train step, at their shapes on the meta device
+    (``reduced``: the rehearsal's 2-layer reduced qwen2.5-3b at 2 x 64).
+    Prints one JSON line: each program's summary."""
+    from repro_torch import compat
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.inc_agg import IncAggConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.serve import model_config
+    from repro_torch.optim.adamw import AdamWConfig
+    sp = SERVES["i"]
+    if reduced:
+        cfg = model_config(ARCH, reduced=True, layers=2)
+        i_shape = ShapeConfig("x_i", 64, 2, "prefill")
+        j_shape = ShapeConfig("x_j", 64, 2, "train")
+    else:
+        cfg = model_config(ARCH, layers=TRAIN_LAYERS)
+        i_shape = ShapeConfig("x_i", sp["prompt"], sp["batch"], "prefill")
+        j_shape = ShapeConfig("x_j", TRAIN_SEQ, TRAIN_BATCH, "train")
+    dryrun.fake_world(1)
+    mesh = compat.make_mesh((1, 1), ("data", "model"), device="meta")
+    out = {}
+    for label, shape, kw in (
+            ("i", i_shape, dict(flash=True)),
+            ("j", j_shape, dict(
+                inc=IncAggConfig(mode="netrpc", precision=PRECISION),
+                opt_cfg=AdamWConfig(warmup_steps=5, total_steps=TRAIN_STEPS),
+                n_micro=1))):
+        _, roof, secs = dryrun.count_program(cfg, shape, mesh, **kw)
+        out[label] = dict(roof.summary(), trace_s=secs)
+    print(json.dumps(out), flush=True)
+
+
+def dryrun_run(reduced: bool = False) -> dict:
+    """``dryrun_programs`` in a child process (a fake world of its own,
+    beside this process's NCCL groups): its two summaries."""
+    code = ("import chip_smoke as c; "
+            f"c.dryrun_programs(reduced={reduced!r})")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"phase x: the dry run failed:\n{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def check_phase_x(torch, smi: str) -> dict:
+    """Phase x: the dry run's counts of phase i's prefill and j's train
+    step against what i and j measured on the card: kernel 11's records
+    a prefill and kernels 7/6/8's a step equal to their launches, the peak
+    within X_PEAK_RTOL of ``max_memory_allocated``; prints the FLOPs, HBM
+    bytes, roofline time and the roofline share of the measured time."""
+    t0 = time.perf_counter()
+    dry = dryrun_run()
+    total = torch.cuda.get_device_properties(0).total_memory
+    for label, what in (("i", "prefill"), ("j", "warm train step")):
+        d, m = dry[label], MEASURED[label]
+        roof_s = max(d["compute_s"], d["memory_s"], d["collective_s"])
+        records = {k: d["kernels"].get(k, {}).get("launches", 0)
+                   for k in m["launches"]}
+        peak_err = d["peak_bytes"] / m["peak"] - 1
+        print(f"path x_dryrun {label}: {what} on the meta device "
+              f"({d['trace_s']:.3f} s on the host, {d['n_ops']} ops): FLOPs "
+              f"{d['flops_per_dev']:.6e}, HBM bytes "
+              f"{d['hbm_bytes_per_dev']:.6e}, compute {d['compute_s']:.6f} "
+              f"s, memory {d['memory_s']:.6f} s, roofline {roof_s:.6f} s "
+              f"({d['dominant']}), peak {d['peak_bytes'] / 2 ** 30:.3f} GiB; "
+              f"measured on the card {m['s']:.6f} s, peak "
+              f"{m['peak'] / 2 ** 30:.3f} GiB (max_memory_allocated; dry "
+              f"run {peak_err:+.4f}, tolerance {X_PEAK_RTOL}); roofline "
+              f"share {roof_s / m['s']:.4f}; kernel records {records}, "
+              f"launches {m['launches']}", flush=True)
+        if records != m["launches"]:
+            fail(f"phase x: the dry run of {label} recorded {records} "
+                 f"kernel launches, the card launched {m['launches']}")
+        if not abs(peak_err) <= X_PEAK_RTOL:
+            fail(f"phase x: the dry run's peak of {label} is {peak_err:+.4f} "
+                 f"from the card's")
+    secs = time.perf_counter() - t0
+    print(f"path x_dryrun: {secs:.3f} s (budget {X_BUDGET}); the card's "
+          f"total_memory {total} bytes; card: {smi}", flush=True)
+    if secs > X_BUDGET:
+        fail(f"phase x took {secs:.3f} s, past its {X_BUDGET} s")
+    return {}
 
 
 # -- phase t: the fsdp mode of the train step ---------------------------------
@@ -3336,6 +3439,18 @@ def rehearse(scale_down: int = 64) -> None:
                 netrpc["losses"], "rehearsal of phase t")
     if ops.plain_counts()["quantize"] != gathered_leaves(cfg) * TRAIN_STEPS:
         fail("rehearsal: not one quantize per fsdp gather and step")
+    # phase x: the dry run of the reduced i and j against their plain
+    # calls on the CPU
+    dry = dryrun_run(reduced=True)
+    want = {"i": {"flash_attention": flash_layers(cfg, 64)},
+            "j": {k: scattered_leaves(cfg)
+                  for k in ("quantize", "sat_add", "dequantize")}}
+    for label, w in want.items():
+        got = {k: dry[label]["kernels"].get(k, {}).get("launches", 0)
+               for k in w}
+        if got != w:
+            fail(f"rehearsal of phase x: {label} recorded {got}, not {w}")
+    print(f"rehearsal of phase x: records {want}", flush=True)
     int8_wire_oracle(drive_int8_wire(torch, "cpu"))
     ops.reset_counts()
     replies, state, _, _, _, story = drive_wire("cpu", seg_slots=seg,
@@ -3397,7 +3512,7 @@ def rehearse(scale_down: int = 64) -> None:
                       torch, one, cpu, shards,
                       tp_config(case, True).vocab,
                       f"rehearsal of phase {label}"), flush=True)
-    print("rehearsal: phases a-w ran on the CPU and met their oracles")
+    print("rehearsal: phases a-x ran on the CPU and met their oracles")
 
 
 def lane_drift(draws: int = 3) -> None:
@@ -3518,6 +3633,7 @@ def main() -> int:
                          ("g", check_syncagtr), ("h", check_clear_policies),
                          ("i", lambda t: check_serve(t, smi, "i")),
                          ("j", lambda t: check_train(t, smi)),
+                         ("x", lambda t: check_phase_x(t, smi)),
                          ("k", lambda t: check_int8_wire(t, kernels)),
                          ("l", lambda t: check_serve(t, smi, "l")),
                          ("m", lambda t: check_serve(t, smi, "m")),

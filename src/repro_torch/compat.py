@@ -45,15 +45,17 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
     """A mesh over the initialized default process group.
 
     ``device=None`` means the card and NCCL groups; without a card it
-    raises. ``device="cpu"`` means gloo groups. Every rank must call this
-    with the same arguments, in the same order as its other group
-    creations (each group is created collectively)."""
+    raises. ``device="cpu"`` means gloo groups, ``device="meta"`` (the
+    dry run) groups of the default group's backend (the fake one of
+    ``launch/dryrun.py``, which builds no gloo group). Every rank must
+    call this with the same arguments, in the same order as its other
+    group creations (each group is created collectively)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "make_mesh runs on a CUDA device (NCCL) by default and none is "
             "available; pass device='cpu' for gloo groups on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs torch.distributed initialized "
@@ -67,7 +69,7 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
     if math.prod(shape) != world:
         raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks, the "
                          f"default group has {world}")
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    backend = {"cuda": "nccl", "cpu": "gloo"}.get(dev.type)
     me = dist.get_rank()
     strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
     axes = {}

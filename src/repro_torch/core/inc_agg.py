@@ -104,10 +104,11 @@ def _pmax(x: torch.Tensor, dp_axes: tuple[Axis, ...]) -> torch.Tensor:
 
 def _psum_scatter(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     """Tiled psum_scatter along dim 0: rank j of the axis gets the sum of
-    chunk j."""
+    chunk j. A reduce-scatter where the backend has one (NCCL, and the dry
+    run's fake backend, which stands for NCCL)."""
     n = compat.axis_size(ax)
     c = x.shape[0] // n
-    if dist.get_backend(ax.group) == "nccl":
+    if dist.get_backend(ax.group) != "gloo":
         out = torch.empty((c,) + tuple(x.shape[1:]), dtype=x.dtype,
                           device=x.device)
         dist.reduce_scatter_tensor(out, x.contiguous(), group=ax.group)

@@ -7,7 +7,9 @@ value is a multiply by the fp32 reciprocal, never a divide, so it agrees
 bit for bit with the reference. On the card it is the hand-written
 kernel of ``csrc/dequantize.cu``, replacing
 ``repro/kernels/dequantize.py:dequantize_pallas``; a CPU tensor takes the
-plain version (``ref.dequantize``).
+plain version (``ref.dequantize``), a meta tensor (the dry run) empty
+outputs and one record of the kernel's 9 bytes an element
+(``backend.record_launch``).
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import backend, build, ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {"repro_dequantize": (_P, _I, _F, _P, _P)}
@@ -35,6 +37,11 @@ def dequantize(q: torch.Tensor, scale) -> tuple[torch.Tensor, torch.Tensor]:
     if q.device.type == "cpu":
         build.count(dequantize, "plain_calls")
         return dequantize_plain(q, scale)
+    if q.device.type == "meta":
+        # int32 read once, fp32 and the bool mask written once
+        backend.record_launch("dequantize", 9 * q.numel())
+        return (torch.empty(q.shape, dtype=torch.float32, device=q.device),
+                torch.empty(q.shape, dtype=torch.bool, device=q.device))
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for {q.device.type} tensors")
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)

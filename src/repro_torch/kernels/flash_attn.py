@@ -7,8 +7,12 @@ kernel of ``csrc/flash_attn.cu`` (bf16, D of 32, 64, 128 or 256; TMA
 loads, wgmma products, a producer warp and two consumer warpgroups),
 replacing ``repro/kernels/flash_attn.py:flash_attention_pallas``; it
 reads the (B, S, H, D) tensors through TMA tensor maps built from their
-strides, so a strided view costs no copy. A CPU tensor takes the plain version (``ref.flash_attention``, which
-works on the reference kernel's (B, H, S, D) layout).
+strides, so a strided view costs no copy. A CPU tensor takes the plain
+version (``ref.flash_attention``, which works on the reference kernel's
+(B, H, S, D) layout). A meta tensor (the dry run) passes the kernel's
+checks and returns an empty output, with one record of the kernel's
+operations and bytes (``roofline.flash_model.flash_work``, the count
+PERF.md's bound takes) in ``backend.record_launch``.
 
 There is no backward kernel (the reference has none either: its train
 step runs the plain attention unless ``REPRO_FLASH_ATTN=1``), so the
@@ -22,7 +26,8 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import backend, build, ref
+from repro_torch.roofline.flash_model import flash_work
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 # q, k, v, out; B, S, H, KV, D; 12 strides; causal, window, sm_scale; stream
@@ -53,7 +58,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{window}")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: operands must share one device")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel for {q.device.type} tensors")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
@@ -85,6 +90,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: the kernel takes D in "
                          f"{HEAD_DIMS}, got {d}")
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        flops, nbytes = flash_work(b, h, k.shape[2], s, d, window)
+        if not causal:                  # every (q, k) pair
+            flops = 4 * d * b * h * s * s
+        backend.record_launch("flash_attention", nbytes, flops)
+        return out
     if out.numel() == 0:
         return out
     with torch.cuda.device(q.device):

@@ -13,7 +13,9 @@ overflowed on any hop.
 On the card these are the hand-written kernels of ``csrc/inc_agg.cu``,
 replacing ``repro/kernels/inc_agg.py:sat_add_pallas`` and the scan over
 it in ``repro/kernels/ops.py:_sat_add_batch_tpu``. A CPU tensor takes the
-plain version. Both return a new tensor.
+plain version, a meta tensor (the dry run) an empty output and one
+record of the kernel's bytes (``backend.record_launch``). Both return a
+new tensor.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import backend, build, ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 SIGNATURES = {"repro_sat_add": (_P, _P, _P, _I),
@@ -34,7 +36,7 @@ def _check(name: str, *ts: torch.Tensor) -> None:
             raise TypeError(f"{name}: operands must be contiguous int32")
         if t.device != ts[0].device:
             raise ValueError(f"{name}: operands must share one device")
-    if ts[0].device.type not in ("cpu", "cuda"):
+    if ts[0].device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel for {ts[0].device.type} tensors")
 
 
@@ -60,6 +62,10 @@ def sat_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         build.count(sat_add, "plain_calls")
         return sat_add_plain(a, b)
     out = torch.empty_like(a)
+    if a.device.type == "meta":
+        # a and b read once, the sum written once
+        backend.record_launch("sat_add", 12 * a.numel())
+        return out
     if a.numel() == 0:
         return out
     with torch.cuda.device(a.device):
@@ -81,6 +87,11 @@ def sat_add_batch(acc: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
         build.count(sat_add_batch, "plain_calls")
         return sat_add_batch_plain(acc, qs)
     out = torch.empty_like(acc)
+    if acc.device.type == "meta":
+        # acc and the B rows read once, the fold written once
+        backend.record_launch("sat_add_batch",
+                              (4 * qs.shape[0] + 8) * acc.numel())
+        return out
     if acc.numel() == 0:
         return out
     with torch.cuda.device(acc.device):

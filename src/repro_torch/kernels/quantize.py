@@ -5,8 +5,10 @@ the SyncAgtr path (core/quantize.py).
 scale)`` in fp32, saturating to the MAX_INT/MIN_INT overflow sentinels.
 On the card it is the hand-written kernel of ``csrc/quantize.cu``,
 replacing ``repro/kernels/quantize.py:quantize_pallas``; a CPU tensor
-takes the plain version (``ref.quantize``). The stream is flat: the
-reference's padding to (256, 128) TPU tiles has no counterpart here.
+takes the plain version (``ref.quantize``), a meta tensor (the dry run)
+an empty int32 output and one record of the kernel's 8 bytes an element
+(``backend.record_launch``). The stream is flat: the reference's padding
+to (256, 128) TPU tiles has no counterpart here.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import backend, build, ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {"repro_quantize": (_P, _I, _F, _P)}
@@ -32,6 +34,10 @@ def quantize(x: torch.Tensor, scale) -> torch.Tensor:
     if x.device.type == "cpu":
         build.count(quantize, "plain_calls")
         return quantize_plain(x, scale)
+    if x.device.type == "meta":
+        # fp32 read once, int32 written once
+        backend.record_launch("quantize", 8 * x.numel())
+        return torch.empty(x.shape, dtype=torch.int32, device=x.device)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for {x.device.type} tensors")
     out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
