@@ -1,7 +1,7 @@
 PYTHONPATH := src$(if $(PYTHONPATH),:$(PYTHONPATH))
 export PYTHONPATH
 
-.PHONY: test test-fast lint-plane examples bench-batch bench-accum \
+.PHONY: test test-fast lint-plane lint-plane-torch examples bench-batch bench-accum \
 	bench-async bench-wire bench-shard bench-device bench-obs \
 	bench-wire-proc trace-shard
 
@@ -15,6 +15,12 @@ test:
 # entries.
 lint-plane:
 	python -m repro.analysis src/repro
+
+# the port's planelint (repro_torch.analysis): the same rules over
+# src/repro_torch, read in the port's idiom, against its own (empty)
+# baseline scripts/planelint_torch_baseline.json
+lint-plane-torch:
+	python -m repro_torch.analysis src/repro_torch
 
 # fast lane: non-slow suite + delta vs the seed baseline
 test-fast:
