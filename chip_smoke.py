@@ -327,7 +327,7 @@ PHASES = (("a_dense_one_segment", 40_000, 40_000, True, "grad"),
           ("b_dense_seven_segments", 262_144, 262_144, True, "grad"),
           ("c_quickstart_cntfwd", 65_536, 65_536, True, "quickstart"),
           ("d_host_lane", 262_144, 262_144, False, "grad"),
-          ("e_spill_regrant", 131_072, 262_144, True, "grad"))
+          ("e_spill_regrant", 32_768, 65_536, True, "grad"))
 LOCAL_ACCUM, LA_SLOTS, LA_CALLS = 8, 262_144, 16     # phase f
 # phase r: phases a-d over the wire (e's key-by-key end_window would cost
 # a round trip a key), through a proxy that drops WIRE_LOSS of the data
@@ -342,13 +342,14 @@ BUCKET = 6_553_600     # 25 MiB fp32: PyTorch DDP's default bucket_cap_mb
 FOLD_ROUNDS, BATCH_ROWS = 8, 16
 MODES = ("xla-psum", "fp32-ring", "netrpc", "netrpc-opt")
 ARCH = "qwen2.5-3b"     # phases i and j
-# phase o's card vs CPU at all 48 layers of mamba2-780m: a deep random
-# SSD stack amplifies rounding (at the reduced width, the SSD chunk alone
-# changed from 256 to 128, the same math in another fp32 order, moves the
-# 48-layer logits by 0.14 to 0.28), so the tolerance is twice the largest
-# drift that change makes on an H100 at full width, ``cut_drift``: 0.087,
+# phase o's card vs CPU of mamba2-780m: a deep random SSD stack amplifies
+# rounding (at the reduced width, the SSD chunk alone changed from 256 to
+# 128, the same math in another fp32 order, moves the 48-layer logits by
+# 0.14 to 0.28), so the tolerance is twice the largest drift that change
+# makes on an H100 at full width and all 48 layers, ``cut_drift``: 0.087,
 # 0.069 and 0.152 over three weight draws (the card against the CPU:
-# 0.073, 0.079 and 0.129)
+# 0.073, 0.079 and 0.129); the cut holds 8 of the 48 layers, whose drift
+# is smaller
 O_CUT_TOL = 3e-1
 # card vs CPU, the other serve phases' cuts; whisper-medium's 48 layers
 # hold it too (0.0128 and 0.0111 over two draws on an H100, where the
@@ -374,11 +375,14 @@ Q_LANES_TOL = 7e-2
 # differ by 0.21 to 0.24 at the reduced width and for more than 99% of
 # the prompt tokens in some layer on the card at full width),
 # and the cut that runs on the card and on the CPU (layers, prompt, batch,
-# decode steps): for l and m a prompt just past the window, so the band,
-# the ring pack and the kernel's window run; for n four layers; for o
-# every layer (0.78 B parameters) at two SSD chunks; for p every layer of
-# whisper-medium, encoder and decoder, over the full 1 500 frames; for q
-# one pattern unit; and the cut's tolerance. mamba2-780m has no
+# decode steps; each holds every leaf kind of its model's layers, and a
+# decode step: on the CPU each one streams every weight of the cut): for
+# i two layers at 64 tokens; for l one local layer and for m the first
+# three (rglru, rglru, local), each at a prompt just past the window, so
+# the band, the ring pack and the kernel's window run; for n two layers;
+# for o 8 layers at two SSD chunks; for p two decoder and two encoder
+# layers (``cut_enc``) over the full 1 500 frames; for q one pattern unit
+# at 64 tokens; and the cut's tolerance. mamba2-780m has no
 # attention, so no lane tolerance. ``layers`` cuts a phase's own depth
 # (llama-3.2-vision-90b's 100 layers hold 88 B parameters, more than one
 # card: 10 are two repeats of its unit) and ``gate`` sets every cross
@@ -386,26 +390,26 @@ Q_LANES_TOL = 7e-2
 # the layer's attention)
 SERVES = {
     "i": dict(arch=ARCH, prompt=2048, decode=32, batch=4, lanes_tol=6e-2,
-              cut=2, cut_prompt=256, cut_batch=2, cut_decode=8,
+              cut=2, cut_prompt=64, cut_batch=2, cut_decode=2,
               cut_tol=CPU_TOL),
     "l": dict(arch="gemma3-27b", prompt=2048, decode=32, batch=4,
-              lanes_tol=9e-2, cut=2, cut_prompt=1040, cut_batch=1,
-              cut_decode=4, cut_tol=CPU_TOL),
+              lanes_tol=9e-2, cut=1, cut_prompt=1040, cut_batch=1,
+              cut_decode=1, cut_tol=CPU_TOL),
     "m": dict(arch="recurrentgemma-9b", prompt=4096, decode=32, batch=2,
               lanes_tol=9e-2, cut=3, cut_prompt=2064, cut_batch=1,
-              cut_decode=4, cut_tol=CPU_TOL),
+              cut_decode=1, cut_tol=CPU_TOL),
     "n": dict(arch="moonshot-v1-16b-a3b", prompt=2048, decode=32, batch=4,
-              lanes_tol=6e-2, cut=4, cut_prompt=512, cut_batch=1,
-              cut_decode=4, cut_tol=CPU_TOL),
+              lanes_tol=6e-2, cut=2, cut_prompt=512, cut_batch=1,
+              cut_decode=1, cut_tol=CPU_TOL),
     "o": dict(arch="mamba2-780m", prompt=4096, decode=32, batch=4,
-              lanes_tol=None, cut=48, cut_prompt=512, cut_batch=1,
-              cut_decode=4, cut_tol=O_CUT_TOL),
+              lanes_tol=None, cut=8, cut_prompt=512, cut_batch=1,
+              cut_decode=1, cut_tol=O_CUT_TOL),
     "p": dict(arch="whisper-medium", prompt=416, decode=32, batch=4,
-              lanes_tol=P_LANES_TOL, cut=24, cut_prompt=64, cut_batch=1,
-              cut_decode=4, cut_tol=CPU_TOL),
+              lanes_tol=P_LANES_TOL, cut=2, cut_enc=2, cut_prompt=64,
+              cut_batch=1, cut_decode=1, cut_tol=CPU_TOL),
     "q": dict(arch="llama-3.2-vision-90b", layers=10, gate=0.5, prompt=2048,
               decode=32, batch=4, lanes_tol=Q_LANES_TOL, cut=5,
-              cut_prompt=256, cut_batch=1, cut_decode=4, cut_tol=CPU_TOL),
+              cut_prompt=64, cut_batch=1, cut_decode=1, cut_tol=CPU_TOL),
 }
 # phase u1: qwen2.5-3b at full width and depth, one prompt, then U1_STEPS
 # decode steps with the cache's positions sharded over the one-rank mesh's
@@ -413,11 +417,12 @@ SERVES = {
 # the same steps without
 U1_PROMPT, U1_STEPS = 2048, 8
 # phase u2: phase q's model and shapes in fsdp with the int8 gather (q8),
-# fed q's tokens; the card against the CPU at q's tolerance, the first
-# U2_CUT layers (5, q's cut, before phase v came) and U2_CUT_DECODE decode
-# steps: on the CPU every call quantizes every parameter of the cut (3.8 B
-# at 2 layers), so the cut keeps to one decode step
-U2_CUT, U2_CUT_DECODE = 2, 1
+# fed q's tokens; the card against the CPU at q's tolerance and q's cut
+# prompt, the first U2_CUT layers (a global one; 5, q's cut, before phase
+# v came) and U2_CUT_DECODE decode steps: on the CPU every
+# call quantizes every parameter of the cut (2.9 B at 1 layer, most of
+# them the embedding and the lm_head), so the cut keeps to one decode step
+U2_CUT, U2_CUT_DECODE = 1, 1
 KEEP_SERVED = ("q",)
 SERVED: dict = {}      # phase q's tokens and logits, for phase u2
 # phases v and w: tensor parallelism. Each case is a model at full width cut
@@ -437,10 +442,10 @@ SERVED: dict = {}      # phase q's tokens and logits, for phase u2
 # ranks' budget)
 TP_CASE = ("arch", "layers", "enc_layers", "batch", "prompt", "decode",
            "total", "seq")
-V_CASES = ((ARCH, 2, None, 2, 256, 2, 258, 256),)
-W_CASES = (("whisper-medium", 1, 1, 2, 128, 2, 130, 128),
+V_CASES = ((ARCH, 1, None, 1, 64, 2, 66, 64),)
+W_CASES = (("whisper-medium", 1, 1, 1, 64, 2, 66, 64),
            ("mamba2-780m", 2, None, 2, 128, 2, 130, 128),
-           ("recurrentgemma-9b", 3, None, 2, 128, 2, 2048, None))
+           ("recurrentgemma-9b", 3, None, 1, 64, 2, 2048, None))
 V_MODEL, W_MODEL = 4, 2
 V_TIMEOUT = 300        # the CPU ranks' limit, seconds
 W_BUDGET = 120         # phase w's seconds from the spawn of its CPU ranks
@@ -450,7 +455,9 @@ W_BUDGET = 120         # phase w's seconds from the spawn of its CPU ranks
 S_EXAMPLES = ("mapreduce", "monitoring", "paxos", "train_telemetry")
 MINI_STEPS, MINI_FALL, MINI_GAP = 300, 1.0, 5e-2
 # phase j: train at full width; the card-vs-CPU step (j's and t's) at 1
-# layer (2 before phase v came)
+# layer (2 before phase v came) and TRAIN_SMALL_SEQ tokens a row: its CPU
+# time is mostly the per-parameter work of the 311 M-parameter embedding,
+# not the tokens
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 36, 1024, 2, 3
 # phase t: fsdp against phase j's zero1 netrpc losses, absolute, each step
 # (md_train_equiv.py's fsdp-vs-zero1 bound)
@@ -461,7 +468,7 @@ TRAIN_J: dict = {}     # phase j's netrpc losses, for phase t
 # (kernel 11 a prefill, kernels 7/6/8 a step); the peaks within X_PEAK_RTOL
 MEASURED: dict = {}
 X_PEAK_RTOL, X_BUDGET = 0.15, 30.0
-TRAIN_SMALL_LAYERS, TRAIN_SMALL_SEQ, TRAIN_CPU_STEP = 1, 256, 5
+TRAIN_SMALL_LAYERS, TRAIN_SMALL_SEQ, TRAIN_CPU_STEP = 1, 64, 5
 # step 0's loss within [ln(vocab) - STEP0_BELOW, ln(vocab) + STEP0_ABOVE]
 STEP0_BELOW, STEP0_ABOVE = 0.5, 1.5
 MODES_TOL = 1e-3       # netrpc vs fp32-ring loss, relative, each step
@@ -2037,6 +2044,19 @@ def lanes_check(a: dict, b: dict, cfg, tol: float, what: str,
     return got
 
 
+def cut_of(sp: dict) -> tuple:
+    """A serve phase's cut: its config (``cut`` layers, and ``cut_enc``
+    encoder layers where given) and its ``serve_run`` shape."""
+    from dataclasses import replace
+
+    from repro_torch.launch.serve import model_config
+    cfg = model_config(sp["arch"], layers=sp["cut"])
+    if sp.get("cut_enc"):
+        cfg = replace(cfg, enc_layers=sp["cut_enc"])
+    return cfg, dict(arch=cfg, prompt_len=sp["cut_prompt"],
+                     decode_n=sp["cut_decode"], batch=sp["cut_batch"])
+
+
 def check_serve(torch, smi: str, phase: str) -> dict:
     """A serve phase (i, l, m, n, o, p or q of SERVES) on the card, with its
     comparisons: the flash launches a prefill, the flash lane against the
@@ -2105,10 +2125,7 @@ def check_serve(torch, smi: str, phase: str) -> dict:
         del plain
     del params, run, routes
     torch.cuda.empty_cache()
-    small_cfg = model_config(sp["arch"], layers=sp["cut"])
-    small = dict(arch=sp["arch"], prompt_len=sp["cut_prompt"],
-                 decode_n=sp["cut_decode"], batch=sp["cut_batch"],
-                 layers=sp["cut"])
+    small_cfg, small = cut_of(sp)
     # drawn on the card (a CPU draw of billions of values takes minutes),
     # the same weights copied to the CPU
     p_card = api.init_params(SEED, small_cfg, device="cuda")
@@ -2132,7 +2149,9 @@ def check_serve(torch, smi: str, phase: str) -> dict:
     got = lanes_check(card, cpu, small_cfg, sp["cut_tol"],
                       f"phase {phase}: {sp['cut']} layers on the card "
                       f"against the CPU", forced)
-    print(f"path {label}: {sp['cut']} layers at full width, S="
+    enc = f" (and {small_cfg.enc_layers} encoder layers)" \
+        if small_cfg.is_encdec else ""
+    print(f"path {label}: {sp['cut']} layers{enc} at full width, S="
           f"{sp['cut_prompt']}, B={sp['cut_batch']}: card vs CPU ("
           f"{time.perf_counter() - t0:.3f} s) {got}", flush=True)
     del p_card, p_cpu, card, cpu, routes
@@ -3580,10 +3599,7 @@ def cut_drift(phase: str = "o", draws: int = 3) -> None:
     from repro_torch.launch.serve import model_config
     from repro_torch.models import api
     sp = SERVES[phase]
-    cfg = model_config(sp["arch"], layers=sp["cut"])
-    small = dict(arch=sp["arch"], prompt_len=sp["cut_prompt"],
-                 decode_n=sp["cut_decode"], batch=sp["cut_batch"],
-                 layers=sp["cut"])
+    cfg, small = cut_of(sp)
     for seed in range(draws):
         p_card = api.init_params(seed, cfg, device="cuda")
         set_gates(p_card, cfg, sp.get("gate"))

@@ -158,6 +158,12 @@ class Channel:
         # plane (fold-accept never runs inside a pipeline pass).
         self.folds: dict[str, object] = {}
         self.fold_lock = threading.Lock()
+        # fold buffers popped from ``folds`` whose representative is not
+        # queued yet: counted at the pop, under fold_lock, and uncounted
+        # once dispatched (rpc.NetRPC._dispatch_sealed); the scheduler's
+        # issue-order barrier waits on ``sealed`` until none is in flight
+        self.sealing = 0
+        self.sealed = threading.Condition(self.fold_lock)
 
     def client(self) -> ClientAgent:
         c = ClientAgent(self.server)

@@ -1231,8 +1231,8 @@ class NetRPC:
                 futs.append(fut)
                 if fb.depth >= accum:
                     sealed.append(ch.folds.pop(method))
-        for fb in sealed:
-            self._dispatch_fold(ch, fb)
+            ch.sealing += len(sealed)
+        self._dispatch_sealed(ch, sealed)
         return futs
 
     def _fold_waker(self, stub: Stub, method: str) -> Callable[[], None]:
@@ -1243,10 +1243,25 @@ class NetRPC:
 
         def wake() -> None:
             with ch.fold_lock:
-                fb = ch.folds.pop(method, None)
-            if fb is not None:
-                self._dispatch_fold(ch, fb)
+                sealed = [ch.folds.pop(method)] if method in ch.folds else []
+                ch.sealing += len(sealed)
+            self._dispatch_sealed(ch, sealed)
         return wake
+
+    def _dispatch_sealed(self, ch: Channel, sealed: list) -> None:
+        """Dispatch fold buffers popped from ``ch.folds`` (each counted in
+        ``ch.sealing`` at its pop, under ``fold_lock``) in seal order, then
+        uncount them. Until then the scheduler's issue-order barrier
+        (``IncRuntime._promote_folds``) waits: a later call must not pass
+        a cohort that another thread has popped but not yet queued."""
+        try:
+            for fb in sealed:
+                self._dispatch_fold(ch, fb)
+        finally:
+            if sealed:
+                with ch.fold_lock:
+                    ch.sealing -= len(sealed)
+                    ch.sealed.notify_all()
 
     def _dispatch_fold(self, ch: Channel, fb: _FoldBuffer) -> None:
         """Flush one sealed fold buffer: ONE pipeline pass for the whole
@@ -1271,8 +1286,8 @@ class NetRPC:
             return
         with ch.fold_lock:
             sealed = [ch.folds.pop(m) for m in list(ch.folds)]
-        for fb in sealed:
-            self._dispatch_fold(ch, fb)
+            ch.sealing += len(sealed)
+        self._dispatch_sealed(ch, sealed)
 
     def submit(self, stub: Stub, method: str, request: dict) -> Ticket:
         ch = stub.channels[method]

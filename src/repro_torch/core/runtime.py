@@ -285,7 +285,7 @@ class IncRuntime(NetRPC):
         if stub.accum_methods.get(method, 0) > 1:
             return self._fold_async(stub, method, [request])[0]
         ch = stub.channels[method]
-        if ch.folds:
+        if ch.folds or ch.sealing:
             self._promote_folds(ch)     # issue order across methods
         planned = stub._plan(method, request)
         with self._work:
@@ -306,7 +306,7 @@ class IncRuntime(NetRPC):
         if stub.accum_methods.get(method, 0) > 1:
             return self._fold_async(stub, method, requests)
         ch = stub.channels[method]
-        if ch.folds:
+        if ch.folds or ch.sealing:
             self._promote_folds(ch)     # issue order across methods
         planned = [stub._plan(method, r) for r in requests]
         if not planned:
@@ -395,8 +395,22 @@ class IncRuntime(NetRPC):
                     if (fb.created is not None
                             and now - fb.created >= q.policy.max_delay):
                         ripe.append(ch.folds.pop(m))
-            for fb in ripe:
-                self._dispatch_fold(ch, fb)
+                ch.sealing += len(ripe)
+            self._dispatch_sealed(ch, ripe)
+
+    def _promote_folds(self, ch: Channel) -> None:
+        """The issue-order barrier: seal and queue this channel's open
+        fold buffers, then wait until no buffer another thread has popped
+        (a full one, or a stale one the sweep sealed) is still on its way
+        to the queue, so a call issued after this one cannot pass it. A
+        drain worker or a handler does not wait: the popping thread may
+        be waiting for it to drain room."""
+        super()._promote_folds(ch)
+        if self._is_worker() or self._in_pipeline():
+            return
+        with ch.fold_lock:
+            while ch.sealing:
+                ch.sealed.wait()
 
     # -- synchronous fronts (ordering-preserving) ----------------------------
 
@@ -413,7 +427,7 @@ class IncRuntime(NetRPC):
                 lambda: super(IncRuntime, self).run_direct(stub, method,
                                                            requests))
         ch = stub.channels[method]
-        if ch.folds:
+        if ch.folds or ch.sealing:
             # folded calls issued earlier join the queue first and run
             # in the "inline" backlog pass below (issue order)
             self._promote_folds(ch)
