@@ -286,6 +286,28 @@
    measured seconds and peak, the roofline share (the larger of the
    compute and memory terms over the measured seconds) and the card's
    ``total_memory``.
+20. Path, phase y (after w): training beyond qwen2.5-3b, through
+   ``train_loop`` in each arch's own mode (``rules.mode_for``) on uniform
+   tokens. whisper-medium at full width and depth (24 ``bidir`` encoder
+   layers over 1 500 stub frames, not checkpointed, and 24 ``selfcross``
+   decoder layers; B = 2 x S = 448) and mamba2-780m (48 ``ssd`` layers;
+   B = 2 x S = 1 024, 4 SSD chunks): 3 steps in netrpc and 3 in
+   fp32-ring from the same state; then one netrpc step at full width of
+   gemma3-27b's first 2 layers (``local``, window 1 024, at 1 x 2 048),
+   recurrentgemma-9b's first 3 (``rglru``, ``rglru``, ``local``; 1 x
+   2 048) and moonshot-v1-16b-a3b's first 2 ``moe`` layers (2 x 1 024).
+   Checks: j's oracle with each model's step-0 window (``Y_STEP0``; j's
+   for the deep stacks), netrpc against fp32-ring within 1e-3, one
+   quantize, sat_add and dequantize launch a scattered leaf and step, no
+   flash launch, telemetry through sparse_addto. Then one netrpc step of
+   each family's reduced config (mamba2-780m, gemma3-27b,
+   recurrentgemma-9b, moonshot-v1-16b-a3b, llama-3.2-vision-90b in fsdp
+   with its cross gates at 0.5, whisper-medium) on the card and on the
+   CPU from the same state, held as j's 1-layer step, moonshot's CPU
+   routing teacher forced to the card's. Prints each model's layers,
+   d_model, B x S, seconds, losses, warm step, tokens/s, peak memory,
+   scattered leaves and launches, and the phase's seconds against its
+   budget of 180 s.
 
 Launch counts are set to 0 just before each path run on the card and read
 just after it; every kernel must have launched in the path. The two
@@ -471,6 +493,58 @@ X_PEAK_RTOL, X_BUDGET = 0.15, 30.0
 TRAIN_SMALL_LAYERS, TRAIN_SMALL_SEQ, TRAIN_CPU_STEP = 1, 64, 5
 # step 0's loss within [ln(vocab) - STEP0_BELOW, ln(vocab) + STEP0_ABOVE]
 STEP0_BELOW, STEP0_ABOVE = 0.5, 1.5
+# phase y: training beyond qwen2.5-3b on the card, through ``train_loop``
+# in the arch's own mode (``rules.mode_for``), uniform tokens. Y_FULL at
+# full width and depth, Y_STEPS steps in netrpc and in fp32-ring from the
+# same state: whisper-medium (24 ``bidir`` encoder layers over the 1 500
+# stub frames, not checkpointed, as in the reference; 24 ``selfcross``
+# decoder layers) at B=2 x S=448, its decoder's context, and mamba2-780m
+# (48 ``ssd`` layers) at B=2 x S=1 024, 4 SSD chunks. Y_CUT at full width
+# and cut depth, one netrpc step: gemma3-27b's first 2 layers (both
+# ``local``, window 1 024 < S), recurrentgemma-9b's first 3 (``rglru``,
+# ``rglru``, ``local``) and moonshot-v1-16b-a3b's first 2 ``moe`` layers
+# (the sort dispatch's backward and the aux loss). (arch, layers or None
+# for all, B, S)
+Y_FULL = (("whisper-medium", None, 2, 448), ("mamba2-780m", None, 2, 1024))
+Y_CUT = (("gemma3-27b", 2, 1, 2048), ("recurrentgemma-9b", 3, 1, 2048),
+         ("moonshot-v1-16b-a3b", 2, 2, 1024))
+Y_STEPS = 3
+# step 0's loss of each Y_CUT run, [low, high]. At init every logit but
+# the input token's own is about N(0, 1) (unit-RMS final norm, embedding
+# rows of unit norm), so on uniform targets the loss is about
+# ln(e^a + (V - 1) e^0.5), a = sqrt(d_model) cos, cos the share of the
+# input token's own embedding left in the last layer's output (a tied
+# embedding). ``step0_loss`` measures cos at the reduced width with the
+# cut's layers, window, vocab, experts and shape (it barely moves with the
+# width: the layers' outputs are near orthogonal to the embedding) and
+# predicts the loss at full width, three draws: gemma3-27b 55.303, 55.999,
+# 55.493; recurrentgemma-9b 32.300, 31.874, 30.264; moonshot-v1-16b-a3b
+# 41.538, 41.592, 41.589. The five step-0 losses the card measured before
+# (PR 34's phases v, j and w: qwen2.5-3b at 1 layer 37.282 and 37.372 and
+# at 36 layers 12.485, whisper-medium at 1 + 1 layers 20.493, mamba2-780m
+# at 2 layers 22.609) lay within 0.25 of their draws' range. Each window
+# is the range widened by 1.5 on each side. gemma3-27b's and
+# recurrentgemma-9b's were set before their first run on the card (which
+# gave 55.799 and 32.618); moonshot-v1-16b-a3b's was NOT: its first
+# window, [35.9, 39.2], came from a prediction that took the reduced
+# config's 4 experts and top-2 (37.479 to 37.651), the card gave 41.792,
+# and the prediction with the model's 64 experts and top-6 (a gated sum of
+# 6 adds less to the residual than one of 2), made after that reading,
+# gives the window below. Y_FULL's deep stacks keep cos near 0.13 (a < 5):
+# about 0.5 above ln(vocab) (whisper-medium 11.357, mamba2-780m 11.331, as
+# j's 12.485 at 36 layers), inside j's window of ln(vocab) - 0.5 to + 1.5
+Y_STEP0 = {"gemma3-27b": (53.8, 57.5), "recurrentgemma-9b": (28.7, 33.8),
+           "moonshot-v1-16b-a3b": (40.0, 43.1)}
+# then one netrpc step of each family's reduced config (its pattern unit
+# once, ``ArchConfig.reduced``) in its own mode on the card and on the CPU,
+# held as j's step: B=TRAIN_BATCH x S=Y_PAIR_SEQ, twice the reduced window
+# (the band narrower than S); llama-3.2-vision-90b's cross gate set to
+# Y_GATE (0, as drawn, adds none of the layer's attention and passes no
+# gradient to it); moonshot's CPU routing teacher forced to the card's
+Y_PAIRS = ("mamba2-780m", "gemma3-27b", "recurrentgemma-9b",
+           "moonshot-v1-16b-a3b", "llama-3.2-vision-90b", "whisper-medium")
+Y_PAIR_SEQ, Y_GATE = 64, 0.5
+Y_BUDGET = 180         # phase y's seconds
 MODES_TOL = 1e-3       # netrpc vs fp32-ring loss, relative, each step
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-3, 1e-2     # card vs CPU
 MASTER_FLIP_FRAC = 0.02   # card vs CPU masters more than lr/100 apart
@@ -2161,13 +2235,14 @@ def check_serve(torch, smi: str, phase: str) -> dict:
 
 # -- phase j: training qwen2.5-3b ---------------------------------------------
 
-def train_run(mode: str, *, device=None, layers=TRAIN_LAYERS, seq=TRAIN_SEQ,
-              batch=TRAIN_BATCH, reduced=False, shard="zero1") -> dict:
-    """``train_loop`` of ARCH for TRAIN_STEPS steps on uniform tokens
+def train_run(mode: str, *, arch=ARCH, device=None, layers=TRAIN_LAYERS,
+              seq=TRAIN_SEQ, batch=TRAIN_BATCH, reduced=False,
+              shard="zero1", steps=TRAIN_STEPS) -> dict:
+    """``train_loop`` of ``arch`` for ``steps`` steps on uniform tokens
     (random weights from the loop's seed, 0), in ``mode`` (the inc mode)
-    and the ``shard`` mode (zero1 or fsdp)."""
+    and the ``shard`` mode (zero1 or fsdp; None: the arch's own)."""
     from repro_torch.launch.train import train_loop
-    return train_loop(arch=ARCH, inc_mode=mode, steps_n=TRAIN_STEPS,
+    return train_loop(arch=arch, inc_mode=mode, steps_n=steps,
                       seq=seq, batch=batch, reduced=reduced,
                       precision=PRECISION, data_kind="uniform", log_every=1,
                       device=device, layers=layers, mode=shard)
@@ -2196,8 +2271,10 @@ def gathered_leaves(cfg) -> int:
                for n, d in dims.items() if d >= 0)
 
 
-def train_oracle(run: dict, vocab: int, what: str) -> None:
-    """Every step ran with a finite loss; step 0's lies within
+def train_oracle(run: dict, vocab: int, what: str, steps=TRAIN_STEPS,
+                 window=None) -> tuple:
+    """Every one of ``steps`` steps ran with a finite loss; step 0's lies
+    within ``window`` (a cut's own, Y_STEP0; returned), by default
     [ln(vocab) - STEP0_BELOW, ln(vocab) + STEP0_ABOVE]: on uniform targets
     the expected loss of any logits is lse - mean >= ln(vocab), so a
     sample of thousands of tokens lands above the lower end; the random
@@ -2207,17 +2284,18 @@ def train_oracle(run: dict, vocab: int, what: str) -> None:
     diverges lands far above the upper end. The telemetry counted and
     committed every step."""
     losses = run["losses"]
-    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
         fail(f"{what}: losses {losses}")
-    low, high = np.log(vocab) - STEP0_BELOW, np.log(vocab) + STEP0_ABOVE
+    low, high = window or (np.log(vocab) - STEP0_BELOW,
+                           np.log(vocab) + STEP0_ABOVE)
     if not low <= losses[0] <= high:
         fail(f"{what}: step 0's loss {losses[0]:.4f} lies outside "
              f"[{low:.4f}, {high:.4f}] (ln({vocab}) = {np.log(vocab):.4f})")
     inc = run["inc_telemetry"]
-    if inc["commits"] != TRAIN_STEPS or \
-            inc["metrics"].get("steps") != TRAIN_STEPS:
+    if inc["commits"] != steps or inc["metrics"].get("steps") != steps:
         fail(f"{what}: telemetry committed {inc['commits']} and counted "
-             f"{inc['metrics'].get('steps')} of {TRAIN_STEPS} steps")
+             f"{inc['metrics'].get('steps')} of {steps} steps")
+    return low, high
 
 
 def modes_oracle(a: dict, b: dict, what: str) -> float:
@@ -2230,11 +2308,18 @@ def modes_oracle(a: dict, b: dict, what: str) -> float:
     return err
 
 
-def step_pair(torch, mesh_card, mesh_cpu, shard: str = "zero1") -> None:
-    """One netrpc step at TRAIN_SMALL_LAYERS full-width layers on the card
-    and on the CPU
-    from the same params, optimizer state and tokens, in the ``shard``
-    mode (one rank: the state is whole in both)."""
+def step_pair(torch, mesh_card, mesh_cpu, shard: str | None = "zero1",
+              cfg=None, phase: str | None = None, seq=TRAIN_SMALL_SEQ,
+              gate=None, device="cuda") -> None:
+    """One netrpc step of ``cfg`` (by default ARCH at TRAIN_SMALL_LAYERS
+    full-width layers) on the card and on the CPU from the same params,
+    optimizer state and tokens (with the model's stub frames or patches),
+    in the ``shard`` mode (None: the arch's own; one rank: the state is
+    whole in both). ``gate`` sets every cross layer's gate first. Where
+    the model has moe layers the CPU's routing is teacher forced to the
+    card's (``routes_forced``, each layer's forward and its checkpoint's
+    recompute): a near tie between two experts flips under bf16 rounding.
+    ``device`` stands for the card (the rehearsal passes the CPU)."""
     import copy as _copy
 
     from repro_torch.configs.base import ShapeConfig
@@ -2244,27 +2329,42 @@ def step_pair(torch, mesh_card, mesh_cpu, shard: str = "zero1") -> None:
     from repro_torch.launch.serve import model_config
     from repro_torch.models import api
     from repro_torch.optim.adamw import AdamWConfig
-    cfg = model_config(ARCH, layers=TRAIN_SMALL_LAYERS)
-    shape = ShapeConfig("j_small", TRAIN_SMALL_SEQ, TRAIN_BATCH, "train")
+    from repro_torch.sharding import rules
+    cfg = cfg or model_config(ARCH, layers=TRAIN_SMALL_LAYERS)
+    mode = shard or rules.mode_for(cfg.name)
+    phase = phase or ("j" if mode == "zero1" else "t")
+    shape = ShapeConfig(f"{phase}_small", seq, TRAIN_BATCH, "train")
     kw = dict(inc=IncAggConfig(mode="netrpc", precision=PRECISION),
               opt_cfg=AdamWConfig(warmup_steps=5, total_steps=100),
-              n_micro=1, mode=shard)
+              n_micro=1, mode=mode)
     p_cpu = api.init_params(SEED, cfg, device="cpu")
+    set_gates(p_cpu, cfg, gate)
     o_cpu = steps.init_opt(p_cpu)
-    p_card = _copy.deepcopy(p_cpu).to("cuda")
-    o_card = {k: _copy.deepcopy(v).to("cuda") for k, v in o_cpu.items()}
-    batch = pipeline.make_batch(pipeline.DataConfig(
-        vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SMALL_SEQ,
-        seed=SEED, kind="uniform"), TRAIN_CPU_STEP)
-    card = steps.build_train_step(cfg, shape, mesh_card, device="cuda",
+    p_card = _copy.deepcopy(p_cpu).to(device)
+    o_card = {k: _copy.deepcopy(v).to(device) for k, v in o_cpu.items()}
+    batch = pipeline.add_modality_stubs(pipeline.make_batch(
+        pipeline.DataConfig(vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=seq,
+                            seed=SEED, kind="uniform"), TRAIN_CPU_STEP),
+        cfg, TRAIN_BATCH)
+    card = steps.build_train_step(cfg, shape, mesh_card, device=device,
                                   **kw)
     cpu = steps.build_train_step(cfg, shape, mesh_cpu, device="cpu", **kw)
-    _, o_card, m_card = card.fn(p_card, o_card, batch, TRAIN_CPU_STEP)
-    torch.cuda.synchronize()
+    routes, flips = [], []
+    with routes_into(routes):
+        _, o_card, m_card = card.fn(p_card, o_card, batch, TRAIN_CPU_STEP)
+    if device == "cuda":
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, o_cpu, m_cpu = cpu.fn(p_cpu, o_cpu, batch, TRAIN_CPU_STEP)
+    with (routes_forced(routes, flips) if moe_layers(cfg)
+          else contextlib.nullcontext()):
+        _, o_cpu, m_cpu = cpu.fn(p_cpu, o_cpu, batch, TRAIN_CPU_STEP)
     cpu_s = time.perf_counter() - t0
-    phase = "j" if shard == "zero1" else "t"
+    forced = "" if not flips else (
+        f"; the CPU's routing teacher forced to the card's: its own top-"
+        f"{cfg.top_k} differed for {sum(int(f.sum()) for f in flips)} of "
+        f"{sum(f.numel() for f in flips)} (token, call) routes over "
+        f"{len(flips)} calls of route (each moe layer's forward and "
+        f"recompute)")
     lr = float(m_cpu["lr"])
     if float(m_card["lr"]) != lr:
         fail(f"phase {phase}: the card's learning rate is not the CPU's")
@@ -2285,8 +2385,10 @@ def step_pair(torch, mesh_card, mesh_cpu, shard: str = "zero1") -> None:
                       / torch.linalg.vector_norm(b.double()))
             if not e <= mv_err:
                 mv_err, mv_worst = e, f"{k} {name}"
-    print(f"path {phase}_train: {TRAIN_SMALL_LAYERS} layers at full width, "
-          f"S={TRAIN_SMALL_SEQ}, B={TRAIN_BATCH}, one {shard} netrpc step, "
+    width = ("full width" if cfg.d_model == model_config(cfg.name).d_model
+             else f"the reduced width (d_model {cfg.d_model})")
+    print(f"path {phase}_train: {cfg.name}, {cfg.n_layers} layers at "
+          f"{width}, S={seq}, B={TRAIN_BATCH}, one {mode} netrpc step, "
           f"card vs CPU "
           f"({cpu_s:.3f} s on the CPU): loss {float(m_card['loss']):.6f} vs "
           f"{float(m_cpu['loss']):.6f} (rel {loss_err:.2e}, tolerance "
@@ -2295,11 +2397,12 @@ def step_pair(torch, mesh_card, mesh_cpu, shard: str = "zero1") -> None:
           f"lr (tolerance 2.5), {far:.6f} of {d.numel()} more than lr/100 "
           f"apart (tolerance {MASTER_FLIP_FRAC}); m and v: worst leaf "
           f"{mv_worst}, ||card - CPU|| / ||CPU|| {mv_err:.3e} (tolerance "
-          f"{MV_RTOL})", flush=True)
-    if loss_err > TRAIN_LOSS_RTOL or gnorm_err > TRAIN_GNORM_RTOL \
-            or float(d.max()) > 2.5 * lr or far > MASTER_FLIP_FRAC \
-            or not mv_err <= MV_RTOL:
-        fail(f"phase {phase}: the card's train step differs from the CPU's")
+          f"{MV_RTOL}){forced}", flush=True)
+    if not (loss_err <= TRAIN_LOSS_RTOL and gnorm_err <= TRAIN_GNORM_RTOL
+            and float(d.max()) <= 2.5 * lr and far <= MASTER_FLIP_FRAC
+            and mv_err <= MV_RTOL):
+        fail(f"phase {phase}: the card's train step of {cfg.name} differs "
+             f"from the CPU's")
 
 
 def profile_train(torch, run: dict, mesh) -> None:
@@ -2396,12 +2499,14 @@ def check_train(torch, smi: str) -> dict:
 
 # -- phase x: the dry run of phases i and j -----------------------------------
 
-def dryrun_programs(reduced: bool = False) -> None:
+def dryrun_programs(reduced: bool = False, y: bool = False) -> None:
     """Phase x's child process: a fake world of one rank, and the counter
     of ``roofline.analysis`` over phase i's prefill program (flash) and
     phase j's netrpc train step, at their shapes on the meta device
-    (``reduced``: the rehearsal's 2-layer reduced qwen2.5-3b at 2 x 64).
-    Prints one JSON line: each program's summary."""
+    (``reduced``: the rehearsal's 2-layer reduced qwen2.5-3b at 2 x 64);
+    ``y``: phase y's Y_FULL netrpc train steps instead, at theirs (the
+    prediction of their peaks). Prints one JSON line: each program's
+    summary."""
     from repro_torch import compat
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.inc_agg import IncAggConfig
@@ -2409,38 +2514,54 @@ def dryrun_programs(reduced: bool = False) -> None:
     from repro_torch.launch.serve import model_config
     from repro_torch.optim.adamw import AdamWConfig
     sp = SERVES["i"]
-    if reduced:
+    train = dict(inc=IncAggConfig(mode="netrpc", precision=PRECISION),
+                 opt_cfg=AdamWConfig(warmup_steps=5, total_steps=TRAIN_STEPS),
+                 n_micro=1)
+    if y:
+        progs = {arch: (model_config(arch, layers=layers),
+                        ShapeConfig(f"y_{arch}", seq, batch, "train"), train)
+                 for arch, layers, batch, seq in Y_FULL}
+    elif reduced:
         cfg = model_config(ARCH, reduced=True, layers=2)
-        i_shape = ShapeConfig("x_i", 64, 2, "prefill")
-        j_shape = ShapeConfig("x_j", 64, 2, "train")
+        progs = {"i": (cfg, ShapeConfig("x_i", 64, 2, "prefill"),
+                       dict(flash=True)),
+                 "j": (cfg, ShapeConfig("x_j", 64, 2, "train"), train)}
     else:
         cfg = model_config(ARCH, layers=TRAIN_LAYERS)
-        i_shape = ShapeConfig("x_i", sp["prompt"], sp["batch"], "prefill")
-        j_shape = ShapeConfig("x_j", TRAIN_SEQ, TRAIN_BATCH, "train")
+        progs = {"i": (cfg, ShapeConfig("x_i", sp["prompt"], sp["batch"],
+                                        "prefill"), dict(flash=True)),
+                 "j": (cfg, ShapeConfig("x_j", TRAIN_SEQ, TRAIN_BATCH,
+                                        "train"), train)}
     dryrun.fake_world(1)
     mesh = compat.make_mesh((1, 1), ("data", "model"), device="meta")
     out = {}
-    for label, shape, kw in (
-            ("i", i_shape, dict(flash=True)),
-            ("j", j_shape, dict(
-                inc=IncAggConfig(mode="netrpc", precision=PRECISION),
-                opt_cfg=AdamWConfig(warmup_steps=5, total_steps=TRAIN_STEPS),
-                n_micro=1))):
+    for label, (cfg, shape, kw) in progs.items():
         _, roof, secs = dryrun.count_program(cfg, shape, mesh, **kw)
         out[label] = dict(roof.summary(), trace_s=secs)
     print(json.dumps(out), flush=True)
 
 
-def dryrun_run(reduced: bool = False) -> dict:
+def dryrun_run(reduced: bool = False, y: bool = False) -> dict:
     """``dryrun_programs`` in a child process (a fake world of its own,
-    beside this process's NCCL groups): its two summaries."""
+    beside this process's NCCL groups): its summaries. With ``y``
+    (``python3 -c "import chip_smoke as c; c.dryrun_run(y=True)"``) it
+    prints each Y_FULL step's peak too."""
     code = ("import chip_smoke as c; "
-            f"c.dryrun_programs(reduced={reduced!r})")
+            f"c.dryrun_programs(reduced={reduced!r}, y={y!r})")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=600)
     if out.returncode != 0:
         fail(f"phase x: the dry run failed:\n{out.stderr[-3000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    if y:
+        for arch, d in got.items():
+            print(f"dry run of phase y's {arch} netrpc step: peak "
+                  f"{d['peak_bytes'] / 2 ** 30:.3f} GiB, FLOPs "
+                  f"{d['flops_per_dev']:.6e}, HBM bytes "
+                  f"{d['hbm_bytes_per_dev']:.6e}, compute {d['compute_s']:.6f}"
+                  f" s, memory {d['memory_s']:.6f} s ({d['trace_s']:.3f} s on "
+                  f"the host)", flush=True)
+    return got
 
 
 def check_phase_x(torch, smi: str) -> dict:
@@ -3067,6 +3188,99 @@ def check_phase_u(torch, smi: str) -> dict:
     return counts
 
 
+# -- phase y: training beyond qwen2.5-3b --------------------------------------
+
+def y_train(torch, smi: str, arch: str, layers, batch: int, seq: int,
+            steps: int, ring: bool) -> dict:
+    """One model of phase y on the card through ``train_loop`` in the
+    arch's own mode: ``steps`` netrpc steps (``train_oracle`` with the
+    arch's step-0 window, one quantize, sat_add and dequantize launch a
+    scattered leaf and step, no flash launch) and, where ``ring``, as
+    many fp32-ring steps from the same state (``modes_oracle``). Returns
+    the launches."""
+    from repro_torch.launch.serve import model_config
+    from repro_torch.sharding import rules
+    cfg = model_config(arch, layers=layers)
+    leaves = scattered_leaves(cfg)
+    kw = dict(arch=arch, layers=layers, seq=seq, batch=batch, shard=None,
+              steps=steps)
+    what = f"phase y ({arch}, netrpc)"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run, counts, secs = counted(
+        torch, lambda: train_run("netrpc", **kw), what,
+        ("quantize", "sat_add", "dequantize", "sparse_addto"))
+    peak = torch.cuda.max_memory_allocated()
+    window = train_oracle(run, cfg.vocab, what, steps, Y_STEP0.get(arch))
+    for name in ("quantize", "sat_add", "dequantize"):
+        if counts[name] != leaves * steps:
+            fail(f"{what}: {counts[name]} {name} launches, not one per "
+                 f"scattered leaf ({leaves}) and step")
+    if counts["flash_attention"]:
+        fail(f"{what}: the train step launched the flash kernel")
+    warm = statistics.mean(run["step_s"][1:] or run["step_s"])
+    enc = (f" + {cfg.enc_layers} encoder layers over {cfg.frontend_tokens} "
+           f"stub frames" if cfg.is_encdec else "")
+    print(f"path y_train: {arch}, {cfg.n_layers} of "
+          f"{model_config(arch).n_layers} layers{enc}, d_model "
+          f"{cfg.d_model}, {rules.mode_for(arch)}, B={batch} x S={seq}, "
+          f"netrpc (precision {PRECISION}): {secs:.3f} s for {steps} steps; "
+          f"losses {run['losses']} (step 0's window [{window[0]:.4f}, "
+          f"{window[1]:.4f}]); step seconds {run['step_s']}; "
+          f"{'warm step' if steps > 1 else 'one step, cold'} {warm:.6f} s, "
+          f"{batch * seq / warm:.3f} tokens/s; peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB; {leaves} scattered leaves; launches "
+          f"{counts}; card: {smi}", flush=True)
+    netrpc = {"losses": run["losses"]}
+    del run
+    torch.cuda.empty_cache()
+    if not ring:
+        return counts
+    what = f"phase y ({arch}, fp32-ring)"
+    ring_run, ring_counts, ring_s = counted(
+        torch, lambda: train_run("fp32-ring", **kw), what, ("sparse_addto",))
+    train_oracle(ring_run, cfg.vocab, what, steps, window)
+    err = modes_oracle(netrpc, ring_run, f"phase y ({arch})")
+    print(f"path y_train: {arch} fp32-ring {ring_s:.3f} s, losses "
+          f"{ring_run['losses']}, step seconds {ring_run['step_s']}; netrpc "
+          f"vs fp32-ring max relative loss difference {err:.2e} (tolerance "
+          f"{MODES_TOL}); launches {ring_counts}", flush=True)
+    del ring_run
+    torch.cuda.empty_cache()
+    return {k: counts[k] + ring_counts[k] for k in counts}
+
+
+def check_phase_y(torch, smi: str) -> dict:
+    """Phase y: Y_FULL at full width and depth in netrpc and fp32-ring,
+    Y_CUT's one netrpc step at full width, then each family's reduced
+    step on the card against the CPU (Y_PAIRS, ``step_pair``)."""
+    from repro_torch import compat
+    from repro_torch.launch.mesh import one_rank_group
+    from repro_torch.launch.serve import model_config
+    t0 = time.perf_counter()
+    counts = {}
+    with one_rank_group(torch.device("cuda")):
+        for cases, steps, ring in ((Y_FULL, Y_STEPS, True),
+                                   (Y_CUT, 1, False)):
+            for arch, layers, batch, seq in cases:
+                got = y_train(torch, smi, arch, layers, batch, seq, steps,
+                              ring)
+                for name, c in got.items():
+                    counts[name] = counts.get(name, 0) + c
+        t1 = time.perf_counter()
+        mesh = compat.make_mesh((1, 1), ("data", "model"))
+        mesh_cpu = compat.make_mesh((1, 1), ("data", "model"), device="cpu")
+        for arch in Y_PAIRS:
+            step_pair(torch, mesh, mesh_cpu, shard=None,
+                      cfg=model_config(arch, reduced=True), phase="y",
+                      seq=Y_PAIR_SEQ, gate=Y_GATE)
+    secs = time.perf_counter() - t0
+    print(f"path y_train: {secs:.3f} s of the phase's budget of {Y_BUDGET} "
+          f"s ({time.perf_counter() - t1:.3f} s the reduced steps card vs "
+          f"CPU); card: {smi}", flush=True)
+    return counts
+
+
 # -- phase k: the int8 wire format --------------------------------------------
 
 def drive_int8_wire(torch, device) -> dict:
@@ -3531,7 +3745,43 @@ def rehearse(scale_down: int = 64) -> None:
                       torch, one, cpu, shards,
                       tp_config(case, True).vocab,
                       f"rehearsal of phase {label}"), flush=True)
-    print("rehearsal: phases a-x ran on the CPU and met their oracles")
+    rehearse_y()
+    print("rehearsal: phases a-y ran on the CPU and met their oracles")
+
+
+def rehearse_y() -> None:
+    """Phase y at the reduced width on the CPU (~40 s; part of
+    ``rehearse``): Y_FULL's and Y_CUT's archs through train_loop in
+    their own mode, netrpc and for Y_FULL fp32-ring (at j's window: the
+    reduced width's), then each family's reduced step through step_pair,
+    on the CPU twice."""
+    import torch
+
+    from repro_torch import compat
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import one_rank_group
+    from repro_torch.launch.serve import model_config
+    for cases, steps, ring in ((Y_FULL, Y_STEPS, True), (Y_CUT, 1, False)):
+        for arch, *_ in cases:
+            cfg = model_config(arch, reduced=True)
+            kw = dict(arch=arch, device="cpu", reduced=True, layers=None,
+                      seq=64, batch=2, shard=None, steps=steps)
+            what = f"rehearsal of phase y ({arch})"
+            ops.reset_counts()
+            run = train_run("netrpc", **kw)
+            train_oracle(run, cfg.vocab, what, steps)
+            if ops.plain_counts()["quantize"] != \
+                    scattered_leaves(cfg) * steps:
+                fail(f"{what}: not one quantize per scattered leaf and step")
+            if ring:
+                modes_oracle(run, train_run("fp32-ring", **kw), what)
+            print(f"{what}: losses {run['losses']}", flush=True)
+    with one_rank_group(torch.device("cpu")):
+        mesh = compat.make_mesh((1, 1), ("data", "model"), device="cpu")
+        for arch in Y_PAIRS:
+            step_pair(torch, mesh, mesh, shard=None,
+                      cfg=model_config(arch, reduced=True), phase="y",
+                      seq=Y_PAIR_SEQ, gate=Y_GATE, device="cpu")
 
 
 def lane_drift(draws: int = 3) -> None:
@@ -3573,6 +3823,66 @@ def lane_drift(draws: int = 3) -> None:
               f"and {cfg.n_layers} layers: " + ", ".join(
                   f"{e:.6f}" for e in errs) + f" (tolerance "
               f"{sp['lanes_tol']})", flush=True)
+
+
+def step0_loss(draws: int = 3) -> None:
+    """The prediction behind Y_STEP0, on the CPU (~3 min): for each run
+    (arch, layers, encoder layers, B, S), the model at the reduced width
+    with the run's pattern, window, vocab, stub frames and experts (n and
+    top-k: the moe output's share of the residual falls as the gated
+    sum's k grows), on the run's
+    uniform tokens, for ``draws`` weight draws. cos is the mean over the
+    tokens of the input token's own logit over |h| |e| (h the normed last
+    output, e its embedding row); at full width that logit is about
+    sqrt(d_model) cos + N(0, 1 - cos^2) and every other about N(0, 1), so
+    step 0's loss is about E ln(e^a + (V - 1) e^0.5). First the cuts whose
+    step 0 the card measured in PR 34 (phases v, j and w: qwen2.5-3b at 1
+    layer, 1 x 64 and 2 x 64 tokens, 37.282 and 37.372; at 36 layers, 2 x
+    1 024, 12.485; whisper-medium 1 + 1 layers at 1 x 64, 20.493;
+    mamba2-780m 2 layers at 2 x 128, 22.609), then phase y's."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.data import pipeline
+    from repro_torch.launch.serve import model_config
+    from repro_torch.models import api
+    runs = [(ARCH, 1, None, 1, 64), (ARCH, 1, None, 2, 64),
+            (ARCH, TRAIN_LAYERS, None, TRAIN_BATCH, TRAIN_SEQ),
+            ("whisper-medium", 1, 1, 1, 64), ("mamba2-780m", 2, None, 2, 128)]
+    runs += [(a, n, None, b, s) for a, n, b, s in Y_FULL + Y_CUT]
+    noise = np.random.RandomState(SEED).randn(100_000)
+    with torch.no_grad():
+        for arch, layers, enc, b, s in runs:
+            full = model_config(arch, layers=layers)
+            full = replace(full, enc_layers=enc or full.enc_layers)
+            cfg = replace(model_config(arch, reduced=True),
+                          pattern_groups=full.pattern_groups,
+                          n_layers=full.n_layers, enc_layers=full.enc_layers,
+                          frontend_tokens=full.frontend_tokens,
+                          window=full.window, vocab=full.vocab,
+                          n_experts=full.n_experts, top_k=full.top_k)
+            batch = pipeline.add_modality_stubs(pipeline.make_batch(
+                pipeline.DataConfig(vocab=cfg.vocab, batch=b, seq_len=s,
+                                    kind="uniform"), 0), cfg, b)
+            toks = batch["tokens"][:, :-1].long()
+            got = []
+            for seed in range(draws):
+                params = api.init_params(seed, cfg, device="cpu")
+                logits, _ = api.forward(params, cfg, {**batch, "tokens": toks},
+                                        remat=False)
+                own = logits.float().gather(-1, toks[..., None])[..., 0]
+                rows = params["embed"].float()[toks].norm(dim=-1)
+                cos = float((own / (cfg.d_model ** 0.5 * rows)).mean())
+                a = cos * full.d_model ** 0.5 + noise * (1 - cos ** 2) ** 0.5
+                got.append((cos, float(np.mean(np.logaddexp(
+                    a, np.log(full.vocab - 1) + 0.5)))))
+            print(f"step 0, {arch} at {full.n_layers} layers"
+                  + (f" + {full.enc_layers} encoder" if full.is_encdec else "")
+                  + f", B={b} x S={s}: cos " + ", ".join(
+                      f"{c:.4f}" for c, _ in got) + "; predicted loss at "
+                  f"full width " + ", ".join(f"{p:.3f}" for _, p in got)
+                  + f" (ln(vocab) {np.log(full.vocab):.4f})", flush=True)
 
 
 @contextlib.contextmanager
@@ -3662,7 +3972,8 @@ def main() -> int:
                          ("t", lambda t: check_fsdp(t, smi)),
                          ("u", lambda t: check_phase_u(t, smi)),
                          ("v", lambda t: check_phase_v(t, smi)),
-                         ("w", lambda t: check_phase_w(t, smi))):
+                         ("w", lambda t: check_phase_w(t, smi)),
+                         ("y", lambda t: check_phase_y(t, smi))):
         t0 = time.perf_counter()
         for name, c in check(torch).items():
             counts[name] = counts.get(name, 0) + c
