@@ -78,7 +78,19 @@
    atol 2e-2, rtol 5e-2 of its plain version (bf16: the kernel rounds p
    to bf16 before p.V, the plain version keeps fp32); each case is timed
    beside ``scaled_dot_product_attention`` on the same tensors, with its
-   TFLOP/s and share of the bound.
+   TFLOP/s and share of the bound; at the prefill's shape also with its
+   lse store (the train lane's forward). Kernel 11's lse and its backward
+   kernels (``csrc/flash_attn_bwd.cu``: delta, dK/dV, dQ) are held
+   against their plain version (``ref.flash_bwd``, fp32 on the kernels'
+   inputs) at phase z's shape (B=2, H=16, KV=2, S=1 024, D=128),
+   gemma3-27b's local layers (1, 32, 16, 2 048, 128, window 1 024),
+   whisper-medium's decoder (2, 16, 16, 448, 64), recurrentgemma-9b's
+   local layer (1, 16, 1, 4 096, 256, window 2 048) and at D = 32: dq, dk
+   and dv within 1.5e-2 of max|plain| (``FLASH_BWD_TOL``, set from the
+   CPU emulation of the kernels' bf16 roundings before their first run),
+   each kernel's two calls bitwise equal; each timed beside its plain
+   version and the backward of ``scaled_dot_product_attention`` (held to
+   the whole gradient's floor, ``flash_bwd_work``, as library_bound_ms).
 
 8. Path, phase j: training qwen2.5-3b at full width and depth (36 layers,
    random weights from a seed, uniform tokens) through ``train_loop``:
@@ -90,10 +102,11 @@
    model's expected loss is at least ln(vocab); the tied embedding puts
    it above); the two modes' losses within 1e-3 (relative) at each step;
    one quantize, sat_add and dequantize launch per scattered leaf and
-   step, no flash launch (the train lane is the plain attention);
-   telemetry pushes through sparse_addto and one commit a step. Prints
-   the warm step time, tokens/s, peak memory, the card's busy share of
-   one step and the device time of its three stages. Then one ``netrpc``
+   step, no flash launch (``flash=False``, the default, is the plain
+   attention); telemetry pushes through sparse_addto and one commit a
+   step. Prints the warm step time, tokens/s and peak memory (the card's
+   busy share of one step and its stages: phase z's profile, on the
+   flash lane). Then one ``netrpc``
    step at 1 full-width layer (B=2, S=256) on the card and on the CPU
    from the same params and optimizer state: loss within 1e-3 and gnorm
    within 1e-2 (relative); AdamW's m and v, per leaf, within 3e-2
@@ -308,6 +321,25 @@
    d_model, B x S, seconds, losses, warm step, tokens/s, peak memory,
    scattered leaves and launches, and the phase's seconds against its
    budget of 180 s.
+21. Path, phase z (after x): phase j's netrpc run through the flash
+   kernels, ``train_loop(flash=True)`` (the reference's train step under
+   ``REPRO_FLASH_ATTN=1``): qwen2.5-3b at full width and all 36 layers,
+   B = 2 x S = 1 024 uniform tokens, j's seed, 3 steps, every layer's
+   causal attention through kernel 11 (with its lse) and the three
+   backward kernels inside each layer's checkpoint. Checks: j's oracle;
+   each step's loss within ``Z_LOSS_RTOL`` (5e-3, relative) of j's
+   netrpc loss; step 0's gnorm within ``Z_GNORM_RTOL`` (3e-3) of j's and
+   the Adam first moment m of every attention leaf after the run within
+   ``Z_M_RTOL`` (0.2, relative norm) of j's, the checks of the backward
+   (a zeroed or negated dK, a zeroed dQ or dV fails both at the reduced
+   width on the CPU); launches 72 of kernel 11 and 36 of each backward
+   kernel a step, kernels 7/6/8 once a scattered leaf and step; the peak
+   device memory within 15% of the dry run's for the same step
+   (``dryrun_start(z=True)``, a child process started in phase x). Prints
+   the warm step, tokens/s and peak beside j's and the dry run's; then
+   the profile of one step (the card's busy share, the top kernels and
+   the flash kernels, the device time of its three stages), which phase
+   j ran on the plain lane before phase z came.
 
 Launch counts are set to 0 just before each path run on the card and read
 just after it; every kernel must have launched in the path. The two
@@ -484,12 +516,14 @@ TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 36, 1024, 2, 3
 # phase t: fsdp against phase j's zero1 netrpc losses, absolute, each step
 # (md_train_equiv.py's fsdp-vs-zero1 bound)
 FSDP_TOL = 2e-3
-TRAIN_J: dict = {}     # phase j's netrpc losses, for phase t
+TRAIN_J: dict = {}     # phase j's netrpc losses (phases t and z), step-0
+#                        gnorm and attention leaves' m on the host (phase z)
 # phase x: the dry run of i's prefill program and j's train step on the
 # meta device, against i's and j's measured seconds, peaks and launches
 # (kernel 11 a prefill, kernels 7/6/8 a step); the peaks within X_PEAK_RTOL
 MEASURED: dict = {}
 X_PEAK_RTOL, X_BUDGET = 0.15, 30.0
+DRY_Z: dict = {}       # phase z's dry run child, started by phase x
 TRAIN_SMALL_LAYERS, TRAIN_SMALL_SEQ, TRAIN_CPU_STEP = 1, 64, 5
 # step 0's loss within [ln(vocab) - STEP0_BELOW, ln(vocab) + STEP0_ABOVE]
 STEP0_BELOW, STEP0_ABOVE = 0.5, 1.5
@@ -575,6 +609,48 @@ FLASH_CHECKS = ((4, 16, 2, 2048, 128, None), (4, 16, 2, 2048, 128, 1024),
                 (4, 4, 1, 2048, 128, None), (4, 16, 8, 2048, 128, 1024),
                 (4, 8, 8, 2048, 128, None), (4, 8, 8, 416, 64, None),
                 (4, 32, 4, 2048, 128, None), (2, 8, 1, 4096, 256, 2048))
+# the backward kernels (csrc/flash_attn_bwd.cu) against their plain version
+# (``ref.flash_bwd``: fp32 math on the kernels' bf16 inputs, lse and delta),
+# (B, H, KV, S, D, window): phase z's train shape (j's: qwen2.5-3b, B=2 x
+# S=1 024), gemma3-27b's local layers, whisper-medium's decoder,
+# recurrentgemma-9b's local layer and one at D = 32 (the reduced configs'
+# head dim). Each of dq, dk and dv within FLASH_BWD_TOL of max|plain|: the
+# kernels round P and dS to bf16 before the products that take them and
+# store bf16, which ``ref.flash_bwd(round_to=bf16)`` emulates on the CPU
+# 2.6e-3 to 4.3e-3 from the fp32 gradient at these shapes
+# (tests/test_torch_flash_train.py); 1.5e-2 was written before the kernels'
+# first run on the card. delta (fp32 sums of D products in another order)
+# within FLASH_DELTA_RTOL of max|plain|, kernel 11's lse (base 2) within
+# FLASH_LSE_ATOL. Each is timed beside the backward of
+# scaled_dot_product_attention (dq, dk and dv in one call, the yardstick;
+# a window as a boolean mask) and its plain version
+FLASH_BWD_CHECKS = ((2, 16, 2, 1024, 128, None),
+                    (1, 32, 16, 2048, 128, 1024),
+                    (2, 16, 16, 448, 64, None),
+                    (1, 16, 1, 4096, 256, 2048),
+                    (2, 16, 2, 1024, 32, None))
+FLASH_BWD_TOL, FLASH_DELTA_RTOL, FLASH_LSE_ATOL = 1.5e-2, 1e-4, 1e-3
+BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
+# phase z: phase j's train step through kernel 11 and its backward kernels
+# (``train_loop(flash=True)``). Each step's loss within Z_LOSS_RTOL
+# (relative) of j's netrpc loss at the same step, written before the first
+# run on the card: at the reduced width and j's full depth, shape and seed
+# on the CPU the two lanes' losses differ by 2.7e-6, 1.5e-4 and 1.5e-4
+# (the plain attention against the plain version of the flash lane); on
+# the card the kernels also round P (forward and backward) and dS to bf16,
+# so about 30 times that, 5 times j's netrpc-vs-fp32-ring MODES_TOL
+Z_LOSS_RTOL = 5e-3
+# and the backward, which the loss cannot see at this scale (j's losses move
+# by 6.4e-3 relative over the three steps): step 0's gnorm within
+# Z_GNORM_RTOL (relative) of j's, from the same state and tokens, and the
+# Adam first moment m of every attention leaf after the run within Z_M_RTOL
+# (||z - j|| / ||j||) of j's. Both written before their first run on the
+# card, from tests/test_torch_flash_train.py
+# (``test_phase_z_windows_hold_the_kernels_and_fail_a_fault``): at the
+# reduced width, j's depth, batch and seed (S cut to 256) the kernels'
+# emulated roundings give 6.1e-4 and 4.5e-2, a zeroed or negated dK, a
+# zeroed dQ or a zeroed dV 1.6e-2 to 0.34 and 1.0 to 1.9
+Z_GNORM_RTOL, Z_M_RTOL = 3e-3, 0.2
 REPLACES = {
     "fused_addto": "src/repro/kernels/fused_gpv.py:67",
     "fused_scatter": "src/repro/kernels/fused_gpv.py:113",
@@ -586,6 +662,11 @@ REPLACES = {
     "quantize": "src/repro/kernels/quantize.py:34",
     "dequantize": "src/repro/kernels/dequantize.py:30",
     "flash_attention": "src/repro/kernels/flash_attn.py:95",
+    # no TPU kernel: the gradient the reference's train step takes under
+    # REPRO_FLASH_ATTN=1, JAX's autodiff of its chunked oracle
+    "flash_bwd_delta": "src/repro/kernels/flash_attn.py:145",
+    "flash_bwd_dkdv": "src/repro/kernels/flash_attn.py:145",
+    "flash_bwd_dq": "src/repro/kernels/flash_attn.py:145",
     "pack_int8": "src/repro/kernels/pack_int8.py:28",
     "unpack_int8": "src/repro/kernels/pack_int8.py:54",
 }
@@ -600,6 +681,9 @@ SOURCE = {
     "quantize": "src/repro_torch/kernels/csrc/quantize.cu",
     "dequantize": "src/repro_torch/kernels/csrc/dequantize.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attn.cu",
+    "flash_bwd_delta": "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+    "flash_bwd_dkdv": "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+    "flash_bwd_dq": "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
     "pack_int8": "src/repro_torch/kernels/csrc/pack_int8.cu",
     "unpack_int8": "src/repro_torch/kernels/csrc/pack_int8.cu",
 }
@@ -620,46 +704,78 @@ def device_ms(torch, fn, reset, iters: int, match: str = "inc_k_",
               launches: int | None = 1) -> tuple[float, str]:
     """Mean device time of ``fn`` per call: the CUDA time of the kernels
     whose names hold ``match`` (this package's INC kernels by default;
-    "" takes every kernel) under the profiler, where it kept every launch:
-    ``launches`` matched kernels a call (None: the same unknown number a
-    call, so a whole multiple of ``iters``). Events with no device time
-    (the runtime's API calls) are not launches. A profile that kept
-    another count is taken again, PROFILE_TRIES times in all; then CUDA
-    events around each call time it instead, and the timer says why."""
+    "" takes every kernel), ``device_ms_parts`` of the one call."""
+    return device_ms_parts(torch, {"call": (fn, match, launches)}, iters,
+                           reset)["call"]
+
+
+def device_ms_parts(torch, parts: dict, iters: int,
+                    reset=lambda: None) -> dict:
+    """Mean device time a call of each of ``parts`` (label -> (fn, match,
+    launches)) under the profiler: each iteration runs ``reset`` and a
+    part's fn, for every part in turn (several parts share one profile,
+    whose set-up costs time); a kernel counts for the first part whose
+    match its name holds, "" taking what no other part's match takes. A
+    part's time is kept where the profile kept every launch: ``launches``
+    matched kernels a call (None: the same unknown number a call, so a
+    whole multiple of ``iters``). Events with no device time (the
+    runtime's API calls) are not launches. The parts a profile did not
+    keep whole are profiled again, PROFILE_TRIES times in all; then CUDA
+    events around each call time them instead, and the timer says why.
+    Returns {label: (ms, timer)}."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
-        reset()
-        fn()
+        for fn, _, _ in parts.values():
+            reset()
+            fn()
     torch.cuda.synchronize()
-    want = iters * launches if launches is not None else None
+    out, todo, kept = {}, dict(parts), {}
+    shared = " (one profile)" if len(parts) > 1 else ""
     for attempt in range(PROFILE_TRIES):
-        us, seen, keys = 0.0, 0, {}
+        named = [(k, m) for k, (_, m, _) in todo.items() if m]
+        rest = [k for k, (_, m, _) in todo.items() if not m]
         try:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(iters):
-                    reset()
-                    fn()
+                    for fn, _, _ in todo.values():
+                        reset()
+                        fn()
                 torch.cuda.synchronize()
         except RuntimeError as e:     # a profiler without CUPTI: use events
             print(f"profiler unavailable ({e}); timing with CUDA events",
                   flush=True)
-            return event_ms(torch, fn, reset, iters), "events"
+            return {**out, **{k: (event_ms(torch, fn, reset, iters),
+                                  "events")
+                              for k, (fn, _, _) in todo.items()}}
+        us, seen = dict.fromkeys(todo, 0.0), dict.fromkeys(todo, 0)
+        keys = {k: {} for k in todo}
         for ev in prof.key_averages():
             t = getattr(ev, "device_time_total",
                         getattr(ev, "cuda_time_total", 0.0))
-            if match in ev.key and t > 0:
-                us += t
-                seen += ev.count
-                keys[ev.key[:48]] = ev.count
-        if us > 0 and (seen == want if want is not None
-                       else seen % iters == 0):
-            return us / iters / 1e3, "cupti" + (
-                f" (try {attempt + 1})" if attempt else "")
-    kept = f"cupti kept {seen} of " + (str(want) if want is not None
-                                        else f"a multiple of {iters}")
-    print(f"device_ms: {kept} in {PROFILE_TRIES} tries (last: {keys}); "
-          f"timing with CUDA events", flush=True)
-    return event_ms(torch, fn, reset, iters), f"events ({kept})"
+            label = next((k for k, m in named if m in ev.key),
+                         rest[0] if rest else None)
+            if t > 0 and label is not None:
+                us[label] += t
+                seen[label] += ev.count
+                keys[label][ev.key[:48]] = ev.count
+        for k, (_, _, launches) in list(todo.items()):
+            want = iters * launches if launches is not None else None
+            if us[k] > 0 and (seen[k] == want if want is not None
+                              else seen[k] % iters == 0):
+                out[k] = (us[k] / iters / 1e3, "cupti" + (
+                    f" (try {attempt + 1})" if attempt else "") + shared)
+                del todo[k]
+            else:
+                kept[k] = (f"cupti kept {seen[k]} of " + (
+                    str(want) if want is not None
+                    else f"a multiple of {iters}"), keys[k])
+        if not todo:
+            return out
+    for k, (fn, _, _) in todo.items():
+        print(f"device_ms {k}: {kept[k][0]} in {PROFILE_TRIES} tries (last: "
+              f"{kept[k][1]}); timing with CUDA events", flush=True)
+        out[k] = (event_ms(torch, fn, reset, iters), f"events ({kept[k][0]})")
+    return out
 
 
 def check_bounds(kernels) -> None:
@@ -1380,10 +1496,10 @@ def check_flash(torch) -> dict:
             fail(f"scaled_dot_product_attention {case} disagrees with the "
                  f"plain version")
         del got, want
-        ms, timer = device_ms(torch, kernel, lambda: None, 20,
-                              match="flash_k_")
-        library_ms, _ = device_ms(torch, library, lambda: None, 20, match="",
-                                  launches=None)
+        timed = device_ms_parts(torch, {
+            "kernel": (kernel, "flash_k_", 1),
+            "library": (library, "", None)}, 20)
+        (ms, timer), (library_ms, _) = timed["kernel"], timed["library"]
         plain_ms = event_ms(torch, plain, lambda: None, 5)
         flops, nbytes = flash_work(*case)
         bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
@@ -1401,17 +1517,159 @@ def check_flash(torch) -> dict:
             fail(f"flash_attention {case}: a time below bound_ms: the timer "
                  f"failed")
         if i == 0:                  # the prefill's shape: the JSON row
+            # the train lane's forward: the same kernel storing its lse
+            lse_ms, lse_timer = device_ms(
+                torch, lambda: flash_attn._forward(q, k, v, True, window,
+                                                   True), lambda: None, 20,
+                match="flash_k_")
             print(f"kernel flash_attention {case}: plain_ms={plain_ms:.6f}; "
                   f"back-to-back events: kernel "
                   f"{loop_ms(torch, kernel, 20):.6f} ms, library "
-                  f"{loop_ms(torch, library, 20):.6f} ms", flush=True)
+                  f"{loop_ms(torch, library, 20):.6f} ms; with the lse "
+                  f"store (the train lane) lse_ms={lse_ms:.6f} "
+                  f"({lse_timer})", flush=True)
             row = {"name": "flash_attention", "route": "cuda",
                    "source": SOURCE["flash_attention"],
                    "replaces": REPLACES["flash_attention"], "launches": 0,
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": library_ms, "timer": timer}
+                   "library_ms": library_ms, "timer": timer,
+                   "lse_ms": lse_ms}
     return row
+
+
+def check_flash_bwd(torch) -> list[dict]:
+    """The backward kernels (a)-(c) and kernel 11's lse against their
+    plain versions at FLASH_BWD_CHECKS, each kernel's output twice
+    bitwise equal (the checkpoint's recompute relies on it); each case
+    timed (CUPTI) beside its plain version and the backward of
+    scaled_dot_product_attention on the same tensors. The rows of the
+    first case (phase z's shape) go into the kernels' JSON line."""
+    from repro_torch.kernels import flash_attn, ref
+    from repro_torch.roofline.flash_model import bwd_kernel_work, \
+        flash_bwd_work
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for i, case in enumerate(FLASH_BWD_CHECKS):
+        b, h, kv, s, d, window = case
+        q, k, v = flash_inputs(torch, b, h, kv, s, d, 100 + i)
+        do = flash_inputs(torch, b, h, h, s, d, 200 + i)[0]
+        o, lse = flash_attn._forward(q, k, v, True, window, True)
+        _, want_lse = ref.flash_attention_lse(*flash_attn._bhsd(q, k, v),
+                                              True, window)
+        lse_err = float((lse - want_lse).abs().max())
+        if not lse_err <= FLASH_LSE_ATOL:
+            fail(f"flash_attention's lse {case}: {lse_err} from its plain "
+                 f"version (atol {FLASH_LSE_ATOL})")
+        del want_lse
+        calls = {
+            "flash_bwd_delta": lambda: (flash_attn.flash_bwd_delta(o, do),),
+            "flash_bwd_dkdv": lambda: flash_attn.flash_bwd_dkdv(
+                q, k, v, do, lse, delta, True, window),
+            "flash_bwd_dq": lambda: (flash_attn.flash_bwd_dq(
+                q, k, v, do, lse, delta, True, window),)}
+        delta = calls["flash_bwd_delta"]()[0]
+        plain_delta = lambda: (do.float() * o.float()).sum(-1).transpose(  # noqa: E731
+            1, 2).contiguous()
+        plain_bwd = lambda: ref.flash_bwd(  # noqa: E731
+            *flash_attn._bhsd(q.float(), k.float(), v.float(), do.float()),
+            lse, delta, True, window)
+        want_dq, want_dk, want_dv = (t.transpose(1, 2)
+                                     for t in plain_bwd())
+        wants = {"flash_bwd_delta": (plain_delta(),),
+                 "flash_bwd_dkdv": (want_dk, want_dv),
+                 "flash_bwd_dq": (want_dq,)}
+        errs = {}
+        for name, call in calls.items():
+            got, again = call(), call()
+            torch.cuda.synchronize()
+            tol = FLASH_DELTA_RTOL if name == "flash_bwd_delta" \
+                else FLASH_BWD_TOL
+            err = 0.0
+            for g, a, w in zip(got, again, wants[name]):
+                if g.shape != w.shape or not torch.isfinite(g.float()).all():
+                    fail(f"{name} {case}: shape {tuple(g.shape)} or a "
+                         f"non-finite value")
+                if not torch.equal(g, a):
+                    fail(f"{name} {case}: two calls differ (not "
+                         f"deterministic)")
+                e = float((g.float() - w.float()).abs().max())
+                if not e <= tol * float(w.float().abs().max()):
+                    fail(f"{name} {case}: max|kernel - plain| {e} > {tol} "
+                         f"max|plain| {float(w.abs().max())}")
+                err = max(err, e)
+            errs[name] = err
+        del wants, want_dq, want_dk, want_dv
+        # the yardstick: SDPA's backward alone (its forward run once)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        mask = None
+        if window is not None:
+            pos = torch.arange(s, device="cuda")
+            gap = pos[:, None] - pos[None, :]
+            mask = (gap >= 0) & (gap < window)
+        out = sdpa(qt, kt, vt, is_causal=mask is None, attn_mask=mask,
+                   enable_gqa=True)
+        dot = do.transpose(1, 2)
+
+        def library():
+            torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+        timed = device_ms_parts(torch, dict(
+            {name: (call, name.replace("flash_bwd_", "flash_k_bwd_"), 1)
+             for name, call in calls.items()},
+            library=(library, "", None)), 20)
+        library_ms = timed["library"][0]
+        # SDPA's backward is the whole gradient: its floor is that of the
+        # five products, not of one kernel
+        lib_flops, lib_bytes = flash_bwd_work(b, h, kv, s, d, window)
+        library_bound_ms = max(lib_flops / BF16_FLOPS,
+                               lib_bytes / HBM_BYTES_PER_S) * 1e3
+        plain_ms = {"flash_bwd_delta": event_ms(torch, plain_delta,
+                                                lambda: None, 5)}
+        plain_ms["flash_bwd_dkdv"] = plain_ms["flash_bwd_dq"] = event_ms(
+            torch, plain_bwd, lambda: None, 3)
+        total = 0.0
+        for name in calls:
+            ms, timer = timed[name]
+            total += ms
+            flops, nbytes = bwd_kernel_work(name, b, h, kv, s, d, window)
+            op_ms, byte_ms = flops / BF16_FLOPS * 1e3, \
+                nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms = max(op_ms, byte_ms)
+            bound_by = "operations" if op_ms > byte_ms else "bytes"
+            print(f"kernel {name} (B,H,KV,S,D,window)={case}: ok vs plain "
+                  f"(max|d| <= {FLASH_DELTA_RTOL if 'delta' in name else FLASH_BWD_TOL}"
+                  f" max|plain|, deterministic), max_abs_err="
+                  f"{errs[name]:.6f}; ms={ms:.6f} ({timer}), "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.4f} of "
+                  f"bound_ms={bound_ms:.6f} ({bound_by}: "
+                  f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB); "
+                  f"plain_ms={plain_ms[name]:.6f}; library_ms (SDPA's "
+                  f"whole backward)={library_ms:.6f}, "
+                  f"{library_bound_ms / library_ms:.4f} of the whole "
+                  f"gradient's bound {library_bound_ms:.6f}", flush=True)
+            if min(ms, plain_ms[name]) < bound_ms \
+                    or library_ms < library_bound_ms:
+                fail(f"{name} {case}: a time below bound_ms: the timer "
+                     f"failed")
+            if i == 0:
+                rows.append({"name": name, "route": "cuda",
+                             "source": SOURCE[name],
+                             "replaces": REPLACES[name], "launches": 0,
+                             "max_abs_err": errs[name], "ms": ms,
+                             "plain_ms": plain_ms[name],
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "library_ms": library_ms,
+                             "library_bound_ms": library_bound_ms,
+                             "library": "scaled_dot_product_attention's "
+                                        "backward (dq, dk and dv)",
+                             "timer": timer})
+        print(f"kernel flash backward {case}: the three kernels "
+              f"{total:.6f} ms against SDPA's backward {library_ms:.6f} ms; "
+              f"lse max|d| {lse_err:.2e}", flush=True)
+        del q, k, v, do, o, lse, delta, out, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
 
 
 def sass_counts(build) -> dict:
@@ -2237,15 +2495,17 @@ def check_serve(torch, smi: str, phase: str) -> dict:
 
 def train_run(mode: str, *, arch=ARCH, device=None, layers=TRAIN_LAYERS,
               seq=TRAIN_SEQ, batch=TRAIN_BATCH, reduced=False,
-              shard="zero1", steps=TRAIN_STEPS) -> dict:
+              shard="zero1", steps=TRAIN_STEPS, flash=False) -> dict:
     """``train_loop`` of ``arch`` for ``steps`` steps on uniform tokens
     (random weights from the loop's seed, 0), in ``mode`` (the inc mode)
-    and the ``shard`` mode (zero1 or fsdp; None: the arch's own)."""
+    and the ``shard`` mode (zero1 or fsdp; None: the arch's own);
+    ``flash``: the attention through kernel 11 and its backward
+    kernels."""
     from repro_torch.launch.train import train_loop
     return train_loop(arch=arch, inc_mode=mode, steps_n=steps,
                       seq=seq, batch=batch, reduced=reduced,
                       precision=PRECISION, data_kind="uniform", log_every=1,
-                      device=device, layers=layers, mode=shard)
+                      device=device, layers=layers, mode=shard, flash=flash)
 
 
 def scattered_leaves(cfg) -> int:
@@ -2405,10 +2665,11 @@ def step_pair(torch, mesh_card, mesh_cpu, shard: str | None = "zero1",
              f"from the CPU's")
 
 
-def profile_train(torch, run: dict, mesh) -> None:
-    """Two more netrpc steps on the trained state: one under the profiler
-    (the card's busy share and top kernels), one with the stage clock
-    (the stream's ms per stage of launch/steps.py, CUDA events)."""
+def profile_train(torch, run: dict, mesh, flash: bool, label: str) -> None:
+    """Two more netrpc steps of phase j's shape on the trained state, the
+    attention on the ``flash`` lane: one under the profiler (the card's
+    busy share, the top kernels and the flash kernels), one with the stage
+    clock (the stream's ms per stage of launch/steps.py, CUDA events)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.inc_agg import IncAggConfig
     from repro_torch.data import pipeline
@@ -2420,7 +2681,7 @@ def profile_train(torch, run: dict, mesh) -> None:
         cfg, ShapeConfig("j", TRAIN_SEQ, TRAIN_BATCH, "train"), mesh,
         inc=IncAggConfig(mode="netrpc", precision=PRECISION),
         opt_cfg=AdamWConfig(warmup_steps=5, total_steps=TRAIN_STEPS),
-        n_micro=1, device="cuda")
+        n_micro=1, flash=flash, device="cuda")
     batch = pipeline.shard_batch(pipeline.make_batch(pipeline.DataConfig(
         vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=SEED,
         kind="uniform"), TRAIN_STEPS), "cuda")
@@ -2428,20 +2689,21 @@ def profile_train(torch, run: dict, mesh) -> None:
     def step():
         prog.fn(run["params"], run["opt"], batch, TRAIN_STEPS)
     wall, share, top = busy_share(torch, step)
-    print(f"path j_train profile, one netrpc step: {wall * 1e3:.3f} ms "
+    print(f"path {label} profile, one netrpc step: {wall * 1e3:.3f} ms "
           f"(wall, profiler on), card busy {share:.4f} of it; top kernels "
-          f"(ms): {top}", flush=True)
+          f"and the flash kernels (ms): {top}", flush=True)
     step()
     stages = prog.meta["clock"].ms()
-    print("path j_train, one netrpc step by stage (ms of the card's stream "
+    print(f"path {label}, one netrpc step by stage (ms of the card's stream "
           "between CUDA events, profiler off): " + ", ".join(
               f"{k} {v:.3f}" for k, v in stages.items())
           + f"; total {sum(stages.values()):.3f}", flush=True)
 
 
 def check_train(torch, smi: str) -> dict:
-    """Phase j on the card: both modes at full width, the profile of one
-    step, and the TRAIN_SMALL_LAYERS-layer step against the CPU."""
+    """Phase j on the card: both modes at full width and the
+    TRAIN_SMALL_LAYERS-layer step against the CPU (phase z profiles a
+    step)."""
     from repro_torch import compat
     from repro_torch.launch.serve import model_config
     from repro_torch.launch.mesh import one_rank_group
@@ -2476,9 +2738,10 @@ def check_train(torch, smi: str) -> dict:
         MEASURED["j"] = {"s": warm, "peak": peak, "launches": {
             n: counts[n] // TRAIN_STEPS
             for n in ("quantize", "sat_add", "dequantize")}}
-        profile_train(torch, run, mesh)
         netrpc_losses = {"losses": run["losses"]}
         TRAIN_J["losses"] = list(run["losses"])
+        TRAIN_J["gnorm0"] = run["gnorms"][0]
+        TRAIN_J["m_attn"] = attn_moments(run)
         del run
         torch.cuda.empty_cache()
         ring, ring_counts, ring_s = counted(
@@ -2499,14 +2762,16 @@ def check_train(torch, smi: str) -> dict:
 
 # -- phase x: the dry run of phases i and j -----------------------------------
 
-def dryrun_programs(reduced: bool = False, y: bool = False) -> None:
+def dryrun_programs(reduced: bool = False, y: bool = False,
+                    z: bool = False) -> None:
     """Phase x's child process: a fake world of one rank, and the counter
     of ``roofline.analysis`` over phase i's prefill program (flash) and
     phase j's netrpc train step, at their shapes on the meta device
     (``reduced``: the rehearsal's 2-layer reduced qwen2.5-3b at 2 x 64);
     ``y``: phase y's Y_FULL netrpc train steps instead, at theirs (the
-    prediction of their peaks). Prints one JSON line: each program's
-    summary."""
+    prediction of their peaks); ``z``: phase z's, j's step with
+    ``flash=True`` (at the reduced size with ``reduced``). Prints one
+    JSON line: each program's summary."""
     from repro_torch import compat
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.inc_agg import IncAggConfig
@@ -2521,6 +2786,12 @@ def dryrun_programs(reduced: bool = False, y: bool = False) -> None:
         progs = {arch: (model_config(arch, layers=layers),
                         ShapeConfig(f"y_{arch}", seq, batch, "train"), train)
                  for arch, layers, batch, seq in Y_FULL}
+    elif z:
+        cfg = model_config(ARCH, reduced=reduced,
+                           layers=2 if reduced else TRAIN_LAYERS)
+        shape = ShapeConfig("x_z", 64, 2, "train") if reduced \
+            else ShapeConfig("x_z", TRAIN_SEQ, TRAIN_BATCH, "train")
+        progs = {"z": (cfg, shape, dict(train, flash=True))}
     elif reduced:
         cfg = model_config(ARCH, reduced=True, layers=2)
         progs = {"i": (cfg, ShapeConfig("x_i", 64, 2, "prefill"),
@@ -2541,18 +2812,36 @@ def dryrun_programs(reduced: bool = False, y: bool = False) -> None:
     print(json.dumps(out), flush=True)
 
 
+def dryrun_start(reduced: bool = False, y: bool = False,
+                 z: bool = False) -> subprocess.Popen:
+    """``dryrun_programs`` started in a child process (a fake world of its
+    own, beside this process's NCCL groups); ``dryrun_result`` reads
+    it."""
+    code = ("import chip_smoke as c; "
+            f"c.dryrun_programs(reduced={reduced!r}, y={y!r}, z={z!r})")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def dryrun_result(proc: subprocess.Popen, what: str) -> dict:
+    """The summaries a ``dryrun_start`` child printed; fails if it did."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{what}: the dry run passed 600 s")
+    if proc.returncode != 0:
+        fail(f"{what}: the dry run failed:\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
 def dryrun_run(reduced: bool = False, y: bool = False) -> dict:
-    """``dryrun_programs`` in a child process (a fake world of its own,
-    beside this process's NCCL groups): its summaries. With ``y``
+    """``dryrun_programs`` in a child process: its summaries. With ``y``
     (``python3 -c "import chip_smoke as c; c.dryrun_run(y=True)"``) it
     prints each Y_FULL step's peak too."""
-    code = ("import chip_smoke as c; "
-            f"c.dryrun_programs(reduced={reduced!r}, y={y!r})")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=600)
-    if out.returncode != 0:
-        fail(f"phase x: the dry run failed:\n{out.stderr[-3000:]}")
-    got = json.loads(out.stdout.strip().splitlines()[-1])
+    got = dryrun_result(dryrun_start(reduced, y), "phase x")
     if y:
         for arch, d in got.items():
             print(f"dry run of phase y's {arch} netrpc step: peak "
@@ -2571,6 +2860,8 @@ def check_phase_x(torch, smi: str) -> dict:
     within X_PEAK_RTOL of ``max_memory_allocated``; prints the FLOPs, HBM
     bytes, roofline time and the roofline share of the measured time."""
     t0 = time.perf_counter()
+    # phase z's dry run, in a child of its own beside this one's: read in z
+    DRY_Z["proc"] = dryrun_start(z=True)
     dry = dryrun_run()
     total = torch.cuda.get_device_properties(0).total_memory
     for label, what in (("i", "prefill"), ("j", "warm train step")):
@@ -2602,6 +2893,124 @@ def check_phase_x(torch, smi: str) -> dict:
     if secs > X_BUDGET:
         fail(f"phase x took {secs:.3f} s, past its {X_BUDGET} s")
     return {}
+
+
+# -- phase z: phase j's train step through the flash kernels ------------------
+
+def attn_moments(run: dict) -> dict:
+    """The Adam first moment m of every attention leaf of a train run's
+    optimizer state, on the host."""
+    from repro_torch.models import api
+    return {n: t.detach().float().cpu()
+            for n, t in api.named_leaves(run["opt"]["m"]) if ".attn." in n}
+
+
+def z_oracle(run: dict, j: dict, what: str) -> tuple[float, float, tuple]:
+    """Each step's loss within Z_LOSS_RTOL (relative) of phase j's netrpc
+    loss at the same step, step 0's gnorm within Z_GNORM_RTOL of j's and
+    each attention leaf's m within Z_M_RTOL (relative norm) of j's;
+    returns the largest loss difference, the gnorm's and (the leaf, its
+    m difference) of the worst leaf."""
+    err = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                   j["losses"]))
+    if not err <= Z_LOSS_RTOL:
+        fail(f"{what}: losses {run['losses']} differ from phase j's "
+             f"{j['losses']} by {err:.2e} > {Z_LOSS_RTOL} (relative)")
+    g_err = abs(run["gnorms"][0] / j["gnorm0"] - 1)
+    if not g_err <= Z_GNORM_RTOL:
+        fail(f"{what}: step 0's gnorm {run['gnorms'][0]} differs from "
+             f"phase j's {j['gnorm0']} by {g_err:.2e} > {Z_GNORM_RTOL} "
+             f"(relative)")
+    mine = attn_moments(run)
+    if set(mine) != set(j["m_attn"]) or not mine:
+        fail(f"{what}: attention leaves {sorted(mine)} against phase j's "
+             f"{sorted(j['m_attn'])}")
+    m_err = max(((float((mine[n] - w).norm() / w.norm()), n)
+                 for n, w in j["m_attn"].items()),
+                key=lambda e: (not np.isfinite(e[0]), e[0]))
+    if not m_err[0] <= Z_M_RTOL:
+        fail(f"{what}: leaf {m_err[1]}'s m is {m_err[0]:.3e} from phase "
+             f"j's (relative norm) > {Z_M_RTOL}")
+    return err, g_err, m_err
+
+
+def z_launches(counts: dict, layers: int, leaves: int, steps: int,
+               what: str) -> None:
+    """Kernel 11 twice a flashed layer and step (the forward and the
+    checkpoint's recompute), each backward kernel once, and kernels 7/6/8
+    once a scattered leaf and step."""
+    want = {"flash_attention": 2 * layers * steps}
+    want.update({n: layers * steps for n in BWD_KERNELS})
+    want.update({n: leaves * steps
+                 for n in ("quantize", "sat_add", "dequantize")})
+    got = {n: counts[n] for n in want}
+    if got != want:
+        fail(f"{what}: launches {got}, not {want}")
+
+
+def check_phase_z(torch, smi: str) -> dict:
+    """Phase z: phase j's netrpc run with ``flash=True`` (the reference's
+    REPRO_FLASH_ATTN=1 train path): j's oracle, ``z_oracle`` against j's
+    run, the launches as ``z_launches`` reckons; the peak
+    against j's and against the dry run's prediction for the same step
+    (computed in a child process that phase x starts), within
+    X_PEAK_RTOL; then the
+    profile of one step (phase j's, moved here to pay for the phase)."""
+    from repro_torch import compat
+    from repro_torch.launch.mesh import one_rank_group
+    from repro_torch.launch.serve import model_config
+    from repro_torch.roofline.flash_model import flashed_layers
+    cfg = model_config(ARCH, layers=TRAIN_LAYERS)
+    leaves = scattered_leaves(cfg)
+    layers = sum(flashed_layers(cfg, TRAIN_SEQ))
+    dry = DRY_Z.pop("proc", None) or dryrun_start(z=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with one_rank_group(torch.device("cuda")):
+        mesh = compat.make_mesh((1, 1), ("data", "model"))
+        run, counts, secs = counted(
+            torch, lambda: train_run("netrpc", flash=True),
+            "phase z (train through the flash kernels, netrpc)",
+            ("flash_attention",) + BWD_KERNELS
+            + ("quantize", "sat_add", "dequantize", "sparse_addto"))
+        peak = torch.cuda.max_memory_allocated()
+        train_oracle(run, cfg.vocab, "phase z (netrpc, flash)")
+        err, g_err, (m_err, m_leaf) = z_oracle(run, TRAIN_J, "phase z")
+        TRAIN_J.pop("m_attn")
+        z_launches(counts, layers, leaves, TRAIN_STEPS, "phase z")
+        warm = statistics.mean(run["step_s"][1:])
+        d = dryrun_result(dry, "phase z")["z"]
+        peak_err = d["peak_bytes"] / peak - 1
+        j = MEASURED["j"]
+        print(f"path z_train_flash: {ARCH}, {run['n_layers']} layers "
+              f"({layers} through kernel 11 and its backward kernels), "
+              f"d_model {cfg.d_model}, B={TRAIN_BATCH} x S={TRAIN_SEQ}, "
+              f"netrpc (precision {PRECISION}): {secs:.3f} s for "
+              f"{TRAIN_STEPS} steps; losses {run['losses']} (phase j's "
+              f"{TRAIN_J['losses']}: max relative difference {err:.2e}, "
+              f"window {Z_LOSS_RTOL}); step 0's gnorm {run['gnorms'][0]} "
+              f"(phase j's {TRAIN_J['gnorm0']}: relative difference "
+              f"{g_err:.2e}, window {Z_GNORM_RTOL}); attention leaves' m: "
+              f"worst {m_leaf}, {m_err:.3e} from j's (window {Z_M_RTOL}); "
+              f"step seconds {run['step_s']}; warm "
+              f"step {warm:.6f} s, {TRAIN_BATCH * TRAIN_SEQ / warm:.3f} "
+              f"tokens/s (phase j's plain lane {j['s']:.6f} s, "
+              f"{TRAIN_BATCH * TRAIN_SEQ / j['s']:.3f} tokens/s); peak "
+              f"device memory {peak / 2 ** 30:.3f} GiB (phase j's "
+              f"{j['peak'] / 2 ** 30:.3f}; the dry run's prediction "
+              f"{d['peak_bytes'] / 2 ** 30:.3f}, {peak_err:+.4f}, tolerance "
+              f"{X_PEAK_RTOL}; its compute {d['compute_s']:.6f} s, memory "
+              f"{d['memory_s']:.6f} s, flash records "
+              f"{ {k: v['launches'] for k, v in d['kernels'].items() if 'flash' in k} }); "
+              f"{leaves} scattered leaves; launches {counts}; card: {smi}",
+              flush=True)
+        if not abs(peak_err) <= X_PEAK_RTOL:
+            fail(f"phase z: the dry run's peak is {peak_err:+.4f} from the "
+                 f"card's")
+        profile_train(torch, run, mesh, True, "z_train_flash")
+        del run
+        torch.cuda.empty_cache()
+    return counts
 
 
 # -- phase t: the fsdp mode of the train step ---------------------------------
@@ -3672,6 +4081,24 @@ def rehearse(scale_down: int = 64) -> None:
                 netrpc["losses"], "rehearsal of phase t")
     if ops.plain_counts()["quantize"] != gathered_leaves(cfg) * TRAIN_STEPS:
         fail("rehearsal: not one quantize per fsdp gather and step")
+    # phase z: j's reduced run through the flash lane (the plain version
+    # and its autograd on the CPU), and its dry run's records
+    ops.reset_counts()
+    flash_run = train_run("netrpc", flash=True, **small)
+    train_oracle(flash_run, cfg.vocab, "rehearsal of phase z")
+    err, g_err, m_err = z_oracle(
+        flash_run, {"losses": netrpc["losses"],
+                    "gnorm0": netrpc["gnorms"][0],
+                    "m_attn": attn_moments(netrpc)}, "rehearsal of phase z")
+    print(f"rehearsal of phase z: losses {flash_run['losses']} against j's "
+          f"{netrpc['losses']}: {err:.2e}; step 0's gnorm {g_err:.2e}; "
+          f"worst attention leaf's m {m_err[1]} {m_err[0]:.2e}", flush=True)
+    if ops.plain_counts()["flash_attention"] != 2 * 2 * TRAIN_STEPS:
+        fail("rehearsal of phase z: not two flash calls a layer and step")
+    dry_z = dryrun_result(dryrun_start(reduced=True, z=True),
+                          "rehearsal of phase z")["z"]
+    z_launches({k: v["launches"] for k, v in dry_z["kernels"].items()}, 2,
+               scattered_leaves(cfg), 1, "rehearsal of phase z's dry run")
     # phase x: the dry run of the reduced i and j against their plain
     # calls on the CPU
     dry = dryrun_run(reduced=True)
@@ -3746,7 +4173,7 @@ def rehearse(scale_down: int = 64) -> None:
                       tp_config(case, True).vocab,
                       f"rehearsal of phase {label}"), flush=True)
     rehearse_y()
-    print("rehearsal: phases a-y ran on the CPU and met their oracles")
+    print("rehearsal: phases a-z ran on the CPU and met their oracles")
 
 
 def rehearse_y() -> None:
@@ -3952,7 +4379,7 @@ def main() -> int:
     sass_counts(build)
     t0 = time.perf_counter()
     kernels = (check_kernels(torch, smi) + [check_flash(torch)]
-               + check_int8(torch))
+               + check_flash_bwd(torch) + check_int8(torch))
     phase_s["kernels"] = time.perf_counter() - t0
     counts = {}
     for label, check in (("a-e", check_path), ("f", check_local_accum),
@@ -3960,6 +4387,7 @@ def main() -> int:
                          ("i", lambda t: check_serve(t, smi, "i")),
                          ("j", lambda t: check_train(t, smi)),
                          ("x", lambda t: check_phase_x(t, smi)),
+                         ("z", lambda t: check_phase_z(t, smi)),
                          ("k", lambda t: check_int8_wire(t, kernels)),
                          ("l", lambda t: check_serve(t, smi, "l")),
                          ("m", lambda t: check_serve(t, smi, "m")),

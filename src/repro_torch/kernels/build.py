@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("fused_gpv", "sparse_addto", "inc_agg", "quantize",
-           "dequantize", "flash_attn", "pack_int8")
+           "dequantize", "flash_attn", "flash_attn_bwd", "pack_int8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

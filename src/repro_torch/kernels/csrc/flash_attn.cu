@@ -9,6 +9,11 @@
 //   - running (online) max m and sum l in fp32; l sums the unrounded fp32
 //     p, while p is rounded to bf16 before the p.V product;
 //   - fp32 accumulator; out = acc / max(l, 1e-30), rounded to bf16;
+//   - optionally the log-sum-exp of each row, fp32 (B, H, S), in the
+//     kernel's base-2 domain: lse2 = m + log2(max(l, 1e-30)) from the same
+//     running m and l, so exp2(s2 - lse2) is the row's softmax. The train
+//     lane's backward (csrc/flash_attn_bwd.cu) recomputes P from it; a null
+//     pointer skips the store (the prefill);
 //   - tiles wholly above the diagonal or left of the window are skipped.
 //     The diagonal tile is always visited last, so a row that a window
 //     masks wholly in an earlier tile (its state then holds p = 1 for
@@ -285,6 +290,7 @@ __device__ __forceinline__ float ex2(float x) {
 
 struct Params {
     __nv_bfloat16* o;
+    float* lse;                  // (B, H, S) base-2 log-sum-exp, or null
     int64_t o_sb, o_ss, o_sh;    // element strides of out (d stride 1)
     int B, S, H, KV;
     int causal;
@@ -610,6 +616,12 @@ flash_k_attn_fwd(const __grid_constant__ CUtensorMap qmap,
             const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
             __nv_bfloat16* og = p.o + w.b * p.o_sb + w.h * p.o_sh;
             const int r1 = r0 + 8;
+            if (p.lse != nullptr && lane % 4 == 0) {
+                // m and l are the same in the four threads of a quad
+                float* lg = p.lse + ((int64_t)w.b * p.H + w.h) * p.S;
+                if (r0 < p.S) lg[r0] = m0 + log2f(d0);
+                if (r1 < p.S) lg[r1] = m1 + log2f(d1);
+            }
             #pragma unroll
             for (int j = 0; j < D / 8; ++j) {
                 const int col = j * 8 + tcol;
@@ -710,7 +722,7 @@ int launch(const void* q, const void* k, const void* v, const Params& p,
 }  // namespace
 
 extern "C" int repro_flash_attn(
-        const void* q, const void* k, const void* v, void* o,
+        const void* q, const void* k, const void* v, void* o, void* lse,
         int64_t B, int64_t S, int64_t H, int64_t KV, int64_t D,
         int64_t q_sb, int64_t q_ss, int64_t q_sh,
         int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -722,6 +734,7 @@ extern "C" int repro_flash_attn(
         return (int)cudaErrorInvalidValue;
     Params p;
     p.o = static_cast<__nv_bfloat16*>(o);
+    p.lse = static_cast<float*>(lse);
     p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
     p.B = (int)B; p.S = (int)S; p.H = (int)H; p.KV = (int)KV;
     p.causal = (int)causal;

@@ -39,7 +39,7 @@ from repro_torch.kernels.ref import _sat_add_scalar
 
 # every kernel wrapper of the port, for launch accounting: the INC family
 # (register file, fold, SyncAgtr stream verbs), the attention kernel and
-# the int8 pack
+# its three backward kernels, and the int8 pack
 KERNELS = {"fused_addto": fused_gpv.fused_addto,
            "fused_scatter": fused_gpv.fused_scatter,
            "fused_read": fused_gpv.fused_read,
@@ -50,6 +50,9 @@ KERNELS = {"fused_addto": fused_gpv.fused_addto,
            "quantize": _quantize.quantize,
            "dequantize": _dequantize.dequantize,
            "flash_attention": _flash.flash_attention,
+           "flash_bwd_delta": _flash.flash_bwd_delta,
+           "flash_bwd_dkdv": _flash.flash_bwd_dkdv,
+           "flash_bwd_dq": _flash.flash_bwd_dq,
            "pack_int8": _pack.pack_int8,
            "unpack_int8": _pack.unpack_int8}
 # the two wrappers of the ordered scatter (csrc/scatter.cuh), which also

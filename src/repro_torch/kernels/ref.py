@@ -11,6 +11,7 @@ int64, so no step depends on how int32 overflow wraps.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.constants import INT32_MAX, INT32_MIN, SAT_MAX
@@ -210,19 +211,90 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: int | None = None) -> torch.Tensor:
     """q: (B,H,S,D); k/v: (B,KV,S,D) -> (B,H,S,D). fp32 scores times
     ``D**-0.5``, the causal/window mask to -1e30, an fp32 softmax, the
-    output cast to q's dtype."""
+    output cast to q's dtype: ``flash_attention_lse``'s output."""
+    return flash_attention_lse(q, k, v, causal, window)[0]
+
+
+LOG2E = 1.4426950408889634
+
+
+def _flash_mask(s: int, causal: bool, window, device):
+    """(S, S) keys each query keeps, or None (non-causal: every key)."""
+    if not causal:
+        return None
+    pos = torch.arange(s, device=device)
+    mask = pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask = mask & (pos[:, None] - pos[None, :] < window)
+    return mask
+
+
+def _flash_scores(q, k, causal, window):
+    """fp32 scores (B, KV, G, S, S) times ``D**-0.5`` (the kernel's fp32
+    scale), the mask, and the (B, KV, G, S, D) fp32 queries."""
     b, h, s, d = q.shape
     kv = k.shape[1]
     qg = q.reshape(b, kv, h // kv, s, d).float()
-    scores = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * (d ** -0.5)
-    if causal:
-        pos = torch.arange(s, device=q.device)
-        mask = pos[:, None] >= pos[None, :]
-        if window is not None:
-            mask = mask & (pos[:, None] - pos[None, :] < window)
+    scale = float(np.float32(d ** -0.5))
+    scores = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * scale
+    return scores, _flash_mask(s, causal, window, q.device), qg, scale
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention`` and each row's log-sum-exp (B, H, S) fp32 in
+    the kernel's base-2 domain: log2 sum_j exp2(s_j log2(e)) over the kept
+    keys, so ``exp2(s log2(e) - lse)`` is the row's softmax."""
+    b, h, s, d = q.shape
+    scores, mask, _, _ = _flash_scores(q, k, causal, window)
+    if mask is not None:
         scores = torch.where(mask, scores,
                              torch.tensor(-1e30, dtype=torch.float32,
                                           device=q.device))
-    w = torch.softmax(scores, dim=-1)
-    o = torch.einsum("bkgqs,bksd->bkgqd", w, v.float())
-    return o.reshape(b, h, s, d).to(q.dtype)
+    lse = torch.logsumexp(scores, dim=-1) * LOG2E
+    o = torch.einsum("bkgqs,bksd->bkgqd", torch.softmax(scores, dim=-1),
+                     v.float())
+    return o.reshape(b, h, s, d).to(q.dtype), lse.reshape(b, h, s)
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+              causal: bool = True, window: int | None = None,
+              round_to: torch.dtype | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``flash_attention`` from the forward's ``lse`` and
+    ``delta`` = sum_d dO * O (both (B, H, S) fp32): q and dO (B,H,S,D),
+    k and v (B,KV,S,D) -> (dq, dk, dv) in their inputs' dtypes. In fp32:
+    P = exp2(s log2(e) - lse) on the kept keys and 0 elsewhere, dP = dO
+    V^T, dS = P (dP - delta), dV = sum over the group of P^T dO, dK = scale
+    sum over the group of dS^T Q, dQ = scale dS K. ``round_to`` rounds P
+    and dS to that dtype before the products that take them, as the
+    kernels round them to bf16 (csrc/flash_attn_bwd.cu)."""
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    scores, mask, qg, scale = _flash_scores(q, k, causal, window)
+    p = torch.exp2(scores * LOG2E - lse.reshape(b, kv, h // kv, s, 1))
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros((), device=q.device))
+    dog = do.reshape(b, kv, h // kv, s, d).float()
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dog, v.float())
+    ds = p * (dp - delta.reshape(b, kv, h // kv, s, 1))
+    if round_to is not None:
+        p, ds = p.to(round_to).float(), ds.to(round_to).float()
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dog)
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qg) * scale
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, k.float()) * scale
+    return (dq.reshape(b, h, s, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        causal: bool = True, window: int | None = None,
+                        round_to: torch.dtype | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``flash_bwd`` with delta = sum_d dO * O in fp32: the plain version
+    of the three backward kernels together, (B,H,S,D) layout."""
+    delta = (do.float() * o.float()).sum(-1)
+    return flash_bwd(q, k, v, do, lse, delta, causal, window, round_to)

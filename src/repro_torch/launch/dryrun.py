@@ -75,15 +75,15 @@ def count_program(cfg, shape, mesh, *, inc=None, opt_cfg=None,
     """This rank's program of ``cfg`` at ``shape`` on ``mesh`` (built over
     a fake world, its groups of ``device="meta"``), run once on meta
     inputs under the counter: (the program, its ``Roofline``, the call's
-    seconds on the host). A train step takes ``inc``, ``opt_cfg`` and
-    ``n_micro``, a serve program ``flash`` and ``q8``."""
+    seconds on the host). A train step takes ``inc``, ``opt_cfg``,
+    ``n_micro`` and ``flash``, a serve program ``flash`` and ``q8``."""
     from repro_torch.launch import steps
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.roofline import analysis
     if shape.kind == "train":
         prog = steps.build_train_step(
             cfg, shape, mesh, inc=inc, opt_cfg=opt_cfg or AdamWConfig(),
-            n_micro=n_micro, device="meta")
+            n_micro=n_micro, flash=flash, device="meta")
     else:
         prog = steps.build_serve_step(cfg, shape, mesh, q8=q8, flash=flash,
                                       device="meta")
@@ -99,8 +99,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, inc_mode: str,
              qgather: bool = False, pad_kv: int = 0) -> dict:
     """The cell's roofline and memory on rank 0 of the production mesh,
     as a dict (``status`` "ok" or "skipped"). ``flash`` routes a prefill
-    through kernel 11 (the port trains through the plain attention
-    whatever it says), ``qgather`` the fsdp serve gather through int8,
+    through kernel 11 and a train step through kernel 11 and its backward
+    kernels, as the reference's ``REPRO_FLASH_ATTN=1`` does (its
+    ``flash_traffic_bytes`` then equals the flash kernels' records),
+    ``qgather`` the fsdp serve gather through int8,
     ``pad_heads``/``pad_kv`` pad the heads as the reference does."""
     from dataclasses import replace as _replace
 
@@ -156,7 +158,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, inc_mode: str,
         "fits": roof.peak_bytes <= CARD_BYTES,
         "flash_traffic_bytes": flash_traffic_bytes(
             cfg, shape, n_dp=prog.meta["n_dp"],
-            n_model=prog.meta["n_model"]) if flash else 0.0,
+            n_model=prog.meta["n_model"],
+            n_micro=prog.meta.get("n_micro") or 1) if flash else 0.0,
         "model_flops_per_dev": mf / n_chips,
         "useful_ratio": (mf / n_chips) / max(roof.flops, 1.0),
         "model_compute_s": mf / n_chips / analysis.PEAK_FLOPS,

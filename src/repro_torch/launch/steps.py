@@ -502,7 +502,7 @@ def _model_cut(spec: rules.PartitionSpec) -> bool:
 def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                      inc: IncAggConfig, opt_cfg: adamw.AdamWConfig,
                      n_micro: int | None = None, mode: str | None = None,
-                     device=None) -> Program:
+                     flash: bool = False, device=None) -> Program:
     """The train step of ``cfg`` at ``shape`` on ``mesh`` (a
     ``compat.make_mesh`` mesh over ("data", "model") or ("pod", "data",
     "model"), any data and model size), its tensors on ``device`` (the
@@ -524,7 +524,10 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     ones), it updates ``params`` and ``opt`` in place and returns them:
     the full-width model's optimizer state is 37 GB, and a second copy
     would not fit the card. ``meta["clock"]`` (a ``StageClock``) times
-    the stages of the last step."""
+    the stages of the last step. ``flash`` runs the causal attention
+    through the flash kernel and its backward kernels (the reference's
+    ``REPRO_FLASH_ATTN=1``), in both modes; by default the plain
+    attention."""
     dev = resolve_device(device)
     mode = mode or rules.mode_for(cfg.name)
     if mode not in ("zero1", "fsdp"):
@@ -583,10 +586,11 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                         gather_unstacked(params, dims, manual, inc, sink),
                         cfg, mb_i, remat=True,
                         param_gather=make_param_gather(dims, manual, inc,
-                                                       sink), model=model)
+                                                       sink), model=model,
+                        flash=flash)
                 else:
                     loss, _ = api.train_loss(params, cfg, mb_i, remat=True,
-                                             model=model)
+                                             model=model, flash=flash)
                 grads = list(torch.autograd.grad(
                     loss, anchor + [leaves[j][1] for j in wrt],
                     allow_unused=True, materialize_grads=True))[len(anchor):]
@@ -687,6 +691,7 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
 
     meta = {"mode": mode, "n_micro": n_micro, "n_dp": n_dp,
             "n_model": n_model, "manual": names, "kind": "train",
+            "flash": flash,
             "dims": dims, "param_specs": pspecs, "opt_specs": ospecs,
             "device": dev, "clock": clock}
     return Program(fn=fn, mesh=mesh, meta=meta)

@@ -8,7 +8,8 @@
 
 The train step runs on the card unless ``--device cpu`` (with
 ``--reduced`` for the tiny same-family config; ``--layers N`` cuts the
-depth). Without a card and without ``--device cpu`` it raises. The loop
+depth). ``--flash`` trains the causal attention through the flash kernel
+and its backward kernels, the reference's ``REPRO_FLASH_ATTN=1``. Without a card and without ``--device cpu`` it raises. The loop
 integrates: the deterministic data pipeline, the INC-aggregated train
 step (``launch/steps.py``, ``--mode zero1`` or ``fsdp``, by default the
 arch's ``rules.mode_for``), the CntFwd elastic quorum (``--quorum``; one
@@ -94,11 +95,14 @@ def train_loop(*, arch: str, inc_mode: str, steps_n: int, seq: int,
                resume: bool = True, data_kind: str = "bigram",
                log_every: int = 10, n_micro: int = 1, quorum: float = 1.0,
                device=None, layers: int | None = None,
-               mode: str | None = None, model_axis: int = 2) -> dict:
+               mode: str | None = None, model_axis: int = 2,
+               flash: bool = False) -> dict:
     """Train ``arch`` for ``steps_n`` steps on ``device`` (the card by
     default), this process one rank of a ``make_host_mesh(min(model_axis,
     world))`` mesh over the world (``world_group``), in ``mode`` (zero1 or fsdp;
-    the arch's by default). Returns the losses, gnorms and seconds of
+    the arch's by default); ``flash`` trains the causal attention through
+    the flash kernel and its backward kernels (the reference's
+    ``REPRO_FLASH_ATTN=1``). Returns the losses, gnorms and seconds of
     every step run, this rank's params and optimizer state, the
     telemetry summary (rank 0; None elsewhere) and the bigram loss
     floor."""
@@ -115,7 +119,7 @@ def train_loop(*, arch: str, inc_mode: str, steps_n: int, seq: int,
                               total_steps=steps_n)
         prog = steps.build_train_step(cfg, shape, mesh, inc=inc,
                                       opt_cfg=opt_cfg, n_micro=n_micro,
-                                      mode=mode, device=dev)
+                                      mode=mode, flash=flash, device=dev)
         params, opt = steps.init_state(prog, cfg)
         specs = steps.state_specs(prog)
 
@@ -211,6 +215,10 @@ def main() -> None:
     ap.add_argument("--model-axis", type=int, default=2,
                     help="the mesh's model axis (tensor parallelism), cut "
                     "to the world")
+    ap.add_argument("--flash", action="store_true",
+                    help="the causal attention through the flash kernel "
+                    "and its backward kernels (the reference's "
+                    "REPRO_FLASH_ATTN=1)")
     args = ap.parse_args()
     out = train_loop(arch=args.arch, inc_mode=args.inc_mode,
                      steps_n=args.steps, seq=args.seq, batch=args.batch,
@@ -218,7 +226,8 @@ def main() -> None:
                      ckpt_dir=args.ckpt_dir, data_kind=args.data,
                      n_micro=args.n_micro, quorum=args.quorum,
                      device=args.device, layers=args.layers,
-                     mode=args.mode, model_axis=args.model_axis)
+                     mode=args.mode, model_axis=args.model_axis,
+                     flash=args.flash)
     ls = out["losses"]
     if ls and out["inc_telemetry"] is not None:
         print(f"final loss {ls[-1]:.4f} (first {ls[0]:.4f}); "

@@ -358,17 +358,19 @@ def _stack_train(params: Tree, cfg: ArchConfig, x: torch.Tensor, ctx: Ctx,
 
 
 def forward(params: Tree, cfg: ArchConfig, batch: dict, remat: bool = True,
-            param_gather=None, model=None
+            param_gather=None, model=None, flash: bool = False
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """batch["tokens"]: (B, S) int -> (logits (B, S, V), aux), with the
-    plain attention: the flash kernel has no backward. ``param_gather``
-    is the fsdp mode's per-layer gather (``Ctx.param_gather``), ``model``
-    the model axis (``Ctx.model``)."""
+    """batch["tokens"]: (B, S) int -> (logits (B, S, V), aux).
+    ``flash`` runs the causal attention through the flash kernel and, under
+    autograd, its backward kernels (the reference's train step under
+    ``REPRO_FLASH_ATTN=1``); by default the plain attention.
+    ``param_gather`` is the fsdp mode's per-layer gather
+    (``Ctx.param_gather``), ``model`` the model axis (``Ctx.model``)."""
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     ctx = Ctx(cfg=cfg, positions=positions, param_gather=param_gather,
               memory=_memory(params, cfg, batch, param_gather, model),
-              model=model)
+              flash=flash, model=model)
     x = _embed(params, cfg, tokens, model)
     x, aux = _stack_train(params, cfg, x, ctx, remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -376,15 +378,17 @@ def forward(params: Tree, cfg: ArchConfig, batch: dict, remat: bool = True,
 
 
 def train_loss(params: Tree, cfg: ArchConfig, batch: dict,
-               remat: bool = True, param_gather=None, model=None
-               ) -> tuple[torch.Tensor, dict]:
+               remat: bool = True, param_gather=None, model=None,
+               flash: bool = False) -> tuple[torch.Tensor, dict]:
     """batch["tokens"]: (B, S+1) -> next-token cross-entropy (+ MoE aux),
     the log-sum-exp in fp32 over the whole vocab (under ``model`` the
-    gathered logits: the same loss on every rank of the axis)."""
+    gathered logits: the same loss on every rank of the axis). ``flash``
+    as in ``forward``."""
     tokens = batch["tokens"]
     inp = {**batch, "tokens": tokens[:, :-1]}
     tgt = tokens[:, 1:].long()
-    logits, aux = forward(params, cfg, inp, remat, param_gather, model)
+    logits, aux = forward(params, cfg, inp, remat, param_gather, model,
+                          flash)
     lse = torch.logsumexp(logits.float(), dim=-1)
     tl = torch.gather(logits, -1, tgt[..., None])[..., 0]
     ce = torch.mean(lse - tl.float())

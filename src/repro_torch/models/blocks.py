@@ -72,8 +72,9 @@ class Ctx:
     """Everything a block needs besides params and activations.
 
     ``flash`` is the reference's ``REPRO_FLASH_ATTN`` switch, carried
-    explicitly: prefill attention through the flash kernel (kernel 11)
-    rather than dense masked attention."""
+    explicitly: the causal attention of a prefill or a train step through
+    the flash kernel (kernel 11; in a train step under autograd, with its
+    backward kernels) rather than dense masked attention."""
     cfg: ArchConfig
     positions: torch.Tensor | None = None     # (S,) for train/prefill
     memory: torch.Tensor | None = None        # (B,M,d) cross-attn memory

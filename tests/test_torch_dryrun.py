@@ -11,6 +11,12 @@ to the reference's and to PERF.md §3.
   layer that PERF.md §3 states.
 - The CLI: a cell runs (``status: ok``), a cell ``shape_applicable``
   refuses is ``skipped``, and importing the port starts no world.
+- A train cell under ``--flash`` (the reference's ``REPRO_FLASH_ATTN=1``)
+  runs kernel 11 twice a flashed layer and microbatch (the forward and
+  the checkpoint's recompute) and each backward kernel once; its other
+  dot FLOPs are the plain lane's less the attention products, and its
+  ``flash_traffic_bytes`` is the sum of the flash kernels' records, on
+  the reduced config and at full size (``train_4k``) through the CLI.
 
 Each fake world runs in a subprocess: its process group is process-wide.
 """
@@ -59,6 +65,17 @@ for kind, kw in (("train", dict(inc=IncAggConfig(mode="netrpc"),
     _, r, _ = dryrun.count_program(
         cfg, ShapeConfig("t", {SEQ}, {BATCH}, kind), mesh, **kw)
     out[kind] = r.flops
+# the train step in 2 microbatches on each attention lane
+from repro_torch.roofline.flash_model import flash_traffic_bytes
+train = ShapeConfig("t", {SEQ}, {BATCH}, "train")
+for flash in (False, True):
+    _, r, _ = dryrun.count_program(cfg, train, mesh,
+                                   inc=IncAggConfig(mode="netrpc"),
+                                   n_micro=2, flash=flash)
+    out["flash" if flash else "plain"] = {{"flops": r.flops,
+                                          "kernels": r.kernels}}
+out["flash_traffic_bytes"] = flash_traffic_bytes(cfg, train, n_dp=1,
+                                                 n_model=1, n_micro=2)
 print(json.dumps(out))
 """
 
@@ -94,11 +111,25 @@ print(json.dumps(out))
 """
 
 
+FLASH_CELL = ("--arch", "qwen2.5-3b", "--shape", "train_4k", "--mesh",
+              "single", "--flash")
+
+
 @pytest.fixture(scope="module")
-def worlds():
-    """Both fake worlds, run side by side."""
+def worlds(tmp_path_factory):
+    """Both fake worlds and the CLI's flash train cell, run side by
+    side."""
+    out = tmp_path_factory.mktemp("flash_cell") / "cell.json"
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *FLASH_CELL,
+         "--json", str(out)], env=dict(os.environ, PYTHONPATH=str(SRC)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     one, two = _child(ONE_RANK), _child(TWO_RANKS)
-    return {"one": _result(one), "two": _result(two)}
+    got = {"one": _result(one), "two": _result(two)}
+    _, err = cli.communicate(timeout=300)
+    assert cli.returncode == 0, err[-3000:]
+    got["flash_cell"] = json.loads(out.read_text())
+    return got
 
 
 @pytest.fixture(scope="module")
@@ -129,6 +160,50 @@ def test_dot_flops_match_the_reference(worlds, reference_flops, kind):
     want = reference_flops[kind]
     assert want > 0
     assert worlds["one"][kind] == pytest.approx(want, rel=FLOPS_RTOL)
+
+
+FLASH_KERNELS = ("flash_attention", "flash_bwd_delta", "flash_bwd_dkdv",
+                 "flash_bwd_dq")
+
+
+def test_flash_train_cell_records_the_backward_kernels(worlds):
+    """The reduced qwen2.5-3b's train step in 2 microbatches with
+    ``flash=True``: 2 forward launches and 1 of each backward kernel a
+    flashed layer and microbatch; its other dot FLOPs equal the plain
+    lane's less the attention products (S < CHUNKED_THRESHOLD: dense QK^T
+    and PV, forward, recompute and their 4 backward products, each 2 B H
+    S^2 D); ``flash_traffic_bytes`` is the sum of the records' bytes."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.roofline.flash_model import flashed_layers
+    cfg = get_arch("qwen2.5-3b").reduced()
+    one = worlds["one"]
+    kernels = one["flash"]["kernels"]
+    layers = sum(flashed_layers(cfg, SEQ))
+    assert layers == cfg.n_layers
+    assert {n: kernels[n]["launches"] for n in FLASH_KERNELS} == {
+        "flash_attention": 2 * layers * 2, "flash_bwd_delta": layers * 2,
+        "flash_bwd_dkdv": layers * 2, "flash_bwd_dq": layers * 2}
+    assert not any(n.startswith("flash") for n in one["plain"]["kernels"])
+    attention = 8 * 2 * BATCH * cfg.n_heads * SEQ * SEQ * cfg.hd * layers
+    kernel_flops = sum(kernels[n]["flops"] for n in FLASH_KERNELS)
+    assert one["flash"]["flops"] - kernel_flops \
+        == one["plain"]["flops"] - attention
+    assert one["flash_traffic_bytes"] == sum(kernels[n]["bytes"]
+                                             for n in FLASH_KERNELS) > 0
+
+
+def test_cli_flash_train_cell_reports_its_flash_traffic(worlds):
+    """``--flash`` on a full-size train cell (qwen2.5-3b, train_4k, rank 0
+    of the (16, 16) mesh: 36 flashed layers, its microbatches) reports a
+    nonzero flash traffic term, the sum of the kernels' records."""
+    res = worlds["flash_cell"]
+    assert res["status"] == "ok" and res["flash"] and res["kind"] == "train"
+    kernels = res["kernels"]
+    n = 36 * res["n_micro"]
+    assert [kernels[k]["launches"] for k in FLASH_KERNELS] == [2 * n, n, n,
+                                                             n]
+    assert res["flash_traffic_bytes"] == sum(kernels[k]["bytes"]
+                                             for k in FLASH_KERNELS) > 0
 
 
 @pytest.mark.parametrize("arch", ARCHS)

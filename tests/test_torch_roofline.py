@@ -288,9 +288,17 @@ def test_flash_meta_lane_keeps_the_kernels_checks():
     q = meta(1, 128, 2, 96, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="D in"):
         tflash.flash_attention(q, q, q)
+    # under grad: kernel 11 with its lse, then the three backward kernels
     q = meta(1, 128, 2, 64, dtype=torch.bfloat16).requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        tflash.flash_attention(q, q, q)
+    with analysis.Counter() as c:
+        o = tflash.flash_attention(q, q, q)
+        o.backward(torch.empty_like(o))
+    assert {k: v["launches"] for k, v in c.kernels.items()} == dict.fromkeys(
+        ("flash_attention",) + flash_model.BWD_KERNELS, 1)
+    assert q.grad.shape == q.shape and q.grad.device.type == "meta"
+    with pytest.raises(TypeError, match="fp32"):
+        tflash.flash_bwd_dq(q, q, q, q, meta(1, 2, 128), meta(1, 2, 128,
+                                                              dtype=torch.int32))
 
 
 def test_flash_work_and_its_tiles():
@@ -311,6 +319,59 @@ def test_flash_work_and_its_tiles():
     assert flash_model.block_n(256) == 64
 
 
+def test_flash_bwd_work_and_its_kernels():
+    """The backward's floor is five products over the kept pairs, 2.5
+    times the forward's; its bytes are q, k, v, o, dO, lse and delta read
+    and dq, dk, dv written once. Kernels (b) and (c) do four and three of
+    the products, and each reads its own inputs once."""
+    case = (2, 16, 2, 1024, 128, None)
+    fwd = flash_model.flash_work(*case)
+    bwd = flash_model.flash_bwd_work(*case)
+    assert bwd[0] * 2 == fwd[0] * 5
+    b, h, kv, s, d, _ = case
+    assert bwd[1] == 2 * b * s * d * (4 * h + 4 * kv) + 8 * b * h * s
+    work = {n: flash_model.bwd_kernel_work(n, *case)
+            for n in flash_model.BWD_KERNELS}
+    assert work["flash_bwd_dkdv"][0] == 2 * fwd[0]
+    assert work["flash_bwd_dq"][0] * 2 == 3 * fwd[0]
+    assert work["flash_bwd_delta"][1] == 2 * 2 * b * s * h * d + 4 * b * h * s
+    # windowed: the kept pairs of the band
+    win = flash_model.flash_bwd_work(2, 16, 2, 1024, 128, 256)
+    assert win[0] * 2 == flash_model.flash_work(2, 16, 2, 1024, 128,
+                                                256)[0] * 5
+    with pytest.raises(ValueError):
+        flash_model.bwd_kernel_work("flash_bwd_x", *case)
+
+
+@pytest.mark.parametrize("name", flash_model.BWD_KERNELS)
+def test_meta_lane_records_the_backward_kernels(name):
+    """Each backward wrapper on meta tensors returns its outputs' shapes
+    and records one launch of its kernel's own floor
+    (``flash_model.bwd_kernel_work``), launching nothing."""
+    b, h, kv, s, d, w = 2, 16, 2, 1024, 128, 256
+    q = meta(b, s, h, d, dtype=torch.bfloat16)
+    k = meta(b, s, kv, d, dtype=torch.bfloat16)
+    lse, delta = meta(b, h, s), meta(b, h, s)
+    wrapper = getattr(tflash, name)
+    before = (wrapper.launches, wrapper.plain_calls)
+    with analysis.Counter() as c:
+        if name == "flash_bwd_delta":
+            got = (wrapper(q, q),)
+            outs = [((b, h, s), torch.float32)]
+        elif name == "flash_bwd_dkdv":
+            got = wrapper(q, k, k, q, lse, delta, True, w)
+            outs = [((b, s, kv, d), torch.bfloat16)] * 2
+        else:
+            got = (wrapper(q, k, k, q, lse, delta, True, w),)
+            outs = [((b, s, h, d), torch.bfloat16)]
+    assert [(tuple(t.shape), t.dtype) for t in got] == outs
+    rec = c.kernels[name]
+    assert rec["launches"] == 1
+    assert (rec["flops"], rec["bytes"]) == flash_model.bwd_kernel_work(
+        name, b, h, kv, s, d, None if name == "flash_bwd_delta" else w)
+    assert (wrapper.launches, wrapper.plain_calls) == before
+
+
 def test_flashed_layers_route_as_the_port():
     from repro_torch.configs.base import SHAPES, get_arch
     g = get_arch("gemma3-27b")
@@ -321,9 +382,17 @@ def test_flashed_layers_route_as_the_port():
     w = get_arch("whisper-medium")
     assert flash_model.flashed_layers(w, 416) == (24, 0)
     q = get_arch("qwen2.5-3b")
-    for shape in ("train_4k", "decode_32k"):
-        assert flash_model.flash_traffic_bytes(
-            q, SHAPES[shape], n_dp=16, n_model=16) == 0.0
+    assert flash_model.flash_traffic_bytes(
+        q, SHAPES["decode_32k"], n_dp=16, n_model=16) == 0.0
+    # a train step: each microbatch's forward, recompute and backward, at
+    # the kernels' records (16 rows a rank in 2 microbatches of 8)
+    train = SHAPES["train_4k"]
+    one = flash_model.train_call_bytes(8, 1, 1, 4096, 128, None)
+    assert one == 2 * flash_model.flash_work(8, 1, 1, 4096, 128, None)[1] \
+        + sum(flash_model.bwd_kernel_work(n, 8, 1, 1, 4096, 128, None)[1]
+              for n in flash_model.BWD_KERNELS)
+    assert flash_model.flash_traffic_bytes(
+        q, train, n_dp=16, n_model=16, n_micro=2) == 2 * 36 * one
     got = flash_model.flash_traffic_bytes(q, SHAPES["prefill_32k"],
                                           n_dp=16, n_model=16)
     # 2 rows a rank, 1 query head and the KV head it reads

@@ -417,15 +417,29 @@ def test_input_specs_match_reference(kind):
 # -- repair: flash attention under autograd ------------------------------------
 
 def test_flash_attention_raises_under_autograd():
-    from repro_torch.kernels import ops
+    """Under autograd a CPU tensor takes the plain version and its
+    autograd (the flash train lane; the card's lane is the backward
+    kernels), so q gets the plain attention's gradient; what the kernels
+    cannot take still raises on the kernels' lanes (meta here: an fp32
+    tensor, a head dim they lack), under autograd as without it."""
+    from repro_torch.kernels import flash_attn, ops
     q = torch.randn(1, 8, 2, 32, requires_grad=True)
     k = torch.randn(1, 8, 1, 32)
     v = torch.randn(1, 8, 1, 32)
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        ops.flash_attention(q, k, v)
+    ops.flash_attention(q, k, v).sum().backward()
+    q2 = q.detach().clone().requires_grad_(True)
+    flash_attn.flash_attention_plain(q2, k, v).sum().backward()
+    assert torch.equal(q.grad, q2.grad) and q.grad.abs().sum() > 0
     with torch.no_grad():
         assert ops.flash_attention(q, k, v).shape == (1, 8, 2, 32)
     assert ops.flash_attention(q.detach(), k, v).shape == (1, 8, 2, 32)
+    m = torch.empty(1, 8, 2, 32, device="meta", requires_grad=True)
+    with pytest.raises(TypeError, match="bf16"):
+        ops.flash_attention(m, m, m)
+    m = torch.empty(1, 8, 2, 96, dtype=torch.bfloat16, device="meta",
+                    requires_grad=True)
+    with pytest.raises(ValueError, match="D in"):
+        ops.flash_attention(m, m, m)
 
 
 def test_block_train_gradients_match_reference():
