@@ -6,8 +6,9 @@
 1. Build: every CUDA kernel of the path, from the sources in the checkout
    (one nvcc per source, in parallel); prints the card and the build time,
    and, where the toolkit has cuobjdump, the counts of HGMMA (wgmma),
-   UTMALDG (TMA load) and SYNCS (mbarrier) instructions in the flash
-   kernel's SASS (fails if cuobjdump ran and found no HGMMA).
+   UTMALDG (TMA load), LDGSTS (cp.async) and SYNCS (mbarrier)
+   instructions in the SASS of the flash kernel and of its backward
+   kernels (fails if cuobjdump ran and found no HGMMA in either).
 2. Kernels: each kernel against its plain PyTorch version on the card, at
    the path's shapes (a 40 000-slot segment, dense n=40 000, scatter
    k=65 536 with duplicates and saturating values; the fused fold at
@@ -85,7 +86,8 @@
    inputs) at phase z's shape (B=2, H=16, KV=2, S=1 024, D=128),
    gemma3-27b's local layers (1, 32, 16, 2 048, 128, window 1 024),
    whisper-medium's decoder (2, 16, 16, 448, 64), recurrentgemma-9b's
-   local layer (1, 16, 1, 4 096, 256, window 2 048) and at D = 32: dq, dk
+   local layer (1, 16, 1, 4 096, 256, window 2 048), at D = 32 and
+   phi4-mini-3.8b's (1, 24, 8, 2 048, 128; dK/dV's cluster of 3): dq, dk
    and dv within 1.5e-2 of max|plain| (``FLASH_BWD_TOL``, set from the
    CPU emulation of the kernels' bf16 roundings before their first run),
    each kernel's two calls bitwise equal; each timed beside its plain
@@ -227,7 +229,7 @@
    triggers and hit ratio, paxos's proposals/s and commit p50/p99 on the
    card and on the CPU, and train_telemetry's folds and flushes. s2:
    train_mini at full size (8 layers, d_model 512, vocab 8 192: 28 326 400
-   parameters; B = 16 x S = 128 bigram tokens) for 300 steps in netrpc and
+   parameters; B = 16 x S = 128 bigram tokens) for 280 steps in netrpc and
    in xla-psum (``--compare``). Checks: in each mode the last loss at
    least ``MINI_FALL`` below the first and above the chain's entropy
    floor; the final losses within ``MINI_GAP`` of each other; one
@@ -312,7 +314,10 @@
    Checks: j's oracle with each model's step-0 window (``Y_STEP0``; j's
    for the deep stacks), netrpc against fp32-ring within 1e-3, one
    quantize, sat_add and dequantize launch a scattered leaf and step, no
-   flash launch, telemetry through sparse_addto. Then one netrpc step of
+   flash launch, telemetry through sparse_addto. The blind check of
+   moonshot-v1-16b-a3b's window: its cut drawn from a second seed
+   (``Y_BLIND_SEED``), step 0's loss held to ``Y_STEP0`` as written, seed
+   0's forward held to the loss Y_CUT's run read. Then one netrpc step of
    each family's reduced config (mamba2-780m, gemma3-27b,
    recurrentgemma-9b, moonshot-v1-16b-a3b, llama-3.2-vision-90b in fsdp
    with its cross gates at 0.5, whisper-medium) on the card and on the
@@ -505,9 +510,11 @@ V_TIMEOUT = 300        # the CPU ranks' limit, seconds
 W_BUDGET = 120         # phase w's seconds from the spawn of its CPU ranks
 # phase s: the runtime examples of s1, and s2's train_mini: its steps, the
 # fall of the loss over them (first - last, each mode), the bound on the
-# netrpc - xla-psum final-loss gap (set before the first run on the card)
+# netrpc - xla-psum final-loss gap (set before the first run on the card).
+# 280 steps (300 before the cut that pays for phase y's blind check and
+# the sixth flash backward check shape: 0.27 s a step)
 S_EXAMPLES = ("mapreduce", "monitoring", "paxos", "train_telemetry")
-MINI_STEPS, MINI_FALL, MINI_GAP = 300, 1.0, 5e-2
+MINI_STEPS, MINI_FALL, MINI_GAP = 280, 1.0, 5e-2
 # phase j: train at full width; the card-vs-CPU step (j's and t's) at 1
 # layer (2 before phase v came) and TRAIN_SMALL_SEQ tokens a row: its CPU
 # time is mostly the per-parameter work of the 311 M-parameter embedding,
@@ -569,6 +576,14 @@ Y_STEPS = 3
 # j's 12.485 at 36 layers), inside j's window of ln(vocab) - 0.5 to + 1.5
 Y_STEP0 = {"gemma3-27b": (53.8, 57.5), "recurrentgemma-9b": (28.7, 33.8),
            "moonshot-v1-16b-a3b": (40.0, 43.1)}
+# the blind check of moonshot-v1-16b-a3b's window, set after the card read
+# the draw of seed 0 (Y_CUT's, 41.792): its cut (arch, layers, B, S) drawn
+# from Y_BLIND_SEED, step 0's loss (the train step's forward on
+# ``train_loop``'s first batch, before any update) held to Y_STEP0's window
+# as written (``step0_loss``'s prediction for this draw is in PERF.md)
+Y_BLIND = next(c for c in Y_CUT if c[0] == "moonshot-v1-16b-a3b")
+Y_BLIND_SEED = 1
+Y_READ: dict = {}      # arch -> step 0's loss of its Y_CUT run, as read
 # then one netrpc step of each family's reduced config (its pattern unit
 # once, ``ArchConfig.reduced``) in its own mode on the card and on the CPU,
 # held as j's step: B=TRAIN_BATCH x S=Y_PAIR_SEQ, twice the reduced window
@@ -613,8 +628,10 @@ FLASH_CHECKS = ((4, 16, 2, 2048, 128, None), (4, 16, 2, 2048, 128, 1024),
 # (``ref.flash_bwd``: fp32 math on the kernels' bf16 inputs, lse and delta),
 # (B, H, KV, S, D, window): phase z's train shape (j's: qwen2.5-3b, B=2 x
 # S=1 024), gemma3-27b's local layers, whisper-medium's decoder,
-# recurrentgemma-9b's local layer and one at D = 32 (the reduced configs'
-# head dim). Each of dq, dk and dv within FLASH_BWD_TOL of max|plain|: the
+# recurrentgemma-9b's local layer, one at D = 32 (the reduced configs'
+# head dim) and phi4-mini-3.8b's (a group of 3 query heads: a cluster of 3
+# in dK/dV, rows split 22, 22, 20). Each of dq, dk and dv within
+# FLASH_BWD_TOL of max|plain|: the
 # kernels round P and dS to bf16 before the products that take them and
 # store bf16, which ``ref.flash_bwd(round_to=bf16)`` emulates on the CPU
 # 2.6e-3 to 4.3e-3 from the fp32 gradient at these shapes
@@ -628,7 +645,8 @@ FLASH_BWD_CHECKS = ((2, 16, 2, 1024, 128, None),
                     (1, 32, 16, 2048, 128, 1024),
                     (2, 16, 16, 448, 64, None),
                     (1, 16, 1, 4096, 256, 2048),
-                    (2, 16, 2, 1024, 32, None))
+                    (2, 16, 2, 1024, 32, None),
+                    (1, 24, 8, 2048, 128, None))
 FLASH_BWD_TOL, FLASH_DELTA_RTOL, FLASH_LSE_ATOL = 1.5e-2, 1e-4, 1e-3
 BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 # phase z: phase j's train step through kernel 11 and its backward kernels
@@ -1673,28 +1691,32 @@ def check_flash_bwd(torch) -> list[dict]:
 
 
 def sass_counts(build) -> dict:
-    """Counts of HGMMA (wgmma), UTMALDG (TMA loads) and SYNCS (mbarrier)
-    instructions in the flash library's SASS, where the toolkit has
-    cuobjdump; fails only if it ran and found no HGMMA."""
+    """Counts of HGMMA (wgmma), UTMALDG (TMA loads), LDGSTS (cp.async) and
+    SYNCS (mbarrier) instructions in the SASS of kernel 11's library and
+    of its backward kernels', where the toolkit has cuobjdump; fails only
+    if it ran and found no HGMMA in one of them."""
     tool = Path(build.nvcc()).with_name("cuobjdump")
     if not tool.exists():
         print("cuobjdump not found: the flash SASS is not counted",
               flush=True)
         return {}
-    run = subprocess.run([str(tool), "-sass", str(build.lib_path(
-        "flash_attn"))], capture_output=True, text=True)
-    if run.returncode != 0:
-        print(f"cuobjdump failed ({run.returncode}): the flash SASS is not "
-              f"counted", flush=True)
-        return {}
-    counts = {op: len(re.findall(rf"\b{op}\b", run.stdout))
-              for op in ("HGMMA", "UTMALDG", "SYNCS")}
-    print("flash_attn SASS: " + ", ".join(f"{k} {v}"
+    out = {}
+    for lib in ("flash_attn", "flash_attn_bwd"):
+        run = subprocess.run([str(tool), "-sass", str(build.lib_path(lib))],
+                             capture_output=True, text=True)
+        if run.returncode != 0:
+            print(f"cuobjdump failed ({run.returncode}): the {lib} SASS is "
+                  f"not counted", flush=True)
+            continue
+        counts = {op: len(re.findall(rf"\b{op}\b", run.stdout))
+                  for op in ("HGMMA", "UTMALDG", "LDGSTS", "SYNCS")}
+        print(f"{lib} SASS: " + ", ".join(f"{k} {v}"
                                           for k, v in counts.items()),
-          flush=True)
-    if counts["HGMMA"] == 0:
-        fail("the flash library holds no HGMMA (wgmma) instruction")
-    return counts
+              flush=True)
+        if counts["HGMMA"] == 0:
+            fail(f"the {lib} library holds no HGMMA (wgmma) instruction")
+        out[lib] = counts
+    return out
 
 
 # -- phase 2, kernels 9-10: the int8 pack and unpack --------------------------
@@ -3621,6 +3643,7 @@ def y_train(torch, smi: str, arch: str, layers, batch: int, seq: int,
         ("quantize", "sat_add", "dequantize", "sparse_addto"))
     peak = torch.cuda.max_memory_allocated()
     window = train_oracle(run, cfg.vocab, what, steps, Y_STEP0.get(arch))
+    Y_READ[arch] = run["losses"][0]
     for name in ("quantize", "sat_add", "dequantize"):
         if counts[name] != leaves * steps:
             fail(f"{what}: {counts[name]} {name} launches, not one per "
@@ -3659,6 +3682,57 @@ def y_train(torch, smi: str, arch: str, layers, batch: int, seq: int,
     return {k: counts[k] + ring_counts[k] for k in counts}
 
 
+def y_blind(torch, smi: str, device: str = "cuda",
+            reduced: bool = False) -> float:
+    """Step 0's loss of Y_BLIND's cut drawn from Y_BLIND_SEED (not the
+    seed Y_CUT's run draws), at full width on the card held to Y_STEP0's
+    window: the loss ``train_loop``'s first step computes, from its first
+    batch, before any update. ``reduced``: the rehearsal's reduced width
+    on the CPU, held only to a finite loss."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch.serve import model_config
+    from repro_torch.models import api
+    arch, layers, batch, seq = Y_BLIND
+    cfg = model_config(arch, reduced, None if reduced else layers)
+    t0 = time.perf_counter()
+    first = pipeline.shard_batch(pipeline.add_modality_stubs(
+        pipeline.make_batch(pipeline.DataConfig(
+            vocab=cfg.vocab, batch=batch, seq_len=seq, kind="uniform"), 0),
+        cfg, batch), device)
+    losses = {}
+    for seed in (0, Y_BLIND_SEED):
+        params = api.init_params(seed, cfg, device=device)
+        with torch.no_grad():
+            losses[seed] = float(api.train_loss(params, cfg, first,
+                                                remat=False)[0])
+        del params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    what = (f"phase y's blind check ({arch}, {cfg.n_layers} layers, seed "
+            f"{Y_BLIND_SEED}, B={batch} x S={seq})")
+    loss = losses[Y_BLIND_SEED]
+    # seed 0's forward is the step Y_CUT's run took: the same reading
+    read = Y_READ.get(arch)
+    if read is None and not reduced:
+        fail(f"{what}: phase y's run of {arch} left no reading to hold "
+             f"seed 0's forward to")
+    if read is not None and not abs(losses[0] - read) <= 1e-3 * read:
+        fail(f"{what}: seed 0's forward gives {losses[0]:.6f}, not the "
+             f"{read:.6f} of phase y's run")
+    low, high = (-np.inf, np.inf) if reduced else Y_STEP0[arch]
+    if not (np.isfinite(loss) and low <= loss <= high):
+        fail(f"{what}: step 0's loss {loss:.4f} lies outside Y_STEP0's "
+             f"[{low}, {high}]")
+    print(f"path y_blind: {what}: step 0's loss {loss:.6f} within "
+          f"[{low}, {high}]" + ("" if reduced else
+                                " (Y_STEP0, written before this draw was "
+                                "read)")
+          + f"; seed 0's forward {losses[0]:.6f} (phase y's run "
+          f"{read}); {time.perf_counter() - t0:.3f} s; card: {smi}",
+          flush=True)
+    return loss
+
+
 def check_phase_y(torch, smi: str) -> dict:
     """Phase y: Y_FULL at full width and depth in netrpc and fp32-ring,
     Y_CUT's one netrpc step at full width, then each family's reduced
@@ -3676,6 +3750,7 @@ def check_phase_y(torch, smi: str) -> dict:
                               ring)
                 for name, c in got.items():
                     counts[name] = counts.get(name, 0) + c
+        y_blind(torch, smi)
         t1 = time.perf_counter()
         mesh = compat.make_mesh((1, 1), ("data", "model"))
         mesh_cpu = compat.make_mesh((1, 1), ("data", "model"), device="cpu")
@@ -4203,6 +4278,7 @@ def rehearse_y() -> None:
             if ring:
                 modes_oracle(run, train_run("fp32-ring", **kw), what)
             print(f"{what}: losses {run['losses']}", flush=True)
+    y_blind(torch, "cpu", device="cpu", reduced=True)
     with one_rank_group(torch.device("cpu")):
         mesh = compat.make_mesh((1, 1), ("data", "model"), device="cpu")
         for arch in Y_PAIRS:

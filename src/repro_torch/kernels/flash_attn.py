@@ -20,8 +20,13 @@ Under autograd a card or meta tensor goes through ``FlashAttention``, an
 ``autograd.Function``: its forward launches kernel 11 with the log-sum-exp
 output (fp32 (B, H, S), base 2) and saves q, k, v, o and that lse; its
 backward launches the three kernels of ``csrc/flash_attn_bwd.cu``:
-``flash_bwd_delta`` (sum_d dO * O), ``flash_bwd_dkdv`` (dK and dV, summed
-over a KV head's group inside one CTA, no atomics) and ``flash_bwd_dq``.
+``flash_bwd_delta`` (sum_d dO * O), ``flash_bwd_dkdv`` (dK and dV: a KV
+head's group of query heads split over the CTAs of a thread block
+cluster, ``roofline.flash_model.dkdv_split``, whose partial sums meet in
+shared memory in one fixed order, no atomics) and ``flash_bwd_dq``; each
+streams its tiles through a two-stage cp.async ring into the swizzled
+layout kernel 11's loads give, and runs every product as a wgmma (P and
+dS from registers).
 It is the counterpart of the reference's train step under
 ``REPRO_FLASH_ATTN=1``, which JAX differentiates through the chunked
 oracle (``repro/kernels/flash_attn.py:flash_attention_chunked_ref``);
@@ -37,7 +42,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import backend, build, ref
-from repro_torch.roofline.flash_model import bwd_kernel_work, flash_work
+from repro_torch.roofline.flash_model import bwd_kernel_work, \
+    dkdv_split, flash_work
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 # q, k, v, out, lse (or null); B, S, H, KV, D; 12 strides; causal, window,
@@ -45,11 +51,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {"repro_flash_attn": (_P,) * 5 + (_I,) * 5 + (_I,) * 12
               + (_I, _I, _F, _P)}
 # (a) o, dO, delta; B, S, H, D; 6 strides; stream. (b) q, k, v, dO, lse,
-# delta, dk, dv; B, S, H, KV, D; 18 strides; causal, window, sm_scale;
-# stream. (c) as (b) with dq for dk and dv, 15 strides
+# delta, dk, dv; B, S, H, KV, D; 18 strides; cluster, heads a CTA
+# (``dkdv_split``); causal, window, sm_scale; stream. (c) as (b) with dq
+# for dk and dv, 15 strides, no split
 BWD_SIGNATURES = {
     "repro_flash_bwd_delta": (_P,) * 3 + (_I,) * 4 + (_I,) * 6 + (_P,),
-    "repro_flash_bwd_dkdv": (_P,) * 8 + (_I,) * 5 + (_I,) * 18
+    "repro_flash_bwd_dkdv": (_P,) * 8 + (_I,) * 5 + (_I,) * 18 + (_I, _I)
     + (_I, _I, _F, _P),
     "repro_flash_bwd_dq": (_P,) * 7 + (_I,) * 5 + (_I,) * 15
     + (_I, _I, _F, _P)}
@@ -272,7 +279,8 @@ def flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 def flash_bwd_dkdv(q, k, v, do, lse, delta, causal: bool = True,
                    window: int | None = None):
     """(dK, dV) (B, S, KV, D) in k's dtype from q, dO (B, S, H, D), k, v
-    and the forward's lse and delta (B, H, S): kernel (b)."""
+    and the forward's lse and delta (B, H, S): kernel (b), the group's
+    query heads split over a cluster as ``dkdv_split`` says."""
     do = _readable_do(do)
     _bwd_checks("flash_bwd_dkdv", q, k, v, do, lse, delta)
     if q.device.type == "cpu":
@@ -292,8 +300,8 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, causal: bool = True,
         build.launch("flash_attn_bwd", BWD_SIGNATURES,
                      "repro_flash_bwd_dkdv",
                      *_bwd_args(q, k, v, do, lse, delta, dk, dv),
-                     int(causal), int(window or 0) if causal else 0,
-                     _scale(q.shape[3]))
+                     *dkdv_split(q.shape[2], k.shape[2]), int(causal),
+                     int(window or 0) if causal else 0, _scale(q.shape[3]))
     build.count(flash_bwd_dkdv)
     return dk, dv
 

@@ -36,6 +36,10 @@ checkpoint's recomputed forward and the three backward kernels, each at
 its meta record (``flash_work`` for a forward, ``bwd_kernel_work``), so
 it equals the bytes of the dry run's kernel records; it replaces the
 reference's ``TRAIN_FACTOR`` of 4.5 forwards. A decode step has none.
+
+``dkdv_split`` is how backward kernel (b) splits a KV head's group of
+query heads over a thread block cluster: the wrapper passes it to the
+kernel, which never derives it.
 """
 from __future__ import annotations
 
@@ -78,6 +82,20 @@ def flash_bwd_work(b, h, kv, s, d, window) -> tuple[int, int]:
 
 
 BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
+MAX_CLUSTER = 8          # CTAs a cluster of (b): the portable most
+
+
+def dkdv_split(h: int, kv: int) -> tuple[int, int]:
+    """(cluster, heads_per_cta) of kernel (b) for ``h`` query heads on
+    ``kv`` KV heads: the cluster is the largest divisor of the group
+    (h / kv) up to MAX_CLUSTER, and each of its CTAs walks group / cluster
+    query heads of the group."""
+    if kv < 1 or h % kv:
+        raise ValueError(f"dkdv_split: {h} query heads on {kv} KV heads")
+    group = h // kv
+    cluster = max(c for c in range(1, min(group, MAX_CLUSTER) + 1)
+                  if group % c == 0)
+    return cluster, group // cluster
 
 
 def bwd_kernel_work(name, b, h, kv, s, d, window,

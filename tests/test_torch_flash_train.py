@@ -55,7 +55,8 @@ import pytest
 import torch
 
 from repro_torch import compat
-from repro_torch.configs.base import ShapeConfig, get_arch
+from repro_torch.configs.all import ALL_ARCHS
+from repro_torch.configs.base import SHAPES, ShapeConfig, get_arch
 from repro_torch.core.inc_agg import IncAggConfig
 from repro_torch.kernels import flash_attn as tflash
 from repro_torch.kernels import ops, ref
@@ -63,6 +64,8 @@ from repro_torch.launch import steps
 from repro_torch.launch.mesh import one_rank_group
 from repro_torch.models import api
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.roofline import flash_model
+from repro_torch.sharding import tp
 
 # (B, H, KV, S, D, window): causal with KV = H/2 at D = 32 (the reduced
 # configs' head dim); a window at D = 64; MQA (KV = 1) with a window and
@@ -78,7 +81,7 @@ BWD_TOL, AUTOGRAD_TOL = 1.5e-2, 3e-2
 # at most 4 query heads, keeping each KV grouping and window
 EMUL_CASES = ((1, 4, 1, 1024, 128, None), (1, 2, 1, 2048, 128, 1024),
               (1, 4, 4, 448, 64, None), (1, 2, 1, 4096, 256, 2048),
-              (1, 4, 2, 256, 32, None))
+              (1, 4, 2, 256, 32, None), (1, 3, 1, 2048, 128, None))
 SEQ_TRAIN, STEP, TRAIN_LOSS_RTOL = 64, 3, 5e-4
 
 
@@ -232,6 +235,136 @@ def test_wrappers_keep_the_kernels_layout_and_counts():
             for n, c in before.items()} == dict.fromkeys(before, 1)
     with pytest.raises(TypeError, match="fp32"):
         tflash.flash_bwd_dq(q, k, v, do, lse.double(), delta)
+
+
+# -- the backward kernels' grids -----------------------------------------------
+
+ATTN_ARCHS = tuple(a for a in ALL_ARCHS if get_arch(a).n_heads)
+MODEL_AXES = (1, 2, 4)
+TILE, MAX_BLOCKS = 64, 2 ** 31 - 1   # rows a tile; a 1-D grid's limit
+
+
+def _chunks(d: int) -> int:
+    """Column chunks of dK/dV or dQ: one of min(D, 128) columns each."""
+    return d // min(d, 128)
+
+
+def _dkdv_grid(b, h, kv, s, d) -> int:
+    """CTAs of kernel (b): key tiles x batch x column chunks x KV heads x
+    the cluster (``launch_dkdv``)."""
+    return -(-s // TILE) * b * _chunks(d) * kv * flash_model.dkdv_split(
+        h, kv)[0]
+
+
+def _dq_grid(b, h, s, d) -> int:
+    """CTAs of kernel (c): query tiles x batch x column chunks x query
+    heads (``launch_dq``)."""
+    return -(-s // TILE) * b * _chunks(d) * h
+
+
+def _dkdv_blocks(b, h, kv, s, d) -> list[tuple]:
+    """A model of kernel (b)'s CTAs in ``blockIdx.x`` order, written from
+    the decoding in ``flash_k_bwd_dkdv``: (key tile, batch, column chunk,
+    KV head, cluster rank, its query heads in walk order). ``blockIdx.x =
+    ((tile * B * chunks + batch * chunks + chunk) * KV + kv head) * cluster
+    + rank``. A change to the C++ decoding does not change this copy: the
+    kernel itself is held by the ``cuda`` cases against the plain
+    version."""
+    cluster, per = flash_model.dkdv_split(h, kv)
+    group, nch = h // kv, _chunks(d)
+    out = []
+    for x in range(_dkdv_grid(b, h, kv, s, d)):
+        rank, rest = x % cluster, x // cluster
+        kvh, rest = rest % kv, rest // kv
+        bz, tile = rest % (b * nch), rest // (b * nch)
+        h0 = kvh * group + rank * per
+        out.append((tile, bz // nch, bz % nch, kvh, rank,
+                    tuple(range(h0, h0 + per))))
+    return out
+
+
+def _dq_blocks(b, h, s, d) -> list[tuple]:
+    """A model of kernel (c)'s CTAs in ``blockIdx.x`` order, written from
+    the decoding in ``flash_k_bwd_dq``: (query tile, batch, column chunk,
+    query head);
+    ``blockIdx.x = (reversed tile * B * chunks + batch * chunks + chunk) *
+    H + head``."""
+    nch, nqt = _chunks(d), -(-s // TILE)
+    out = []
+    for x in range(_dq_grid(b, h, s, d)):
+        head, rest = x % h, x // h
+        bz, rev = rest % (b * nch), rest // (b * nch)
+        out.append((nqt - 1 - rev, bz // nch, bz % nch, head))
+    return out
+
+
+def _rank_heads(cfg, n_model: int):
+    """(query heads, KV heads) a rank of a model axis of ``n_model`` runs
+    the attention with (``flash_model.flash_traffic_bytes``' count), or
+    None where tensor parallelism refuses the cut."""
+    h = cfg.n_heads if cfg.n_heads % n_model else cfg.n_heads // n_model
+    try:
+        kv = tp.kv_heads(cfg.n_heads, cfg.n_kv_heads, n_model, 0)[1]
+    except NotImplementedError:
+        return None
+    return h, kv
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_dkdv_split_covers_every_head_and_tile_once(arch):
+    """For each config with attention, at one rank and at a rank of a
+    model axis of 2 and 4: dK/dV's cluster is at most 8 and divides the
+    group, both backward grids fit a one-dimensional launch at the
+    catalog's longest train and prefill shapes, and, in the model of the
+    grids (``_dkdv_blocks``, ``_dq_blocks``), the CTAs of dK/dV (and of
+    dQ) cover every (batch, column chunk, key tile, query head) exactly
+    once, each cluster as consecutive CTAs of ranks 0..c-1, each CTA's
+    heads ascending, the longest causal walks first. The model is Python:
+    the kernels' own decoding is held by the ``cuda`` cases (a group of 3
+    among them) against the plain version."""
+    cfg = get_arch(arch)
+    seen = 0
+    for n_model in MODEL_AXES:
+        heads = _rank_heads(cfg, n_model)
+        if heads is None:
+            continue
+        h, kv = heads
+        seen += 1
+        group = h // kv
+        cluster, per = flash_model.dkdv_split(h, kv)
+        assert cluster <= flash_model.MAX_CLUSTER and group % cluster == 0
+        assert cluster * per == group, (arch, n_model, cluster, per)
+        assert cluster == max(c for c in range(1, 9) if group % c == 0)
+        for shape in ("train_4k", "prefill_32k"):
+            sh = SHAPES[shape]
+            assert _dkdv_grid(sh.global_batch, h, kv, sh.seq_len,
+                              cfg.hd) <= MAX_BLOCKS
+            assert _dq_grid(sh.global_batch, h, sh.seq_len,
+                            cfg.hd) <= MAX_BLOCKS
+        b, s = 2, 3 * TILE + 5
+        blocks = _dkdv_blocks(b, h, kv, s, cfg.hd)
+        pairs = [(bb, ch, kt, hh) for kt, bb, ch, _, _, hs in blocks
+                 for hh in hs]
+        nch = _chunks(cfg.hd)
+        assert sorted(pairs) == [(bb, ch, kt, hh) for bb in range(b)
+                                 for ch in range(nch) for kt in range(4)
+                                 for hh in range(h)]
+        for x in range(0, len(blocks), cluster):
+            members = blocks[x:x + cluster]
+            assert {m[:4] for m in members} == {members[0][:4]}
+            assert [m[4] for m in members] == list(range(cluster))
+            kvh = members[0][3]
+            for m in members:
+                assert list(m[5]) == sorted(m[5])
+                assert all(hh // group == kvh for hh in m[5])
+        assert [m[0] for m in blocks] == sorted(m[0] for m in blocks)
+        dq = _dq_blocks(b, h, s, cfg.hd)
+        assert sorted((bb, ch, qt, hh) for qt, bb, ch, hh in dq) == [
+            (bb, ch, qt, hh) for bb in range(b) for ch in range(nch)
+            for qt in range(4) for hh in range(h)]
+        assert [m[0] for m in dq] == sorted((m[0] for m in dq),
+                                            reverse=True)
+    assert seen >= 2, (arch, seen)
 
 
 # -- the train step --------------------------------------------------------------
@@ -394,10 +527,13 @@ def cuda():
     return torch.device("cuda")
 
 
-# chip_smoke.FLASH_BWD_CHECKS cut to at most 2 rows and 16 query heads
+# chip_smoke.FLASH_BWD_CHECKS cut to at most 2 rows and 16 query heads; a
+# group of 3 (phi4-mini-3.8b's, a cluster of 3 in dK/dV) at its KV heads
+# cut to 4
 CUDA_BWD_CASES = ((2, 16, 2, 1024, 128, None), (1, 16, 8, 2048, 128, 1024),
                   (2, 16, 16, 448, 64, None), (1, 8, 1, 4096, 256, 2048),
-                  (2, 8, 2, 1000, 32, None), (1, 4, 2, 200, 64, 70))
+                  (2, 8, 2, 1000, 32, None), (1, 4, 2, 200, 64, 70),
+                  (1, 12, 4, 1024, 128, None))
 
 
 def _card_inputs(case, dev):
